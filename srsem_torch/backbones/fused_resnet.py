@@ -1,0 +1,151 @@
+"""Fused serving ResNet-50 tower — the port of srsem/backbones/fused_resnet.py.
+
+A function over the SAME ``ImageNetResNet50`` module
+(srsem_torch/backbones/resnet.py) that routes the stride-1 interior
+bottlenecks through the Hopper kernel (srsem_torch/ops/fused_bottleneck.py)
+with frozen BN folded into the conv weights.  The stem, max-pool and the
+four downsampling blocks stay plain ``F.conv2d`` / ``F.max_pool2d`` (cuDNN),
+as the JAX package leaves them to XLA.  Serving only: no LoRA, no tap
+offsets.  Same ``(pooled, taps)`` contract and tap names as the module.
+
+``DEFAULT_FUSE_STAGES = (0, 1, 2, 3)`` differs from the JAX package's
+``(1, 2, 3)`` on purpose.  The JAX default leaves stage 0 out because its
+whole-image TPU kernel crashed the Mosaic compiler at 56x56x256, and makes
+the whole fused tower opt-in because it measured slower than XLA on a TPU.
+Neither reason carries over: on Hopper the kernel tiles any stage to fit
+shared memory, and the port's main path is meant to run its kernels.
+Stage 0 keeps the JAX package's routing through the halo-tiled wrapper
+(``TILED_STAGE_ROWS``), the configuration that
+tests/test_fused_bottleneck.py::test_fused_tower_stage0_tiled_matches_flax
+pins in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from srsem_torch.backbones.resnet import (
+    IMAGENET_STAGE_TAPS,
+    IMAGENET_STEM_TAP,
+    conv_nchw,
+    to_nchw,
+    to_nhwc,
+)
+from srsem_torch.ops.fused_bottleneck import (
+    bottleneck_weights,
+    fold_bn_into_conv,
+    fused_bottleneck,
+    fused_bottleneck_tiled,
+)
+
+Tensor = torch.Tensor
+
+#: Stages whose interior blocks (b >= 1) run the fused kernel.
+DEFAULT_FUSE_STAGES = (0, 1, 2, 3)
+
+#: Row tile per stage for the halo-tiled wrapper when that stage is fused.
+TILED_STAGE_ROWS = {0: 8}
+
+
+def _fold_conv(conv, bn, dtype: torch.dtype):
+    """conv + frozen BN folded into one conv and a bias, cast to ``dtype``."""
+    w, b = fold_bn_into_conv(conv.weight, bn)
+    return w.to(dtype), b.to(dtype).view(1, -1, 1, 1), conv.stride, conv.padding
+
+
+def fold_imagenet(model, dtype: torch.dtype = torch.bfloat16,
+                  fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES
+                  ) -> List[list]:
+    """BN-folded weights of every block of ``model``, cast once: per stage a
+    list of ``("fused", (w1, b1, w2, b2, w3, b3))`` (kernel layout, weights
+    in ``dtype``, biases float32) or ``("plain", [conv, ...])`` entries.
+    The tower is frozen, so a scorer folds once and reuses the result (the
+    JAX tower folds inside every jitted call instead)."""
+    stages = []
+    for s, blocks in enumerate(model.stages()):
+        folded = []
+        for b, block in enumerate(blocks):
+            if b > 0 and s in fuse_stages:
+                w = bottleneck_weights(block)
+                folded.append(("fused", tuple(
+                    t.to(dtype).contiguous() if t.dim() > 1 else t.contiguous()
+                    for t in w)))
+            else:  # downsample block, or a stage left on cuDNN
+                convs = [(block.conv1, block.bn1), (block.conv2, block.bn2),
+                         (block.conv3, block.bn3)]
+                if block.downsample is not None:
+                    convs.append((block.downsample[0], block.downsample[1]))
+                folded.append(("plain", [_fold_conv(c, bn, dtype)
+                                         for c, bn in convs]))
+        stages.append(folded)
+    return stages
+
+
+def _plain_block(convs, x: Tensor) -> Tensor:
+    def conv(i: int, v: Tensor, relu: bool = True) -> Tensor:
+        w, b, stride, padding = convs[i]
+        y = F.conv2d(v, w, None, stride, padding) + b
+        return F.relu(y) if relu else y
+
+    h = conv(2, conv(1, conv(0, x)), relu=False)
+    if len(convs) == 4:
+        x = conv(3, x, relu=False)
+    return F.relu(h + x)
+
+
+def _fused_block(weights, x: Tensor, row_tile: Optional[int] = None) -> Tensor:
+    h = x.shape[2]
+    xn = to_nhwc(x)
+    if row_tile and h // row_tile >= 2 and h % row_tile == 0:
+        y = fused_bottleneck_tiled(xn, *weights, row_tile=row_tile)
+    else:
+        y = fused_bottleneck(xn, *weights)
+    return to_nchw(y)
+
+
+def fused_imagenet_apply(
+    model, x: Tensor, dtype: torch.dtype = torch.bfloat16,
+    fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES,
+    folded: Optional[List[list]] = None,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """ImageNetResNet50 forward on NHWC ``x`` with fused interior blocks.
+
+    ``folded`` is ``fold_imagenet(model, dtype, fuse_stages)``, computed
+    here when not given.  Rounding points follow the JAX tower: the input
+    is cast to ``dtype``, and the stem BN affine is applied in ``dtype``
+    (fused_resnet.py:157-163).
+    """
+    if folded is None:
+        folded = fold_imagenet(model, dtype, fuse_stages)
+    taps: Dict[str, Tensor] = {}
+    h = to_nchw(x.to(dtype))
+    stem = conv_nchw(h, model.conv1)
+    taps[IMAGENET_STEM_TAP] = to_nhwc(stem)  # reference hooks the bare conv
+    h = F.relu(model.bn1(stem))
+    h = F.max_pool2d(h, 3, 2, 1)
+    for s, blocks in enumerate(folded):
+        for b, (kind, weights) in enumerate(blocks):
+            if kind == "fused":
+                h = _fused_block(weights, h, TILED_STAGE_ROWS.get(s))
+            else:
+                h = _plain_block(weights, h)
+            if b == 2:
+                taps[IMAGENET_STAGE_TAPS[s]] = to_nhwc(h)
+    return h.mean(dim=(2, 3)), taps
+
+
+def fused_apply(kind: str, model, x: Tensor,
+                dtype: torch.dtype = torch.bfloat16,
+                fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES,
+                folded: Optional[List[list]] = None):
+    """Dispatch on backbone kind (``"resnet50"``; the CLIP tower waits for
+    ROADMAP A3)."""
+    if kind == "resnet50":
+        return fused_imagenet_apply(model, x, dtype, fuse_stages, folded)
+    if kind == "resnet50_clip":
+        raise NotImplementedError(
+            "the fused CLIP tower is not ported yet (ROADMAP A3)")
+    raise ValueError(f"no fused tower for backbone kind {kind!r}")

@@ -1,0 +1,145 @@
+"""Batched pair scoring — the port of srsem/eval/scorer.py::PairScorer
+(``model_kind="global"``).
+
+* host threads decode JPEG/PNG and do the antialiased resize + crop to
+  uint8 (srsem_torch/data/preprocess.py);
+* uint8 batches go to the device (3 bytes a pixel), where normalize →
+  tower → head run;
+* double-buffering: batch i+1 decodes while batch i computes;
+* failed decodes give NaN rows (reference:
+  datasets/SRdatasetPseudolabelGen/1_compute_image_metrics.py:119-134).
+
+``fused_tower=True`` (the default) runs the tower's interior blocks through
+the Hopper bottleneck kernel (srsem_torch/backbones/fused_resnet.py);
+``False`` runs the module's plain ``F.conv2d`` chain, the counterpart of
+the JAX package's dense XLA tower.  The head always goes through
+``fused_global_score`` (the Triton kernel on the card).  One card, no mesh:
+multi-GPU waits for ROADMAP A9; the CLU map model for A5.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from srsem_torch.backbones.fused_resnet import fold_imagenet, fused_apply
+from srsem_torch.data.preprocess import Preprocess
+from srsem_torch.device import DeviceLike, resolve_device
+from srsem_torch.models.global_models import GlobalPairScorer
+from srsem_torch.ops.fused_head import fused_global_score
+
+
+class PairScorer:
+    """Batched scorer for (GT, SR) image pairs: one scalar per pair.
+
+    The fused tower's BN-folded weights are computed once, here, from the
+    model's weights at construction: load weights before building it."""
+
+    def __init__(
+        self,
+        cfg,
+        model: GlobalPairScorer,
+        batch_size: int = 64,
+        model_kind: str = "global",
+        num_workers: int = 16,
+        decode_backend: str = "pil",
+        fused_tower: bool = True,
+        fast_jpeg: bool = False,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        if model_kind != "global":
+            raise NotImplementedError(
+                f"model_kind {model_kind!r} is not ported yet (CLU map "
+                "model: ROADMAP A5)")
+        if decode_backend != "pil":
+            raise NotImplementedError(
+                f"decode_backend {decode_backend!r} is not ported yet "
+                "(native decode: ROADMAP A2)")
+        if cfg.backbone.kind != "resnet50":
+            raise NotImplementedError(
+                f"backbone {cfg.backbone.kind!r} is not ported yet "
+                "(ROADMAP A3/A10)")
+        self.cfg = cfg
+        self.model = model.to(self.device).eval()
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+        self.fused_tower = fused_tower
+        self.dtype = getattr(torch, cfg.backbone.compute_dtype)
+        self.preprocess = Preprocess.for_backbone(
+            cfg.backbone.kind, cfg.backbone.image_size, fast_jpeg=fast_jpeg)
+        # The tower is frozen: fold BN into the kernel weights once.
+        self._folded = None
+        if fused_tower:
+            with torch.no_grad():
+                self._folded = fold_imagenet(self.model.backbone, self.dtype)
+
+    # ---- device path ----------------------------------------------------
+
+    def _tower(self, x: torch.Tensor):
+        if self.fused_tower:
+            return fused_apply(self.cfg.backbone.kind, self.model.backbone, x,
+                               self.dtype, folded=self._folded)
+        return self.model.backbone(x)
+
+    @torch.inference_mode()
+    def score_arrays(self, a_u8: np.ndarray, b_u8: np.ndarray) -> torch.Tensor:
+        """Score a uint8 NHWC batch pair; returns (N,) float32 on the
+        scorer's device."""
+        pre = self.preprocess
+        a = pre.device_normalize(torch.as_tensor(np.asarray(a_u8)).to(self.device))
+        b = pre.device_normalize(torch.as_tensor(np.asarray(b_u8)).to(self.device))
+        _, taps_a = self._tower(a)
+        _, taps_b = self._tower(b)
+        return fused_global_score(taps_a, taps_b, self.model.aggregator,
+                                  self.model.tap_names)
+
+    # ---- end-to-end path -------------------------------------------------
+
+    def _decode_pair(self, pair: Tuple[str, str]):
+        return (self.preprocess.decode_uint8(pair[0]),
+                self.preprocess.decode_uint8(pair[1]))
+
+    def _safe_decode(self, pair):
+        try:
+            return self._decode_pair(pair)
+        except Exception:  # per-item failure contract: the row becomes NaN
+            return None
+
+    def score_paths(self, pairs: Sequence[Tuple[str, str]]) -> np.ndarray:
+        """Decode + score (path_a, path_b) pairs; one score per pair, NaN
+        where a file failed to decode."""
+        bs = self.batch_size
+        results: List[np.ndarray] = []
+        chunks = [pairs[i: i + bs] for i in range(0, len(pairs), bs)]
+        with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            submit = lambda chunk: [  # noqa: E731
+                pool.submit(self._safe_decode, p) for p in chunk]
+            pending = submit(chunks[0]) if chunks else None
+            for i in range(len(chunks)):
+                # Double-buffer: chunk i+1 decodes while chunk i scores.
+                nxt = submit(chunks[i + 1]) if i + 1 < len(chunks) else None
+                results.append(self._finish_chunk(pending))
+                pending = nxt
+        out = (np.concatenate(results, axis=0) if results
+               else np.zeros((0,), np.float32))
+        return out[: len(pairs)]
+
+    def _finish_chunk(self, futures) -> np.ndarray:
+        decoded = [f.result() for f in futures]
+        n = len(decoded)
+        size = self.preprocess.size
+        a = np.zeros((self.batch_size, size, size, 3), np.uint8)
+        b = np.zeros_like(a)
+        ok = np.zeros((self.batch_size,), bool)
+        for i, d in enumerate(decoded):
+            if d is not None:
+                a[i], b[i] = d
+                ok[i] = True
+        scores = self.score_arrays(a, b).cpu().numpy().astype(np.float32)
+        scores = scores[:n]
+        scores[~ok[:n]] = np.nan
+        return scores
