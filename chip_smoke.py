@@ -9,10 +9,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build   — nvcc builds every csrc/*.cu kernel from the checkout (one
              nvcc per source, in parallel); the -Xptxas -v lines.
 3. kernels — each kernel against its plain PyTorch version at every
-             main-path shape (batch 64, 224 px), in float32 with TF32 off
-             and in bf16, with the stated tolerances; then CUDA-event times
-             in bf16 (the serving dtype) of the kernel, its plain version,
-             a one-call PyTorch yardstick, and the card's bound.
+             main-path shape (224 px; batch 64 on the global path, 32 on
+             the CLU path, whose CLIP tower runs the bottleneck kernels
+             too), in float32 with TF32 off and in bf16, with the
+             stated tolerances (the decoder also at a v2 shape and at the
+             u=None level-4 shape, in bf16); then CUDA-event times in bf16
+             (the serving dtype) of the kernel, its plain version, a
+             one-call PyTorch yardstick, and the card's bound.
 4. slice   — the full-width flagship scorer GlobalModelConfig(resnet50,
              224, bfloat16, stages_cnn, depth 3) with seeded random
              weights: PairScorer.score_paths over synthetic JPEG/PNG pairs
@@ -22,9 +25,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
              score_arrays pairs/s at batch 64; a torch.profiler window
              over three batches (device busy share, device time by
              kernel); ``python -m srsem_torch score`` as a subprocess.
-5. result  — the card line, the ``kernels`` line (per kernel: launches in
-             the slice run, worst bf16 error, and times summed over one
-             scored batch's launches), the device line.
+5. clu     — the CLU map model LocalModelConfig(resnet50_clip, 224,
+             bfloat16, decoder bfloat16, v2 off), full width, seeded
+             weights: PairScorer(model_kind="local").score_paths (NaN map
+             on exactly the corrupt row, the rest finite in [0.5, 1]) with
+             the launch counts reset just before and read just after;
+             float32 kernel-path maps against the plain module (TF32 off,
+             2e-3); score_arrays maps/s at batch 32; a profile of three
+             batches; ``python -m srsem_torch score-maps-groups`` (K = 2)
+             as a subprocess.
+6. result  — the card line, the ``kernels`` line (per kernel: launches in
+             the runs of the slices that use it, worst bf16 error, and
+             times summed over one scored batch's launches of each slice at
+             that slice's shapes; under ``paths``, each slice's own
+             launches and times), the device line.
 
 Bounds use an H100 SXM's published peaks: 3.35 TB/s, 989 TFLOP/s bf16
 tensor cores, 67 TFLOP/s float32 outside them.
@@ -44,6 +58,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
 BATCH = 64
+CLU_BATCH = 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -84,18 +99,40 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
-# Main-path shapes at batch 64, 224 px, and launches per scored batch
-# (two tower passes; one head call per tapped stage).
-HEAD_SHAPES = [((BATCH, 56, 56, 256), 1), ((BATCH, 28, 28, 512), 1),
-               ((BATCH, 14, 14, 1024), 1), ((BATCH, 7, 7, 2048), 1)]
-BOTTLENECK_SHAPES = [((BATCH, 28, 28, 512), 128, 6),
-                     ((BATCH, 14, 14, 1024), 256, 10),
-                     ((BATCH, 7, 7, 2048), 512, 4)]
-TILED_SHAPES = [((BATCH, 56, 56, 256), 64, 4)]
+# Main-path shapes at 224 px, per path ("global": the global scorer at
+# batch 64; "clu": the CLU map model at batch 32), and launches per scored
+# batch (two tower passes; one head call per tapped stage).  Both towers
+# run the same interior bottlenecks: the CLIP tower's stride-1 blocks are
+# the ImageNet ones.
+PATH_BATCH = {"global": BATCH, "clu": CLU_BATCH}
+HEAD_SHAPES = {"global": [((BATCH, 56, 56, 256), 1),
+                          ((BATCH, 28, 28, 512), 1),
+                          ((BATCH, 14, 14, 1024), 1),
+                          ((BATCH, 7, 7, 2048), 1)]}
+BOTTLENECK_SHAPES = {path: [((n, 28, 28, 512), 128, 6),
+                            ((n, 14, 14, 1024), 256, 10),
+                            ((n, 7, 7, 2048), 512, 4)]
+                     for path, n in PATH_BATCH.items()}
+TILED_SHAPES = {path: [((n, 56, 56, 256), 64, 4)]
+                for path, n in PATH_BATCH.items()}
+# CLU decoder levels at batch 32, 224 px: (n, h, w, cd, cu, cm, co,
+# final_kernel, row tile, launches per scored batch).  The last two rows
+# are checked and not on the default path (v2's odd skip width; level 4,
+# u=None).
+DECODER_SHAPES = {
+    "fused_decoder_level": [(CLU_BATCH, 28, 28, 512, 1024, 512, 512, 3, None, 1),
+                            (CLU_BATCH, 7, 7, 2048, 0, 2048, 2048, 3, None, 0)],
+    "fused_decoder_level_tiled": [
+        (CLU_BATCH, 56, 56, 256, 512, 256, 256, 3, 7, 1),
+        (CLU_BATCH, 112, 112, 64, 256, 64, 1, 1, 7, 1),
+        (CLU_BATCH, 56, 56, 257, 512, 256, 256, 3, 7, 0)],
+}
 
 
 def check_kernels(torch):
-    """Phase 3; returns {kernel name: summary}."""
+    """Phase 3; returns {(kernel name, path): summary}: the worst bf16
+    error, and ms / plain_ms / library_ms / bound_ms summed over the
+    path's launches in one scored batch (``launches``)."""
     import torch.nn.functional as F
 
     from srsem_torch.ops import fused_bottleneck as fb
@@ -106,10 +143,11 @@ def check_kernels(torch):
     randn = lambda *s: torch.randn(s, device=dev, generator=gen)  # noqa: E731
     summary = {}
 
-    def add(name, err, ms, plain, lib, bms, by, count):
-        s = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                      "plain_ms": 0.0, "library_ms": 0.0,
-                                      "bound_ms": 0.0, "by": {}})
+    def add(name, path, err, ms, plain, lib, bms, by, count):
+        s = summary.setdefault((name, path), {
+            "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+            "library_ms": 0.0, "bound_ms": 0.0, "by": {}})
+        s["launches"] += count
         s["max_abs_err"] = max(s["max_abs_err"], err)
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                        ("bound_ms", bms)):
@@ -117,7 +155,7 @@ def check_kernels(torch):
         s["by"][by] = s["by"].get(by, 0.0) + bms * count
 
     # -- head (Triton) ----------------------------------------------------
-    for shape, count in HEAD_SHAPES:
+    for shape, count in HEAD_SHAPES["global"]:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             fa = randn(*shape).abs().to(dtype)  # taps are post-ReLU
@@ -139,12 +177,13 @@ def check_kernels(torch):
         elems = fa.numel()
         bms, by = bound(2 * elems * fa.element_size() + 4 * shape[-1]
                         + 4 * shape[0], 4 * elems, F32_FLOPS)
-        emit("kernel", name="fused_stage_score", shape=list(shape),
+        emit("kernel", name="fused_stage_score", path="global",
+             shape=list(shape),
              max_abs_err=errs, tolerance="1e-5 + 1e-5*max|want| (f32 sums "
              "in another order)", ms=ms, plain_ms=plain, library_ms=lib,
              bound_ms=bms, bound_by=by)
-        add("fused_stage_score", errs[str(torch.bfloat16)], ms, plain, lib,
-            bms, by, count)
+        add("fused_stage_score", "global", errs[str(torch.bfloat16)], ms,
+            plain, lib, bms, by, count)
 
     # -- bottleneck (CUDA C++) -------------------------------------------
     def weights(c, wd):
@@ -153,85 +192,185 @@ def check_kernels(torch):
                 mk(3, 3, wd, wd, f=(9 * wd) ** -0.5), mk(wd, f=0.1),
                 mk(wd, c, f=wd ** -0.5), mk(c, f=0.1))
 
-    for name, shapes in (("fused_bottleneck", BOTTLENECK_SHAPES),
-                         ("fused_bottleneck_tiled", TILED_SHAPES)):
+    cases = [(name, path, shape)
+             for name, table in (("fused_bottleneck", BOTTLENECK_SHAPES),
+                                 ("fused_bottleneck_tiled", TILED_SHAPES))
+             for path, shapes in table.items() for shape in shapes]
+    for name, path, (shape, wd, count) in cases:
         wrapper = getattr(fb, name)
-        for shape, wd, count in shapes:
-            row_tile = 8 if name == "fused_bottleneck_tiled" else None
+        row_tile = 8 if name == "fused_bottleneck_tiled" else None
+        kw = {"row_tile": row_tile} if row_tile else {}
+        ws = weights(shape[-1], wd)
+        errs = {}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x = randn(*shape).to(dtype)
+            got = wrapper(x, *ws, **kw)
+            want = fb.plain_bottleneck(x, ws, row_tile)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            errs[str(dtype)] = err
+            limit = tol + tol * want.float().abs()
+            if not bool((diff <= limit).all()):
+                raise AssertionError(f"{name} {shape} {dtype}: max |err| "
+                                     f"{err} beyond rtol=atol={tol}")
+        th, tw = fb.kernel_tile(x, wd, row_tile)
+        ms = cuda_ms(torch, lambda: wrapper(x, *ws, **kw), 5)
+        plain = cuda_ms(torch, lambda: fb.plain_bottleneck(x, ws, row_tile),
+                        3)
+        # Yardstick: the cuDNN chain of three convs with the same folded
+        # weights, channels_last bf16.
+        xc = x.permute(0, 3, 1, 2)
+        k1 = ws[0].t()[:, :, None, None].to(x.dtype)
+        k2 = ws[2].permute(3, 2, 0, 1).contiguous().to(x.dtype)
+        k3 = ws[4].t()[:, :, None, None].to(x.dtype)
+        c1, c2, c3 = (b.to(x.dtype) for b in (ws[1], ws[3], ws[5]))
+
+        def chain():
+            h = F.relu(F.conv2d(xc, k1, c1))
+            h = F.relu(F.conv2d(h, k2, c2, padding=1))
+            return F.relu(F.conv2d(h, k3, c3) + xc)
+
+        lib = cuda_ms(torch, chain, 5)
+        n, h, w_, c = shape
+        flops = 2 * n * h * w_ * (c * wd + 9 * wd * wd + wd * c)
+        nbytes = (2 * x.numel() * 2 + 2 * (2 * c * wd + 9 * wd * wd)
+                  + 4 * (2 * wd + c))
+        bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
+        emit("kernel", name=name, path=path, shape=list(shape), wd=wd,
+             tile=[th, tw], max_abs_err=errs,
+             tolerance="f32 (TF32 off) rtol=atol=1e-4; bf16 "
+             "rtol=atol=2e-2 (bf16 ulps where f32 sums round apart)",
+             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+             bound_by=by, tflops=flops / ms / 1e9)
+        add(name, path, errs[str(torch.bfloat16)], ms, plain, lib, bms, by,
+            count)
+
+    # -- decoder level (CUDA C++) -----------------------------------------
+    from srsem_torch.ops import fused_decoder as fd
+
+    for name, shapes in DECODER_SHAPES.items():
+        wrapper = getattr(fd, name)
+        for n, h, w_, cd, cu, cm, co, fk, row_tile, count in shapes:
             kw = {"row_tile": row_tile} if row_tile else {}
-            ws = weights(shape[-1], wd)
+            k2 = 9 if fk == 3 else 1
+            mk = lambda *s, fan: randn(*s) * fan ** -0.5  # noqa: E731
+            ws = (mk(3, 3, cd, cm, fan=9 * (cd + cu)),
+                  mk(3, 3, cu, cm, fan=9 * (cd + cu)) if cu else None,
+                  randn(cm) * 0.1,
+                  mk(*((3, 3) if fk == 3 else ()), cm, co, fan=k2 * cm),
+                  randn(co) * 0.1)
             errs = {}
-            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                x = randn(*shape).to(dtype)
-                got = wrapper(x, *ws, **kw)
-                want = fb.plain_bottleneck(x, ws, row_tile)
+            dtypes = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+            for dtype, tol in dtypes[1:] if count == 0 else dtypes:
+                # Squared diffs are nonnegative, as are upsampled ReLUs.
+                d = randn(n, h, w_, cd).square().to(dtype)
+                u = randn(n, h, w_, cu).abs().to(dtype) if cu else None
+                got = wrapper(d, u, ws[0], ws[1], ws[2], ws[3], ws[4],
+                              final_kernel=fk, **kw)
+                want = fd.plain_decoder_level(d, u, *ws, fk, row_tile)
                 torch.cuda.synchronize()
                 diff = (got.float() - want.float()).abs()
                 err = float(diff.max())
                 errs[str(dtype)] = err
-                limit = tol + tol * want.float().abs()
-                if not bool((diff <= limit).all()):
-                    raise AssertionError(f"{name} {shape} {dtype}: max |err| "
-                                         f"{err} beyond rtol=atol={tol}")
-            th, tw = fb.kernel_tile(x, wd, row_tile)
-            ms = cuda_ms(torch, lambda: wrapper(x, *ws, **kw), 5)
-            plain = cuda_ms(torch, lambda: fb.plain_bottleneck(x, ws, row_tile),
-                            3)
-            # Yardstick: the cuDNN chain of three convs with the same folded
-            # weights, channels_last bf16.
-            xc = x.permute(0, 3, 1, 2)
-            k1 = ws[0].t()[:, :, None, None].to(x.dtype)
-            k2 = ws[2].permute(3, 2, 0, 1).contiguous().to(x.dtype)
-            k3 = ws[4].t()[:, :, None, None].to(x.dtype)
-            c1, c2, c3 = (b.to(x.dtype) for b in (ws[1], ws[3], ws[5]))
+                if not bool((diff <= tol + tol * want.float().abs()).all()):
+                    raise AssertionError(f"{name} {(n, h, w_, cd, cu)} "
+                                         f"{dtype}: max |err| {err} beyond "
+                                         f"rtol=atol={tol}")
+            args = fd.kernel_args(d, u, *ws, fk)
+            th, tw = fd.kernel_tile(args, fk, row_tile)
+            line = dict(name=name, shape=[n, h, w_, cd, cu, cm, co], final_kernel=fk,
+                        tile=[th, tw], max_abs_err=errs,
+                        tolerance="f32 (TF32 off) rtol=atol=1e-4; bf16 "
+                        "rtol=atol=2e-2 (bf16 ulps where f32 sums round "
+                        "h1 apart)")
+            if count == 0:
+                emit("kernel", on_main_path=False, **line)
+                add(name, "clu", errs[str(torch.bfloat16)], 0, 0, 0, 0,
+                    "operations", 0)
+                continue
+            call = lambda: wrapper(d, u, *ws, final_kernel=fk, **kw)  # noqa: E731
+            ms = cuda_ms(torch, call, 5)
+            plain = cuda_ms(torch, lambda: fd.plain_decoder_level(
+                d, u, *ws, fk, row_tile), 2)
+            # Yardstick: the cuDNN chain with the same folded weights,
+            # channels_last bf16.
+            cl = lambda t: t.permute(3, 2, 0, 1).to(d.dtype).contiguous(  # noqa: E731
+                memory_format=torch.channels_last)
+            dc, uc = d.permute(0, 3, 1, 2), u.permute(0, 3, 1, 2)
+            k1d, k1u = cl(ws[0]), cl(ws[1])
+            k2w = cl(ws[3] if fk == 3 else ws[3][None, None])
+            c1, c2 = ws[2].to(d.dtype), ws[4].to(d.dtype)
 
             def chain():
-                h = F.relu(F.conv2d(xc, k1, c1))
-                h = F.relu(F.conv2d(h, k2, c2, padding=1))
-                return F.relu(F.conv2d(h, k3, c3) + xc)
+                hh = F.relu(F.conv2d(dc, k1d, None, 1, 1)
+                            + F.conv2d(uc, k1u, c1, 1, 1))
+                return F.relu(F.conv2d(hh, k2w, c2, 1, fk // 2))
 
             lib = cuda_ms(torch, chain, 5)
-            n, h, w_, c = shape
-            flops = 2 * n * h * w_ * (c * wd + 9 * wd * wd + wd * c)
-            nbytes = (2 * x.numel() * 2 + 2 * (2 * c * wd + 9 * wd * wd)
-                      + 4 * (2 * wd + c))
+            flops = 2 * n * h * w_ * (9 * (cd + cu) * cm + k2 * cm * co)
+            nbytes = (2 * n * h * w_ * (cd + cu + co)
+                      + 2 * (9 * (cd + cu) * cm + k2 * cm * co) + 4 * (cm + co))
             bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
-            emit("kernel", name=name, shape=list(shape), wd=wd,
-                 tile=[th, tw], max_abs_err=errs,
-                 tolerance="f32 (TF32 off) rtol=atol=1e-4; bf16 "
-                 "rtol=atol=2e-2 (bf16 ulps where f32 sums round apart)",
-                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                 bound_by=by, tflops=flops / ms / 1e9)
-            add(name, errs[str(torch.bfloat16)], ms, plain, lib, bms, by,
-                count)
+            emit("kernel", path="clu", on_main_path=True, ms=ms,
+                 plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                 tflops=flops / ms / 1e9, **line)
+            add(name, "clu", errs[str(torch.bfloat16)], ms, plain, lib, bms,
+                by, count)
     return summary
 
 
-def seeded_model(torch, np, cfg, seed: int = 0):
-    """Full-width GlobalPairScorer with seeded random weights: Kaiming
-    convs, random frozen-BN statistics (small gammas closing each residual
-    branch keep activations O(1)), nonnegative head weights, biases +1."""
-    from srsem_torch.backbones.resnet import FrozenBatchNorm
-    from srsem_torch.models.global_models import make_global_model
+def randomize_bn(torch, np, model, rng) -> None:
+    """Random frozen-BN statistics in every BN of ``model``: small gammas
+    on the BNs closing each residual branch keep activations O(1) through
+    16 blocks."""
+    from torch import nn
 
-    model = make_global_model(cfg, torch.Generator().manual_seed(seed))
-    rng = np.random.default_rng(seed)
+    from srsem_torch.backbones.resnet import FrozenBatchNorm
+
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     with torch.no_grad():
-        for name, m in model.backbone.named_modules():
-            if isinstance(m, FrozenBatchNorm):
+        for name, m in model.named_modules():
+            if isinstance(m, (FrozenBatchNorm, nn.BatchNorm2d)):
                 c = m.weight.shape[0]
-                closing = name.endswith(("bn3", "downsample.1"))
+                closing = (name.endswith(("bn3", "downsample.1"))
+                           and "layer" in name)
                 m.weight.copy_(f32(rng.uniform(0.1, 0.3, c) if closing
                                    else rng.uniform(0.5, 1.5, c)))
                 m.bias.copy_(f32(rng.uniform(-0.5, 0.5, c)))
                 m.running_mean.copy_(f32(rng.uniform(-0.5, 0.5, c)))
                 m.running_var.copy_(f32(rng.uniform(0.5, 1.5, c)))
+
+
+def seeded_model(torch, np, cfg, seed: int = 0):
+    """Full-width GlobalPairScorer with seeded random weights: Kaiming
+    convs, random frozen-BN statistics, nonnegative head weights, biases
+    +1."""
+    from srsem_torch.models.global_models import make_global_model
+
+    model = make_global_model(cfg, torch.Generator().manual_seed(seed))
+    randomize_bn(torch, np, model.backbone, np.random.default_rng(seed))
+    with torch.no_grad():
         # Nonnegative head weights scaled so the squared-diff term, not the
         # +1 bias, carries each score; biases +1 keep the ReLU open.
         for layer in model.aggregator.w_layers:
             layer.weight.abs_().mul_(100.0)
             layer.bias.add_(1.0)
+    return model
+
+
+def seeded_clu(torch, np, cfg, seed: int = 0):
+    """Full-width CluUnet with seeded random weights: Kaiming tower convs
+    and He decoder convs, random BN statistics in the tower and the
+    decoder, and a map head scaled to keep the sigmoid off saturation, with
+    a +0.5 bias that keeps its ReLU open."""
+    from srsem_torch.models.local_models import make_local_model
+
+    model = make_local_model(cfg, generator=torch.Generator().manual_seed(seed))
+    randomize_bn(torch, np, model, np.random.default_rng(seed))
+    with torch.no_grad():
+        model.decoder[0][3].weight.mul_(0.1)
+        model.decoder[0][3].bias.add_(0.5)
     return model
 
 
@@ -258,6 +397,8 @@ def write_pairs(np, root: Path, n: int):
 def _kernel_group(name: str) -> str:
     if "fused_bottleneck" in name:
         return "bottleneck kernel"
+    if "fused_decoder" in name:
+        return "decoder kernel"
     if name in ("partials", "total"):
         return "head kernel"
     if "memcpy" in name.lower():
@@ -412,6 +553,123 @@ def run_slice(torch, np, card: str):
     return launches
 
 
+def run_clu_slice(torch, np, card: str):
+    """Phase 5; returns {kernel name: launches in the main-path run}."""
+    import dataclasses
+    import shutil
+
+    from srsem_torch.config import BackboneConfig, LocalModelConfig
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.ops import fused_decoder as fd
+
+    cfg = LocalModelConfig(backbone=BackboneConfig(
+        kind="resnet50_clip", image_size=224, compute_dtype="bfloat16"),
+        decoder_dtype="bfloat16", v2=False)
+    model = seeded_clu(torch, np, cfg)
+    scorer = PairScorer(cfg, model, batch_size=CLU_BATCH, model_kind="local")
+    wrappers = {"fused_bottleneck": fb.fused_bottleneck,
+                "fused_bottleneck_tiled": fb.fused_bottleneck_tiled,
+                "fused_decoder_level": fd.fused_decoder_level,
+                "fused_decoder_level_tiled": fd.fused_decoder_level_tiled}
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = write_pairs(np, Path(tmp), 8)
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        maps = scorer.score_paths(pairs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        bad = np.isnan(maps).all(axis=(1, 2))
+        ok = maps[:-1]
+        if not (maps.shape == (len(pairs), 224, 224) and bad[-1]
+                and not np.isnan(ok).any() and np.isfinite(ok).all()
+                and (ok >= 0.5).all() and (ok <= 1).all()):
+            raise AssertionError(f"score_paths maps: want NaN on exactly the "
+                                 f"corrupt last row and [0.5, 1] elsewhere; "
+                                 f"NaN rows {bad.tolist()}, range "
+                                 f"{np.nanmin(maps)}..{np.nanmax(maps)}")
+        emit("clu", step="score_paths", pairs=len(pairs), seconds=seconds,
+             launches=launches, map_mean=[float(m.mean()) for m in ok],
+             map_min=float(ok.min()), map_max=float(ok.max()))
+        if not all(v > 0 for v in launches.values()):
+            raise AssertionError(f"CLU path launched a kernel no time: "
+                                 f"{launches}")
+
+        # float32 kernel path (tower and decoder kernels) vs the plain
+        # module path, TF32 off.
+        decode = scorer.preprocess.decode_uint8
+        a = np.stack([decode(p[0]) for p in pairs[:-1]])
+        b = np.stack([decode(p[1]) for p in pairs[:-1]])
+        cfg32 = dataclasses.replace(cfg, decoder_dtype="float32",
+                                    backbone=dataclasses.replace(
+                                        cfg.backbone, compute_dtype="float32"))
+        model32 = seeded_clu(torch, np, cfg32)
+        got = PairScorer(cfg32, model32, batch_size=CLU_BATCH,
+                         model_kind="local").score_arrays(a, b)
+        want = PairScorer(cfg32, model32, batch_size=CLU_BATCH,
+                          model_kind="local", fused_tower=False,
+                          fused_decoder=False).score_arrays(a, b)
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=2e-3, atol=2e-3):
+            raise AssertionError(f"CLU f32 kernel path vs plain module: max "
+                                 f"|err| {err} beyond 2e-3")
+        emit("clu", step="f32_kernel_path_vs_plain_module", max_abs_err=err,
+             tolerance="rtol=atol=2e-3 (tests/test_fused_decoder.py:111)",
+             map_std=float(want.std()))
+        del model32, got, want
+
+        # Throughput of score_arrays at batch 32, bf16.
+        rng = np.random.default_rng(3)
+        a32 = rng.integers(0, 256, (CLU_BATCH, 224, 224, 3), dtype=np.uint8)
+        b32 = np.clip(a32.astype(int) + rng.integers(-20, 21, a32.shape),
+                      0, 255).astype(np.uint8)
+        for _ in range(2):
+            scorer.score_arrays(a32, b32)
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = scorer.score_arrays(a32, b32)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        if not torch.isfinite(out).all():
+            raise AssertionError("CLU maps at batch 32 not finite")
+        emit("clu", step="score_arrays_throughput", batch=CLU_BATCH,
+             dtype="bfloat16", image=224, ms_per_batch=dt * 1e3,
+             maps_per_s=CLU_BATCH / dt, card=card)
+        emit("clu", step="profile", card=card,
+             **profile_scoring(torch, scorer, a32, b32))
+
+        # The CLI entry point, as a user runs it: K = 2 SR folders, one
+        # corrupt SR file.
+        root = Path(tmp) / "groups"
+        dirs = [root / n for n in ("gt", "esrgan", "swinir")]
+        for d in dirs:
+            d.mkdir(parents=True)
+        for i, (pa, pb) in enumerate(pairs[:3]):
+            shutil.copy(pa, dirs[0] / f"im{i}.png")
+            shutil.copy(pb, dirs[1] / f"im{i}.jpg")
+            shutil.copy(pb, dirs[2] / f"im{i}.jpg")
+        shutil.copy(pairs[-1][1], dirs[2] / "im1.jpg")
+        out_csv = root / "maps.csv"
+        proc = subprocess.run(
+            [sys.executable, "-m", "srsem_torch", "score-maps-groups",
+             *map(str, dirs), "--batch-size", "8", "--out", str(out_csv),
+             "--set", "decoder_dtype=bfloat16"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"score-maps-groups exit {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        rows = out_csv.read_text().splitlines()
+        if result["nan_groups"] != 1 or len(rows) != 4 or ",nan" not in rows[2]:
+            raise AssertionError(f"score-maps-groups result {result}, {rows}")
+        emit("clu", step="cli", result=result)
+    return launches
+
+
 def main() -> int:
     if not (REPO / "srsem_torch" / "csrc").is_dir():
         return fail(f"no srsem_torch package beside {__file__}")
@@ -443,10 +701,20 @@ def main() -> int:
                   for n, b in built.items()})
 
     summary = check_kernels(torch)
-    launches = run_slice(torch, np, card)
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        return fail(f"main path launched no {missing}")
+    # Each path's launch counts, each from its own reset-then-run.
+    runs = {"global": run_slice(torch, np, card),
+            "clu": run_clu_slice(torch, np, card)}
+    for path, launches in runs.items():
+        missing = [k for k, v in launches.items() if v <= 0]
+        if missing:
+            return fail(f"{path} path launched no {missing}")
+        # The kernels line sums the times over one scored batch's launches
+        # at each path's shapes; the run is one batch, so its counts must
+        # be those launches.
+        timed = {k: summary[(k, path)]["launches"] for k in launches}
+        if timed != launches:
+            return fail(f"{path} path launched {launches}, the times cover "
+                        f"{timed}")
 
     meta = {
         "fused_stage_score": ("triton", "srsem_torch/ops/fused_head.py",
@@ -456,17 +724,32 @@ def main() -> int:
         "fused_bottleneck_tiled": ("cuda",
                                    "srsem_torch/csrc/fused_bottleneck.cu",
                                    "srsem/ops/fused_bottleneck.py:276"),
+        "fused_decoder_level": ("cuda", "srsem_torch/csrc/fused_decoder.cu",
+                                "srsem/ops/fused_decoder.py:305"),
+        "fused_decoder_level_tiled": ("cuda",
+                                      "srsem_torch/csrc/fused_decoder.cu",
+                                      "srsem/ops/fused_decoder.py:243"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
-        s = summary[name]
+        parts = {path: s for (k, path), s in summary.items() if k == name}
+        total = lambda key: sum(s[key] for s in parts.values())  # noqa: E731
+        by = {}
+        for s in parts.values():
+            for b, ms in s["by"].items():
+                by[b] = by.get(b, 0.0) + ms
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": max(s["by"], key=s["by"].get),
-            "library_ms": s["library_ms"]})
+            "replaces": replaces,
+            "launches": sum(runs[p][name] for p in parts),
+            "max_abs_err": max(s["max_abs_err"] for s in parts.values()),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": max(by, key=by.get),
+            "library_ms": total("library_ms"),
+            "paths": {p: {"launches": runs[p][name],
+                          **{k: s[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")}}
+                      for p, s in parts.items()}})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

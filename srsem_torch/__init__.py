@@ -6,13 +6,17 @@ mirrors the JAX package's module paths so each counterpart is easy to find:
 
 * ``config``                 — srsem/core/config.py (copied)
 * ``data.preprocess``        — srsem/data/preprocess.py
-* ``backbones.resnet``       — srsem/backbones/resnet.py (ImageNet tower)
+* ``ops.image``              — srsem/ops/image.py (resizes, pos-embed)
+* ``backbones.resnet``       — srsem/backbones/resnet.py (ImageNet, CLIP)
 * ``backbones.fused_resnet`` — srsem/backbones/fused_resnet.py
 * ``ops.fused_bottleneck``   — srsem/ops/fused_bottleneck.py (CUDA kernel)
+* ``ops.fused_decoder``      — srsem/ops/fused_decoder.py (CUDA kernel)
 * ``ops.fused_head``         — srsem/ops/fused_head.py (Triton kernel)
 * ``models.global_models``   — srsem/models/global_models.py (stages_cnn)
+* ``models.local_models``    — srsem/models/local_models.py (CluUnet)
 * ``eval.scorer``            — srsem/eval/scorer.py (PairScorer)
-* ``utils.convert``          — weights from JAX params / torchvision
+* ``eval.grouped``           — srsem/eval/grouped.py (GroupedMapScorer)
+* ``utils.convert``          — weights from JAX params / torchvision / CLIP
 
 Public functions keep the JAX layout (NHWC).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.

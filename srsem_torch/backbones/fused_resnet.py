@@ -1,12 +1,14 @@
-"""Fused serving ResNet-50 tower — the port of srsem/backbones/fused_resnet.py.
+"""Fused serving ResNet-50 towers — the port of srsem/backbones/fused_resnet.py.
 
-A function over the SAME ``ImageNetResNet50`` module
-(srsem_torch/backbones/resnet.py) that routes the stride-1 interior
+Functions over the SAME ``ImageNetResNet50`` / ``ClipResNet50`` modules
+(srsem_torch/backbones/resnet.py) that route the stride-1 interior
 bottlenecks through the Hopper kernel (srsem_torch/ops/fused_bottleneck.py)
-with frozen BN folded into the conv weights.  The stem, max-pool and the
-four downsampling blocks stay plain ``F.conv2d`` / ``F.max_pool2d`` (cuDNN),
-as the JAX package leaves them to XLA.  Serving only: no LoRA, no tap
-offsets.  Same ``(pooled, taps)`` contract and tap names as the module.
+with frozen BN folded into the conv weights.  A stride-1 ``ClipBottleneck``
+is the same block as the ImageNet one, so both towers use the one kernel.
+The stems, pools, the four downsampling blocks and CLIP's attention pool
+stay plain PyTorch (cuDNN), as the JAX package leaves them to XLA.  Serving
+only: no LoRA, no tap offsets.  Same ``(embedding, taps)`` contract and tap
+names as the modules.
 
 ``DEFAULT_FUSE_STAGES = (0, 1, 2, 3)`` differs from the JAX package's
 ``(1, 2, 3)`` on purpose.  The JAX default leaves stage 0 out because its
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from srsem_torch.backbones.resnet import (
+    CLIP_STEM_TAP,
     IMAGENET_STAGE_TAPS,
     IMAGENET_STEM_TAP,
     conv_nchw,
@@ -56,14 +59,15 @@ def _fold_conv(conv, bn, dtype: torch.dtype):
     return w.to(dtype), b.to(dtype).view(1, -1, 1, 1), conv.stride, conv.padding
 
 
-def fold_imagenet(model, dtype: torch.dtype = torch.bfloat16,
-                  fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES
-                  ) -> List[list]:
-    """BN-folded weights of every block of ``model``, cast once: per stage a
-    list of ``("fused", (w1, b1, w2, b2, w3, b3))`` (kernel layout, weights
-    in ``dtype``, biases float32) or ``("plain", [conv, ...])`` entries.
-    The tower is frozen, so a scorer folds once and reuses the result (the
-    JAX tower folds inside every jitted call instead)."""
+def fold_tower(model, dtype: torch.dtype = torch.bfloat16,
+               fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES
+               ) -> List[list]:
+    """BN-folded weights of every block of ``model`` (either ResNet tower),
+    cast once: per stage a list of ``("fused", (w1, b1, w2, b2, w3, b3))``
+    (kernel layout, weights in ``dtype``, biases float32) or
+    ``("plain", (stride, [conv, ...]))`` entries.  The tower is frozen, so
+    a scorer folds once and reuses the result (the JAX tower folds inside
+    every jitted call instead)."""
     stages = []
     for s, blocks in enumerate(model.stages()):
         folded = []
@@ -77,20 +81,28 @@ def fold_imagenet(model, dtype: torch.dtype = torch.bfloat16,
                 convs = [(block.conv1, block.bn1), (block.conv2, block.bn2),
                          (block.conv3, block.bn3)]
                 if block.downsample is not None:
-                    convs.append((block.downsample[0], block.downsample[1]))
-                folded.append(("plain", [_fold_conv(c, bn, dtype)
-                                         for c, bn in convs]))
+                    convs.append(tuple(block.downsample)[-2:])
+                # CLIP blocks avg-pool instead of striding their convs.
+                pool = getattr(block, "stride", 1)
+                folded.append(("plain", (pool, [_fold_conv(c, bn, dtype)
+                                                for c, bn in convs])))
         stages.append(folded)
     return stages
 
 
-def _plain_block(convs, x: Tensor) -> Tensor:
+def _plain_block(weights, x: Tensor) -> Tensor:
+    pool, convs = weights
+
     def conv(i: int, v: Tensor, relu: bool = True) -> Tensor:
         w, b, stride, padding = convs[i]
         y = F.conv2d(v, w, None, stride, padding) + b
         return F.relu(y) if relu else y
 
-    h = conv(2, conv(1, conv(0, x)), relu=False)
+    h = conv(1, conv(0, x))
+    if pool > 1:
+        h = F.avg_pool2d(h, pool)
+        x = F.avg_pool2d(x, pool)
+    h = conv(2, h, relu=False)
     if len(convs) == 4:
         x = conv(3, x, relu=False)
     return F.relu(h + x)
@@ -106,6 +118,17 @@ def _fused_block(weights, x: Tensor, row_tile: Optional[int] = None) -> Tensor:
     return to_nchw(y)
 
 
+def _blocks(folded: List[list], h: Tensor):
+    """Run the folded stages on ``h``; yield ``(stage, block, output)``."""
+    for s, blocks in enumerate(folded):
+        for b, (kind, weights) in enumerate(blocks):
+            if kind == "fused":
+                h = _fused_block(weights, h, TILED_STAGE_ROWS.get(s))
+            else:
+                h = _plain_block(weights, h)
+            yield s, b, h
+
+
 def fused_imagenet_apply(
     model, x: Tensor, dtype: torch.dtype = torch.bfloat16,
     fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES,
@@ -113,39 +136,51 @@ def fused_imagenet_apply(
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """ImageNetResNet50 forward on NHWC ``x`` with fused interior blocks.
 
-    ``folded`` is ``fold_imagenet(model, dtype, fuse_stages)``, computed
+    ``folded`` is ``fold_tower(model, dtype, fuse_stages)``, computed
     here when not given.  Rounding points follow the JAX tower: the input
     is cast to ``dtype``, and the stem BN affine is applied in ``dtype``
     (fused_resnet.py:157-163).
     """
     if folded is None:
-        folded = fold_imagenet(model, dtype, fuse_stages)
+        folded = fold_tower(model, dtype, fuse_stages)
     taps: Dict[str, Tensor] = {}
     h = to_nchw(x.to(dtype))
     stem = conv_nchw(h, model.conv1)
     taps[IMAGENET_STEM_TAP] = to_nhwc(stem)  # reference hooks the bare conv
     h = F.relu(model.bn1(stem))
     h = F.max_pool2d(h, 3, 2, 1)
-    for s, blocks in enumerate(folded):
-        for b, (kind, weights) in enumerate(blocks):
-            if kind == "fused":
-                h = _fused_block(weights, h, TILED_STAGE_ROWS.get(s))
-            else:
-                h = _plain_block(weights, h)
-            if b == 2:
-                taps[IMAGENET_STAGE_TAPS[s]] = to_nhwc(h)
+    for s, b, h in _blocks(folded, h):
+        if b == 2:
+            taps[IMAGENET_STAGE_TAPS[s]] = to_nhwc(h)
     return h.mean(dim=(2, 3)), taps
+
+
+def fused_clip_apply(
+    model, x: Tensor, dtype: torch.dtype = torch.bfloat16,
+    fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES,
+    folded: Optional[List[list]] = None,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """ClipResNet50 forward on NHWC ``x`` with fused interior blocks
+    (fused_resnet.py:180-210): the module's stem (in ``dtype``), the
+    avg-pool, the stages, the module's attention pool."""
+    if folded is None:
+        folded = fold_tower(model, dtype, fuse_stages)
+    h = model.stem(x.to(dtype))
+    taps: Dict[str, Tensor] = {CLIP_STEM_TAP: to_nhwc(h)}
+    h = F.avg_pool2d(h, 2)
+    for s, b, h in _blocks(folded, h):
+        if b < 3:
+            taps[f"stages.{s}.{b}.act"] = to_nhwc(h)
+    return model.attnpool(h), taps
 
 
 def fused_apply(kind: str, model, x: Tensor,
                 dtype: torch.dtype = torch.bfloat16,
                 fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES,
                 folded: Optional[List[list]] = None):
-    """Dispatch on backbone kind (``"resnet50"``; the CLIP tower waits for
-    ROADMAP A3)."""
+    """Dispatch on backbone kind (``"resnet50"`` | ``"resnet50_clip"``)."""
     if kind == "resnet50":
         return fused_imagenet_apply(model, x, dtype, fuse_stages, folded)
     if kind == "resnet50_clip":
-        raise NotImplementedError(
-            "the fused CLIP tower is not ported yet (ROADMAP A3)")
+        return fused_clip_apply(model, x, dtype, fuse_stages, folded)
     raise ValueError(f"no fused tower for backbone kind {kind!r}")

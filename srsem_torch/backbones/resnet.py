@@ -1,32 +1,44 @@
-"""ImageNet ResNet-50 feature-pyramid backbone — the port of
-srsem/backbones/resnet.py::ImageNetResNet50.
+"""ResNet-50 feature-pyramid backbones — the port of
+srsem/backbones/resnet.py (ImageNet and CLIP towers).
 
-Classic torchvision/timm ``resnet50``: 7x7/2 stem, 3x3/2 max-pool, four
-bottleneck stages with the stride on the 3x3 conv (reference:
-models/global_eval_models.py:695-698).  ``forward`` takes NHWC images and
-returns ``(pooled, taps)`` with NHWC taps under the reference's
-forward-hook names: ``"conv1"`` (the RAW stem conv, before BN —
-resnet.py:251-252) and ``"layer{i}.2.act3"`` (third block's post-residual
-ReLU of each stage).
+* ``ImageNetResNet50`` — classic torchvision/timm ``resnet50``: 7x7/2
+  stem, 3x3/2 max-pool, four bottleneck stages with the stride on the 3x3
+  conv (reference: models/global_eval_models.py:695-698).  Taps:
+  ``"conv1"`` (the RAW stem conv, before BN — resnet.py:251-252) and
+  ``"layer{i}.2.act3"`` (third block's post-residual ReLU of each stage).
+* ``ClipResNet50`` — OpenAI CLIP's modified ResNet-50: 3-conv stem + 2x2
+  avg-pool, bottlenecks that downsample with an avg-pool after the 3x3
+  conv (and before the shortcut's 1x1), and an attention-pool head with a
+  1024-d embedding.  Taps: ``"stem.conv3"`` (after BN and ReLU —
+  resnet.py:289-290) and ``"stages.{s}.{b}.act"`` for b < 3.
+
+``forward`` takes NHWC images and returns ``(embedding, taps)`` with NHWC
+taps under the reference's forward-hook names.
 
 Inside, activations are NCHW tensors in ``torch.channels_last`` memory
 (cuDNN's fast layout); ``t.permute(0, 2, 3, 1)`` is then a contiguous NHWC
 view with no copy.  Parameters stay float32 and are cast to the compute
 dtype per conv, as the Flax modules do.  State-dict keys follow the
 torchvision layout (``conv1``, ``bn1``,
-``layer{s}.{b}.conv{1..3}/bn{1..3}/downsample.{0,1}``), so
-srsem/utils/convert.py::convert_torch_resnet50 reads the port's own
-``state_dict()``.  The CLIP tower, LoRA and tap offsets wait (ROADMAP A3,
+``layer{s}.{b}.conv{1..3}/bn{1..3}/downsample.{0,1}``) and the OpenAI-CLIP
+``visual`` layout (``conv1..3``/``bn1..3``, the same block keys,
+``attnpool.{positional_embedding,q_proj,k_proj,v_proj,c_proj}``), so
+srsem/utils/convert.py::convert_torch_resnet50 and ::convert_clip_resnet50
+read the port's own ``state_dict()``.  LoRA and tap offsets wait (ROADMAP
 A7, A12).
 """
 
 from __future__ import annotations
 
+import math
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from srsem_torch.ops.image import interpolate_pos_embed
 
 #: Stage depths of ResNet-50.
 STAGE_BLOCKS = (3, 4, 6, 3)
@@ -146,14 +158,154 @@ class ImageNetResNet50(nn.Module):
         return h.mean(dim=(2, 3)), taps
 
 
+class ClipBottleneck(nn.Module):
+    """OpenAI ModifiedResNet bottleneck: every conv stride 1; a stride-2
+    block avg-pools after the 3x3 conv and before the shortcut's 1x1 conv
+    (CLIP's anti-aliased downsampling).  The shortcut keeps CLIP's keys
+    ``downsample.{-1 (pool), 0 (conv), 1 (bn)}``."""
+
+    def __init__(self, cin: int, width: int, stride: int = 1):
+        super().__init__()
+        out_ch = width * 4
+        self.stride = stride
+        self.conv1, self.bn1 = _conv(cin, width, 1), FrozenBatchNorm(width)
+        self.conv2, self.bn2 = _conv(width, width, 3), FrozenBatchNorm(width)
+        self.conv3, self.bn3 = _conv(width, out_ch, 1), FrozenBatchNorm(out_ch)
+        self.downsample: Optional[nn.Sequential] = None
+        if stride > 1 or cin != out_ch:
+            self.downsample = nn.Sequential(OrderedDict([
+                ("-1", nn.AvgPool2d(stride)), ("0", _conv(cin, out_ch, 1)),
+                ("1", FrozenBatchNorm(out_ch))]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(conv_nchw(x, self.conv1)))
+        h = F.relu(self.bn2(conv_nchw(h, self.conv2)))
+        if self.stride > 1:
+            h = F.avg_pool2d(h, self.stride)
+        h = self.bn3(conv_nchw(h, self.conv3))
+        if self.downsample is not None:
+            pool, conv, bn = self.downsample
+            x = bn(conv_nchw(pool(x), conv))
+        return F.relu(h + x)
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP's attention-pool head: the spatial mean prepended as a query
+    token, learned positional embeddings (resized with
+    ``interpolate_pos_embed`` for other input sizes), one multi-head
+    attention step, the query output projected to ``embed_dim``.  Runs in
+    the input's dtype with the softmax in float32, as the Flax module."""
+
+    def __init__(self, spatial: int, width: int = 2048, num_heads: int = 32,
+                 embed_dim: int = 1024):
+        super().__init__()
+        self.num_heads = num_heads
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(spatial * spatial + 1, width), requires_grad=False)
+        self.k_proj = nn.Linear(width, width)
+        self.q_proj = nn.Linear(width, width)
+        self.v_proj = nn.Linear(width, width)
+        self.c_proj = nn.Linear(width, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW features → (N, embed_dim)."""
+        n, c, h, w = x.shape
+        dt = x.dtype
+        tokens = x.flatten(2).transpose(1, 2)  # (N, HW, C)
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        pos = interpolate_pos_embed(self.positional_embedding, (h, w))
+        tokens = tokens + pos.to(dt)
+        dense = lambda m, t: F.linear(t, m.weight.to(dt), m.bias.to(dt))  # noqa: E731
+        hd = c // self.num_heads
+        split = lambda t: t.reshape(n, t.shape[1], self.num_heads, hd)  # noqa: E731
+        q = split(dense(self.q_proj, tokens[:, :1]))
+        k = split(dense(self.k_proj, tokens))
+        v = split(dense(self.v_proj, tokens))
+        attn = torch.einsum("nqhd,nkhd->nhqk", q, k) / math.sqrt(hd)
+        attn = torch.softmax(attn.float(), dim=-1).to(dt)
+        out = torch.einsum("nhqk,nkhd->nqhd", attn, v).reshape(n, 1, c)
+        return dense(self.c_proj, out)[:, 0]
+
+
+class ClipResNet50(nn.Module):
+    """CLIP modified ResNet-50 returning ``(embedding, taps)`` from NHWC
+    images, in the OpenAI-CLIP ``visual`` state-dict layout."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 image_size: int = 224, embed_dim: int = 1024):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1, self.bn1 = _conv(3, 32, 3, 2), FrozenBatchNorm(32)
+        self.conv2, self.bn2 = _conv(32, 32, 3), FrozenBatchNorm(32)
+        self.conv3, self.bn3 = _conv(32, 64, 3), FrozenBatchNorm(64)
+        cin = 64
+        for s, (blocks, width) in enumerate(zip(STAGE_BLOCKS, STAGE_WIDTHS)):
+            layer = []
+            for b in range(blocks):
+                layer.append(ClipBottleneck(
+                    cin, width, 2 if (b == 0 and s > 0) else 1))
+                cin = width * 4
+            self.add_module(f"layer{s + 1}", nn.Sequential(*layer))
+        self.attnpool = AttentionPool2d(image_size // 32, cin, 32, embed_dim)
+
+    def stages(self):
+        """``[layer1, ..., layer4]`` as a list of block lists."""
+        return [list(getattr(self, f"layer{s + 1}")) for s in range(4)]
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images → the stem tap (NCHW, after bn3 and ReLU)."""
+        h = to_nchw(x.to(self.dtype))
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
+                         (self.conv3, self.bn3)):
+            h = F.relu(bn(conv_nchw(h, conv)))
+        return h
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        h = self.stem(x)
+        taps: Dict[str, torch.Tensor] = {CLIP_STEM_TAP: to_nhwc(h)}
+        h = F.avg_pool2d(h, 2)
+        for s, blocks in enumerate(self.stages()):
+            for b, block in enumerate(blocks):
+                h = block(h)
+                if b < 3:
+                    taps[f"stages.{s}.{b}.act"] = to_nhwc(h)
+        return self.attnpool(h), taps
+
+
+def reset_tower(tower: nn.Module, generator: Optional[torch.Generator] = None):
+    """Fresh tower weights from ``generator``, as the Flax init draws them:
+    Kaiming-normal (fan_in) convs, identity frozen BN, and in CLIP's
+    attention pool a normal(0, C^-1/2) positional table, LeCun-normal
+    projections and zero biases."""
+    with torch.no_grad():
+        for m in tower.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, math.sqrt(2.0 / fan_in),
+                                 generator=generator)
+            elif isinstance(m, FrozenBatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+            elif isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5,
+                                 generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, AttentionPool2d):
+                c = m.positional_embedding.shape[1]
+                m.positional_embedding.normal_(0.0, c ** -0.5,
+                                               generator=generator)
+
+
 def make_backbone(cfg) -> nn.Module:
-    """Instantiate a backbone from a BackboneConfig (``resnet50`` only)."""
+    """Instantiate a backbone from a BackboneConfig (the ResNet kinds)."""
     dtype = getattr(torch, cfg.compute_dtype)
     if cfg.kind == "resnet50":
         return ImageNetResNet50(dtype=dtype)
     if cfg.kind == "resnet50_clip":
-        raise NotImplementedError(
-            "the CLIP ResNet-50 tower is not ported yet (ROADMAP A3)")
+        return ClipResNet50(dtype=dtype, image_size=cfg.image_size)
     if cfg.is_vit:
         raise NotImplementedError(
             "the CLIP ViT tower is not ported yet (ROADMAP A10)")

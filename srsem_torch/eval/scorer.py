@@ -1,5 +1,6 @@
-"""Batched pair scoring — the port of srsem/eval/scorer.py::PairScorer
-(``model_kind="global"``).
+"""Batched pair scoring — the port of srsem/eval/scorer.py::PairScorer:
+``model_kind="global"`` gives one score a pair, ``"local"`` a CLU
+fidelity map.
 
 * host threads decode JPEG/PNG and do the antialiased resize + crop to
   uint8 (srsem_torch/data/preprocess.py);
@@ -12,9 +13,12 @@
 ``fused_tower=True`` (the default) runs the tower's interior blocks through
 the Hopper bottleneck kernel (srsem_torch/backbones/fused_resnet.py);
 ``False`` runs the module's plain ``F.conv2d`` chain, the counterpart of
-the JAX package's dense XLA tower.  The head always goes through
-``fused_global_score`` (the Triton kernel on the card).  One card, no mesh:
-multi-GPU waits for ROADMAP A9; the CLU map model for A5.
+the JAX package's dense XLA tower.  The global head always goes through
+``fused_global_score`` (the Triton kernel on the card).  The CLU map model
+decodes through ``fused_serving_decode`` (the decoder kernel on the card)
+when ``fused_decoder=True`` (the default), else through the module's
+``decode_from_taps``.  Both towers run as two passes (a, then b).  One
+card, no mesh: multi-GPU waits for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -25,77 +29,105 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from srsem_torch.backbones.fused_resnet import fold_imagenet, fused_apply
+from srsem_torch.backbones.fused_resnet import fold_tower, fused_apply
 from srsem_torch.data.preprocess import Preprocess
 from srsem_torch.device import DeviceLike, resolve_device
-from srsem_torch.models.global_models import GlobalPairScorer
+from srsem_torch.models.local_models import (
+    fold_decoder,
+    fused_serving_decode,
+    pixel_sq_error,
+    squared_diff_pyramid,
+)
 from srsem_torch.ops.fused_head import fused_global_score
 
 
 class PairScorer:
-    """Batched scorer for (GT, SR) image pairs: one scalar per pair.
+    """Batched scorer for (GT, SR) image pairs: one scalar per pair
+    (``model_kind="global"``, a GlobalPairScorer) or one (H, W) map
+    (``"local"``, a CluUnet).
 
-    The fused tower's BN-folded weights are computed once, here, from the
-    model's weights at construction: load weights before building it."""
+    The BN-folded weights of the fused tower and decoder are computed once,
+    here, from the model's weights at construction: load weights before
+    building it."""
 
     def __init__(
         self,
         cfg,
-        model: GlobalPairScorer,
+        model,
         batch_size: int = 64,
         model_kind: str = "global",
         num_workers: int = 16,
         decode_backend: str = "pil",
         fused_tower: bool = True,
+        fused_decoder: bool = True,
         fast_jpeg: bool = False,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        if model_kind != "global":
-            raise NotImplementedError(
-                f"model_kind {model_kind!r} is not ported yet (CLU map "
-                "model: ROADMAP A5)")
+        if model_kind not in ("global", "local"):
+            raise ValueError(f"model_kind must be 'global' or 'local', got "
+                             f"{model_kind!r}")
         if decode_backend != "pil":
             raise NotImplementedError(
                 f"decode_backend {decode_backend!r} is not ported yet "
                 "(native decode: ROADMAP A2)")
-        if cfg.backbone.kind != "resnet50":
+        if cfg.backbone.kind not in ("resnet50", "resnet50_clip"):
             raise NotImplementedError(
                 f"backbone {cfg.backbone.kind!r} is not ported yet "
-                "(ROADMAP A3/A10)")
+                "(ROADMAP A10)")
         self.cfg = cfg
         self.model = model.to(self.device).eval()
+        self.model_kind = model_kind
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.fused_tower = fused_tower
+        self.fused_decoder = fused_decoder and model_kind == "local"
         self.dtype = getattr(torch, cfg.backbone.compute_dtype)
         self.preprocess = Preprocess.for_backbone(
             cfg.backbone.kind, cfg.backbone.image_size, fast_jpeg=fast_jpeg)
-        # The tower is frozen: fold BN into the kernel weights once.
-        self._folded = None
-        if fused_tower:
-            with torch.no_grad():
-                self._folded = fold_imagenet(self.model.backbone, self.dtype)
+        # The model is frozen: fold BN into the kernel weights once.
+        with torch.no_grad():
+            self._tower_folded = (fold_tower(self.model.backbone, self.dtype)
+                                  if fused_tower else None)
+            self._decoder_folded = (fold_decoder(self.model)
+                                    if self.fused_decoder else None)
 
     # ---- device path ----------------------------------------------------
 
-    def _tower(self, x: torch.Tensor):
+    def normalize(self, x_u8) -> torch.Tensor:
+        """uint8 NHWC host array → normalized float32 on the device."""
+        x = torch.as_tensor(np.asarray(x_u8)).to(self.device)
+        return self.preprocess.device_normalize(x)
+
+    def tower(self, x: torch.Tensor):
+        """``(embedding, taps)`` of normalized NHWC images."""
         if self.fused_tower:
             return fused_apply(self.cfg.backbone.kind, self.model.backbone, x,
-                               self.dtype, folded=self._folded)
+                               self.dtype, folded=self._tower_folded)
         return self.model.backbone(x)
+
+    def decode(self, diffs, img_sq=None) -> torch.Tensor:
+        """CLU maps from the decoder-dtype diff pyramid (and v2's pixel
+        error): the fused serving decode, or the module's decoder."""
+        if self.fused_decoder:
+            return fused_serving_decode(self.model, diffs, img_sq,
+                                        folded=self._decoder_folded)
+        return self.model.decode_from_diffs(diffs, img_sq)
 
     @torch.inference_mode()
     def score_arrays(self, a_u8: np.ndarray, b_u8: np.ndarray) -> torch.Tensor:
-        """Score a uint8 NHWC batch pair; returns (N,) float32 on the
-        scorer's device."""
-        pre = self.preprocess
-        a = pre.device_normalize(torch.as_tensor(np.asarray(a_u8)).to(self.device))
-        b = pre.device_normalize(torch.as_tensor(np.asarray(b_u8)).to(self.device))
-        _, taps_a = self._tower(a)
-        _, taps_b = self._tower(b)
-        return fused_global_score(taps_a, taps_b, self.model.aggregator,
-                                  self.model.tap_names)
+        """Score a uint8 NHWC batch pair; returns (N,) float32 scores or
+        (N, H, W) maps on the scorer's device."""
+        a, b = self.normalize(a_u8), self.normalize(b_u8)
+        _, taps_a = self.tower(a)
+        _, taps_b = self.tower(b)
+        model = self.model
+        if self.model_kind == "global":
+            return fused_global_score(taps_a, taps_b, model.aggregator,
+                                      model.tap_names)
+        diffs = squared_diff_pyramid(taps_a, taps_b, model.tap_names,
+                                     model.decoder_dtype)
+        return self.decode(diffs, pixel_sq_error(a, b) if model.v2 else None)
 
     # ---- end-to-end path -------------------------------------------------
 
@@ -110,8 +142,8 @@ class PairScorer:
             return None
 
     def score_paths(self, pairs: Sequence[Tuple[str, str]]) -> np.ndarray:
-        """Decode + score (path_a, path_b) pairs; one score per pair, NaN
-        where a file failed to decode."""
+        """Decode + score (path_a, path_b) pairs; one score (or map) per
+        pair, NaN (the whole map) where a file failed to decode."""
         bs = self.batch_size
         results: List[np.ndarray] = []
         chunks = [pairs[i: i + bs] for i in range(0, len(pairs), bs)]
@@ -139,7 +171,7 @@ class PairScorer:
             if d is not None:
                 a[i], b[i] = d
                 ok[i] = True
-        scores = self.score_arrays(a, b).cpu().numpy().astype(np.float32)
+        scores = self.score_arrays(a, b).float().cpu().numpy()
         scores = scores[:n]
         scores[~ok[:n]] = np.nan
         return scores

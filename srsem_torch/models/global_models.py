@@ -13,7 +13,6 @@ unet_global) are not ported yet (ROADMAP A4, A5, A10).
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -23,8 +22,8 @@ from torch import nn
 from srsem_torch.backbones.resnet import (
     CLIP_STAGE_TAPS,
     IMAGENET_STAGE_TAPS,
-    FrozenBatchNorm,
     make_backbone,
+    reset_tower,
 )
 from srsem_torch.config import GlobalModelConfig
 
@@ -63,6 +62,23 @@ def stage_taps_for(kind: str, depth: int) -> Tuple[str, ...]:
 def squared_diffs(taps_a: Dict[str, Tensor], taps_b: Dict[str, Tensor],
                   names: Sequence[str]) -> List[Tensor]:
     return [(taps_a[n].float() - taps_b[n].float()) ** 2 for n in names]
+
+
+def grouped_diff_pyramid(taps_g: Dict[str, Tensor], taps_s: Dict[str, Tensor],
+                         names: Sequence[str],
+                         dtype: torch.dtype = torch.float32) -> List[Tensor]:
+    """Per-pair squared-diff pyramids from grouped taps
+    (global_models.py:237-257): GT taps (G, h, w, c) broadcast against SR
+    taps (G*K, h, w, c), subtracted in float32, stored in ``dtype`` as
+    ``[(G*K, h, w, c), ...]``; the GT taps are never tiled K times."""
+    g = taps_g[names[0]].shape[0]
+    out = []
+    for nm in names:
+        t = taps_s[nm]
+        ts = t.reshape(g, t.shape[0] // g, *t.shape[1:]).float()
+        diff = (taps_g[nm].float()[:, None] - ts) ** 2
+        out.append(diff.to(dtype).reshape(t.shape))
+    return out
 
 
 class ConvHeadAggregator(nn.Module):
@@ -128,17 +144,7 @@ class GlobalPairScorer(nn.Module):
         """Fresh weights from ``generator``: Kaiming-normal (fan_in) convs
         and identity frozen BN in the tower, as the Flax init does, and the
         head's torch-default weights."""
-        with torch.no_grad():
-            for m in self.backbone.modules():
-                if isinstance(m, nn.Conv2d):
-                    fan_in = m.weight[0].numel()
-                    m.weight.normal_(0.0, math.sqrt(2.0 / fan_in),
-                                     generator=generator)
-                elif isinstance(m, FrozenBatchNorm):
-                    m.weight.fill_(1.0)
-                    m.bias.zero_()
-                    m.running_mean.zero_()
-                    m.running_var.fill_(1.0)
+        reset_tower(self.backbone, generator)
         self.aggregator.reset_parameters(generator)
 
     def forward(self, a: Tensor, b: Tensor) -> Tensor:

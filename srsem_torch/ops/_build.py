@@ -2,8 +2,9 @@
 
 Each source compiles at first use with ``nvcc`` into a shared library with
 a plain C interface under ``build/srsem_torch/`` at the root of the
-checkout (listed in ``.gitignore``), named by a hash of the source and the
-flags, and is loaded with ``ctypes``.  A plain C interface keeps a build to
+checkout (listed in ``.gitignore``), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, and is loaded with
+``ctypes``.  A plain C interface keeps a build to
 seconds; a source that includes PyTorch's headers takes minutes.  Nothing
 compiles at import: the CPU tests import every module.
 
@@ -58,9 +59,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(p.read_bytes() for p in parts)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

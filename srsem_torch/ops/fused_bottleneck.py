@@ -66,8 +66,9 @@ def fold_bn_into_conv(weight: Tensor, bn, eps: Optional[float] = None,
 
 def bottleneck_weights(block) -> Weights:
     """BN-folded float32 (w1, b1, w2, b2, w3, b3) of a stride-1
-    ImageNetBottleneck, in the kernel's layout: w1 (C, wd), w2 (3, 3, wd,
-    wd) [dy, dx, in, out], w3 (wd, C)."""
+    ImageNetBottleneck or ClipBottleneck (the same block at stride 1), in
+    the kernel's layout: w1 (C, wd), w2 (3, 3, wd, wd) [dy, dx, in, out],
+    w3 (wd, C)."""
     w1, b1 = fold_bn_into_conv(block.conv1.weight, block.bn1)
     w2, b2 = fold_bn_into_conv(block.conv2.weight, block.bn2)
     w3, b3 = fold_bn_into_conv(block.conv3.weight, block.bn3)

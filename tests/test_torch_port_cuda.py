@@ -17,6 +17,7 @@ import torch
 
 from srsem_torch.ops import _build
 from srsem_torch.ops import fused_bottleneck as tfb
+from srsem_torch.ops import fused_decoder as tfd
 from srsem_torch.ops import fused_head as tfh
 
 
@@ -99,3 +100,99 @@ def test_smem_formula_matches_kernel(cuda_device):
     fn.argtypes = [ctypes.c_int] * 4
     for args in [(8, 56, 64, 2), (8, 28, 64, 4), (5, 7, 512, 4), (3, 3, 8, 2)]:
         assert fn(*args) == tfb.bottleneck_smem_bytes(*args)
+
+
+def _decoder_args(rng, n, h, w, cd, cu, cm, co, fk, device):
+    mk = lambda s, fan: torch.tensor(  # noqa: E731
+        (rng.normal(size=s) / np.sqrt(fan)).astype(np.float32), device=device)
+    d = torch.tensor(rng.uniform(0, 1, (n, h, w, cd)).astype(np.float32),
+                     device=device)
+    u = (torch.tensor(rng.uniform(0, 1, (n, h, w, cu)).astype(np.float32),
+                      device=device) if cu else None)
+    w1d = mk((3, 3, cd, cm), 9 * (cd + cu))
+    w1u = mk((3, 3, cu, cm), 9 * (cd + cu)) if cu else None
+    w2 = mk((3, 3, cm, co) if fk == 3 else (cm, co), (9 if fk == 3 else 1) * cm)
+    return d, u, w1d, w1u, mk((cm,), 10), w2, mk((co,), 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cd,cu,cm,co,fk,row_tile", [
+    (2, 28, 28, 512, 1024, 512, 512, 3, None),   # level 2, whole image
+    (2, 56, 56, 256, 512, 256, 256, 3, 7),       # level 1, tiled
+    (2, 112, 112, 64, 256, 64, 1, 1, 7),         # level 0, 1x1 head, tiled
+    (2, 56, 56, 257, 512, 256, 256, 3, 7),       # v2: odd skip channels
+    (2, 7, 7, 2048, 0, 2048, 2048, 3, None),     # level 4: u=None
+    (2, 13, 11, 24, 16, 16, 8, 3, 5),            # FMA widths, ragged tile
+    (1, 10, 9, 65, 64, 64, 64, 3, 4),            # ragged, padded skip
+    (2, 9, 12, 64, 128, 64, 1, 1, None),         # 1x1 head, whole image
+    (1, 6, 5, 8, 0, 8, 8, 3, 4)])                # u=None, tiled, ragged
+def test_decoder_kernel_matches_plain(cuda_device, dtype, n, h, w, cd, cu,
+                                      cm, co, fk, row_tile):
+    """CUDA kernel == plain version.  f32: FP order only (1e-4); bf16: a
+    few bf16 ulps where the f32 sums round h1/y apart (2e-2).  bf16 with
+    every width a multiple of 64 (after padding the skip diff) takes the
+    tensor cores; float32 and other widths the FMA path."""
+    rng = np.random.default_rng(10)
+    d, u, w1d, w1u, b1, w2, b2 = _decoder_args(rng, n, h, w, cd, cu, cm, co,
+                                               fk, cuda_device)
+    d = d.to(dtype)
+    u = None if u is None else u.to(dtype)
+    wrapper = (tfd.fused_decoder_level_tiled if row_tile
+               else tfd.fused_decoder_level)
+    kwargs = {"row_tile": row_tile} if row_tile else {}
+    before = wrapper.launches
+    got = wrapper(d, u, w1d, w1u, b1, w2, b2, final_kernel=fk, **kwargs)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.shape == (n, h, w, co) and got.dtype == dtype
+    want = tfd.plain_decoder_level(d, u, w1d, w1u, b1, w2, b2, fk, row_tile)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
+    """Every level at batch 32 and 224 px gets a tile from the library in
+    both dtypes (the tiled default's row tile at levels 0 and 1); a level
+    too wide for shared memory raises."""
+    for h, cd, cu, cm, co, fk, row_tile in [
+            (28, 512, 1024, 512, 512, 3, None), (56, 256, 512, 256, 256, 3, 7),
+            (112, 64, 256, 64, 1, 1, 7), (14, 1024, 2048, 1024, 1024, 3, None),
+            (7, 2048, 0, 2048, 2048, 3, None), (56, 257, 512, 256, 256, 3, 7)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            d = torch.zeros(32, h, h, cd, dtype=dtype, device=cuda_device)
+            u = (torch.zeros(32, h, h, cu, dtype=dtype, device=cuda_device)
+                 if cu else None)
+            w1d = torch.zeros(3, 3, cd, cm, device=cuda_device)
+            w1u = torch.zeros(3, 3, cu, cm, device=cuda_device) if cu else None
+            w2 = torch.zeros(*((3, 3) if fk == 3 else ()), cm, co,
+                             device=cuda_device)
+            args = tfd.kernel_args(
+                d, u, w1d, w1u, torch.zeros(cm, device=cuda_device), w2,
+                torch.zeros(co, device=cuda_device), fk)
+            th, tw = tfd.kernel_tile(args, fk, row_tile)
+            assert 1 <= th <= h and 1 <= tw <= h
+            if row_tile:
+                assert th == row_tile
+    with pytest.raises(ValueError, match="no decoder tile fits"):
+        d = torch.zeros(1, 8, 8, 64, device=cuda_device)
+        tfd.kernel_tile(tfd.kernel_args(
+            d, None, torch.zeros(3, 3, 64, 16384, device=cuda_device), None,
+            torch.zeros(16384, device=cuda_device),
+            torch.zeros(3, 3, 16384, 64, device=cuda_device),
+            torch.zeros(64, device=cuda_device), 3), 3, None)
+
+
+@pytest.mark.cuda
+def test_decoder_pads_odd_skip_for_tensor_cores(cuda_device):
+    """bf16 with Cd = 257 is padded to 320 for the tensor cores; float32
+    (FMA path) is left as it is."""
+    mk = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
+        *s, dtype=dt, device=cuda_device)
+    for dtype, want in ((torch.bfloat16, 320), (torch.float32, 257)):
+        args = tfd.kernel_args(mk(1, 8, 8, 257, dt=dtype),
+                               mk(1, 8, 8, 512, dt=dtype),
+                               mk(3, 3, 257, 256), mk(3, 3, 512, 256),
+                               mk(256), mk(3, 3, 256, 256), mk(256), 3)
+        assert args[0].shape[-1] == want and args[2].shape[1] == want
