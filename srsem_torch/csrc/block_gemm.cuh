@@ -7,7 +7,8 @@
 //   * gemm_tc  — bf16 on the tensor cores (mma.sync m16n8k16, ldmatrix
 //     operands, cp.async pipeline); needs K % 64 == 0 and N % 64 == 0;
 //   * gemm_fma — any dtype and width, float32 FMAs on the CUDA cores.
-// Users: fused_bottleneck.cu, fused_decoder.cu.
+// Users: fused_bottleneck.cu (both), fused_decoder.cu (gemm_fma, the FMA
+// path; its tensor-core path is wgmma, wgmma.cuh).
 
 #pragma once
 
@@ -57,13 +58,6 @@ __host__ __device__ inline int tc_warp_cols(int M, int N) {
   const int wr0 = M <= 32 ? 1 : (M <= 64 ? 2 : 4);
   const int wc = 8 / wr0 < 4 ? 8 / wr0 : 4;
   return wc < N / 32 ? wc : N / 32;
-}
-
-// Rows a block GEMM of M rows computes: M rounded up to its row tile
-// (BM on FMAs; 32 * 8 / wc on the tensor cores).
-__host__ __device__ inline int gemm_rows(int M, int N, bool tc) {
-  const int tile_m = tc ? 32 * (8 / tc_warp_cols(M, N)) : BM;
-  return (M + tile_m - 1) / tile_m * tile_m;
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }

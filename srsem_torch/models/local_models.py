@@ -64,9 +64,9 @@ DEFAULT_FUSE_LEVELS: Tuple[int, ...] = (0, 1, 2)
 #: Row tile per level for ``fused_decoder_level_tiled``: levels 0 and 1
 #: (112 and 56 px at 224) — the levels the JAX docstring names for it
 #: (srsem/ops/fused_decoder.py:248-251).  JAX defaults to ``{}`` only
-#: because Mosaic crashed on these shapes (local_models.py:310-317); on
-#: Hopper the kernel tiles any level to fit shared memory.  Seven rows give
-#: 512 blocks at batch 32 (3.9 waves on 132 SMs) at both levels.
+#: because Mosaic crashed on these shapes (local_models.py:310-317).  On
+#: the card both wrappers launch the same kernel, which ignores the row
+#: tile; on the CPU it picks the plain version's row tiles.
 DEFAULT_TILED_LEVEL_ROWS: Dict[int, int] = {0: 7, 1: 7}
 
 

@@ -5,26 +5,31 @@
 
 with serving BN folded into the weights
 (srsem_torch/models/local_models.py::folded_decoder_weights).  The Hopper
-kernel (srsem_torch/csrc/fused_decoder.cu) computes one output tile of
-(image, rows, columns) per thread block; the (d, u) concat is never built
-and h1 never leaves shared memory.  It replaces both TPU kernels:
+kernel (srsem_torch/csrc/fused_decoder.cu) is an implicit-GEMM conv over
+one or two NHWC inputs on wgmma, fed by TMA: a level with a 3x3 conv2 is
+two launches of it, conv1 (d, u -> h1, a scratch tensor allocated here)
+and conv2 (h1 -> y), so h1 goes through L2 and no halo is recomputed;
+level 0's 1x1 head to one channel is one launch whose epilogue forms the
+head.  The (d, u) concat is never built.  It replaces both TPU kernels:
 
 * ``fused_decoder_level``       ← fused_decoder.py::fused_decoder_level
-  (``_decoder_kernel``): the kernel picks the tile (its ``wave_tile``);
+  (``_decoder_kernel``);
 * ``fused_decoder_level_tiled`` ← fused_decoder.py::fused_decoder_level_tiled
-  (``_tiled_decoder_kernel`` / ``_copy_with_halo``): honours ``row_tile``.
+  (``_tiled_decoder_kernel`` / ``_copy_with_halo``).  Its ``row_tile`` is
+  the TPU kernel's rows per grid step: on the card the kernel tiles the
+  output its own way and the result does not depend on it; on the CPU it
+  picks the plain version's row tiles.
 
-What bounds it on the card, and what the design does about it, is noted
-at the top of fused_decoder.cu: every main-path level is bound by
-tensor-core operations, so conv1 is an implicit GEMM straight from global
-memory (no im2col, no concat) on mma.sync, and h1 stays on chip.
+What bounds it on the card, and why h1 leaves the chip, is noted at the
+top of fused_decoder.cu.
 
 Each wrapper launches the kernel for a CUDA tensor and runs the plain
-PyTorch version (``decoder_tiles_plain``: the same tile loop, the same
-halo and h1 masking, in torch ops, over full-width tiles) only for a CPU
-tensor.  Each counts its kernel launches in its ``launches`` attribute.
-The tile and shared-memory rules live once, in fused_decoder.cu; the
-wrapper asks the built library for them.
+PyTorch version (``decoder_tiles_plain``: the TPU kernels' tile loop, halo
+and h1 masking, in torch ops, over full-width tiles) only for a CPU
+tensor.  Each counts its calls that launch the kernel in its ``launches``
+attribute (one a call, whatever the CUDA launches of the level).  The
+kernel's plan (its output patch, its launches, the rows it computes) lives
+once, in fused_decoder.cu; the wrapper asks the built library for it.
 
 Layouts are the JAX package's: NHWC activations, (3, 3, Cin, Cout) HWIO
 conv kernels, a (Cm, Co) or (1, 1, Cm, Co) 1x1 ``w2``.  The kernel computes
@@ -37,13 +42,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from srsem_torch.ops import _build
-from srsem_torch.ops.fused_bottleneck import _KERNEL_DTYPES, _sm_count
+from srsem_torch.ops.fused_bottleneck import _KERNEL_DTYPES
 
 Tensor = torch.Tensor
 Prepared = Tuple[Tensor, Optional[Tensor], Tensor, Optional[Tensor], Tensor,
@@ -153,18 +158,19 @@ def decoder_tiles_plain(d: Tensor, u: Optional[Tensor], w1d: Tensor,
 @functools.lru_cache(maxsize=None)
 def _kernel() -> ctypes.CDLL:
     """fused_decoder.cu's library with its exports typed (built on first
-    use).  It holds the one copy of the kernel's tile, shared-memory and
-    tensor-core rules, which the wrapper asks for."""
+    use).  It holds the one copy of the kernel's plan and tensor-core
+    rules, which the wrapper asks for."""
     lib = _build.load("fused_decoder")
     lib.srsem_fused_decoder.restype = ctypes.c_int
     lib.srsem_fused_decoder.argtypes = ([ctypes.c_void_p] * 8
-                                        + [ctypes.c_int] * 11
+                                        + [ctypes.c_int] * 9
                                         + [ctypes.c_void_p])
     lib.srsem_decoder_uses_tensor_cores.restype = ctypes.c_int
     lib.srsem_decoder_uses_tensor_cores.argtypes = [ctypes.c_int] * 6
-    lib.srsem_decoder_tile.restype = ctypes.c_int
-    lib.srsem_decoder_tile.argtypes = ([ctypes.c_int] * 11
-                                       + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.srsem_decoder_plan.restype = ctypes.c_int
+    lib.srsem_decoder_plan.argtypes = ([ctypes.c_int] * 9
+                                       + [ctypes.POINTER(ctypes.c_int)] * 3
+                                       + [ctypes.POINTER(ctypes.c_double)])
     return lib
 
 
@@ -189,41 +195,72 @@ def kernel_args(d: Tensor, u: Optional[Tensor], w1d: Tensor,
     return args
 
 
-def kernel_tile(args: Prepared, final_kernel: int,
-                row_tile: Optional[int]) -> Tuple[int, int]:
-    """The tile (th, tw) the kernel launches with on d's card, as
-    fused_decoder.cu chooses it: ``row_tile`` rows when given, else its
-    ``wave_tile`` for the card's SM count.  Raises when nothing fits."""
+class Plan(NamedTuple):
+    """How the kernel runs a level (fused_decoder.cu's
+    ``srsem_decoder_plan``): each 64-row tile of its products is an output
+    patch of ``bh`` x ``bw`` pixels; ``launches`` CUDA launches (2: conv1
+    into an h1 scratch, then conv2; 1: conv1 with the 1x1 head in its
+    epilogue); ``rows_ratio`` = rows the products compute over output
+    pixels (>= 1)."""
+
+    bh: int
+    bw: int
+    launches: int
+    rows_ratio: float
+
+
+def kernel_plan(args: Prepared, final_kernel: int) -> Plan:
+    """The plan the kernel launches with for ``kernel_args``' arguments."""
     d = args[0]
     n, h, w, _ = d.shape
     cd, cu, cm, co = _widths(args)
-    th, tw = ctypes.c_int(), ctypes.c_int()
-    err = _kernel().srsem_decoder_tile(
+    bh, bw, launches = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    ratio = ctypes.c_double()
+    err = _kernel().srsem_decoder_plan(
         n, h, w, cd, cu, cm, co, final_kernel, int(d.dtype == torch.bfloat16),
-        row_tile or 0, _sm_count(d.device.index or 0), ctypes.byref(th),
-        ctypes.byref(tw))
+        ctypes.byref(bh), ctypes.byref(bw), ctypes.byref(launches),
+        ctypes.byref(ratio))
     if err != 0:
-        raise ValueError(f"no decoder tile fits in shared memory (cm={cm}, "
-                         f"{d.dtype})")
-    return th.value, tw.value
+        raise ValueError(f"no decoder plan for d {tuple(d.shape)}, cu {cu}, "
+                         f"cm {cm}, co {co}, final_kernel {final_kernel}")
+    return Plan(bh.value, bw.value, launches.value, ratio.value)
 
 
-def _launch(args: Prepared, final_kernel: int, th: int, tw: int) -> Tensor:
+def _k_major(parts, dtype: torch.dtype) -> Tensor:
+    """(K_i, Cout) weight blocks stacked along K, as one contiguous
+    (Cout, sum K_i) matrix in ``dtype`` (one copy a block)."""
+    cout = parts[0].shape[-1]
+    out = torch.empty(cout, sum(p.shape[0] for p in parts), dtype=dtype,
+                      device=parts[0].device)
+    k = 0
+    for p in parts:
+        out[:, k:k + p.shape[0]].copy_(p.t())
+        k += p.shape[0]
+    return out
+
+
+def _launch(args: Prepared, final_kernel: int, plan: Plan) -> Tensor:
     d, u, w1d, w1u, b1, w2, b2 = args
     n, h, w, cd = d.shape
     _, cu, cm, co = _widths(args)
-    y = torch.empty(n, h, w, co, dtype=d.dtype, device=d.device)
+    dt = d.dtype
+    w1t = _k_major([w1d.reshape(-1, cm)]
+                   + ([] if w1u is None else [w1u.reshape(-1, cm)]), dt)
+    w2t = _k_major([w2.reshape(-1, co)], dt)
+    h1 = (torch.empty(n, h, w, cm, dtype=dt, device=d.device)
+          if plan.launches == 2 else None)
+    y = torch.empty(n, h, w, co, dtype=dt, device=d.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         err = _kernel().srsem_fused_decoder(
-            ptr(d), ptr(u), ptr(w1d), ptr(w1u), ptr(b1), ptr(w2), ptr(b2),
-            ptr(y), n, h, w, cd, cu, cm, co, final_kernel, th, tw,
-            int(d.dtype == torch.bfloat16), stream)
+            ptr(d), ptr(u), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2), ptr(h1),
+            ptr(y), n, h, w, cd, cu, cm, co, final_kernel,
+            int(dt == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"fused_decoder kernel launch failed: CUDA error "
-                           f"{err} (tile {th}x{tw}, d {tuple(d.shape)}, "
-                           f"cu {cu}, cm {cm}, co {co}, {d.dtype})")
+                           f"{err} ({plan}, d {tuple(d.shape)}, cu {cu}, "
+                           f"cm {cm}, co {co}, {dt})")
     return y
 
 
@@ -250,8 +287,7 @@ def _run(wrapper, d, u, w1d, w1u, b1, w2, b2, final_kernel,
     args = kernel_args(d, u, w1d, w1u, b1, w2, b2, final_kernel)
     if any(t.data_ptr() % 16 for t in args if t is not None):
         raise ValueError("fused_decoder needs 16-byte-aligned tensors")
-    th, tw = kernel_tile(args, final_kernel, row_tile)
-    y = _launch(args, final_kernel, th, tw)
+    y = _launch(args, final_kernel, kernel_plan(args, final_kernel))
     wrapper.launches += 1
     return y
 
@@ -261,7 +297,7 @@ def fused_decoder_level(d: Tensor, u: Optional[Tensor], w1d: Tensor,
                         b2: Tensor, final_kernel: int = 3) -> Tensor:
     """One CLU decoder level: ``relu(conv2(relu(conv1(d, u))))`` on NHWC
     ``d`` (skip diff) and ``u`` (upsampled deeper output, or None at the
-    deepest level), with the tile chosen to fill the card."""
+    deepest level)."""
     return _run(fused_decoder_level, d, u, w1d, w1u, b1, w2, b2,
                 final_kernel, None)
 
@@ -270,10 +306,11 @@ def fused_decoder_level_tiled(d: Tensor, u: Optional[Tensor], w1d: Tensor,
                               w1u: Optional[Tensor], b1: Tensor, w2: Tensor,
                               b2: Tensor, row_tile: int,
                               final_kernel: int = 3) -> Tensor:
-    """``fused_decoder_level`` with ``row_tile`` rows per tile and the
-    inputs' 1- or 2-row halo.  H need not divide by ``row_tile`` (the last
-    tile is ragged and masked), and ``u`` may be None; columns are split
-    only when the row tile does not fit."""
+    """``fused_decoder_level`` for callers of the TPU's row-tiled kernel.
+    ``row_tile`` (>= 1; it need not divide H, and ``u`` may be None) is
+    that kernel's rows per grid step.  On the card the kernel has no row
+    tile and the result does not depend on it; on the CPU the plain
+    version runs the TPU kernel's row tiles with their 1- or 2-row halo."""
     if row_tile < 1:
         raise ValueError(f"row_tile must be >= 1, got {row_tile}")
     return _run(fused_decoder_level_tiled, d, u, w1d, w1u, b1, w2, b2,

@@ -126,13 +126,17 @@ def _decoder_args(rng, n, h, w, cd, cu, cm, co, fk, device):
     (2, 13, 11, 24, 16, 16, 8, 3, 5),            # FMA widths, ragged tile
     (1, 10, 9, 65, 64, 64, 64, 3, 4),            # ragged, padded skip
     (2, 9, 12, 64, 128, 64, 1, 1, None),         # 1x1 head, whole image
-    (1, 6, 5, 8, 0, 8, 8, 3, 4)])                # u=None, tiled, ragged
+    (1, 6, 5, 8, 0, 8, 8, 3, 4),                 # u=None, tiled, ragged
+    (1, 28, 28, 512, 1024, 512, 512, 3, None),   # level 2, batch 1
+    (1, 56, 56, 256, 512, 256, 256, 3, 7),       # level 1, batch 1
+    (1, 7, 7, 2048, 0, 2048, 2048, 3, 3)])       # level 4: one patch
 def test_decoder_kernel_matches_plain(cuda_device, dtype, n, h, w, cd, cu,
                                       cm, co, fk, row_tile):
     """CUDA kernel == plain version.  f32: FP order only (1e-4); bf16: a
     few bf16 ulps where the f32 sums round h1/y apart (2e-2).  bf16 with
     every width a multiple of 64 (after padding the skip diff) takes the
-    tensor cores; float32 and other widths the FMA path."""
+    tensor cores (wgmma); float32 and other widths the FMA path.  An odd
+    count of patches leaves a block's second warpgroup without one."""
     rng = np.random.default_rng(10)
     d, u, w1d, w1u, b1, w2, b2 = _decoder_args(rng, n, h, w, cd, cu, cm, co,
                                                fk, cuda_device)
@@ -153,13 +157,15 @@ def test_decoder_kernel_matches_plain(cuda_device, dtype, n, h, w, cd, cu,
 
 @pytest.mark.cuda
 def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
-    """Every level at batch 32 and 224 px gets a tile from the library in
-    both dtypes (the tiled default's row tile at levels 0 and 1); a level
-    too wide for shared memory raises."""
-    for h, cd, cu, cm, co, fk, row_tile in [
-            (28, 512, 1024, 512, 512, 3, None), (56, 256, 512, 256, 256, 3, 7),
-            (112, 64, 256, 64, 1, 1, 7), (14, 1024, 2048, 1024, 1024, 3, None),
-            (7, 2048, 0, 2048, 2048, 3, None), (56, 257, 512, 256, 256, 3, 7)]:
+    """The library's plan at every level at batch 32 and 224 px, in both
+    dtypes: output patches of at most 64 pixels inside the image, two
+    launches (one for the tensor cores' fused 1x1 head), and on the tensor
+    cores at most 15% of the rows computed and not stored at the main-path
+    shapes (28, 56 and 112 px).  A level as wide as Cm = 16384 runs."""
+    for h, cd, cu, cm, co, fk in [
+            (28, 512, 1024, 512, 512, 3), (56, 256, 512, 256, 256, 3),
+            (112, 64, 256, 64, 1, 1), (14, 1024, 2048, 1024, 1024, 3),
+            (7, 2048, 0, 2048, 2048, 3), (56, 257, 512, 256, 256, 3)]:
         for dtype in (torch.float32, torch.bfloat16):
             d = torch.zeros(32, h, h, cd, dtype=dtype, device=cuda_device)
             u = (torch.zeros(32, h, h, cu, dtype=dtype, device=cuda_device)
@@ -171,17 +177,20 @@ def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
             args = tfd.kernel_args(
                 d, u, w1d, w1u, torch.zeros(cm, device=cuda_device), w2,
                 torch.zeros(co, device=cuda_device), fk)
-            th, tw = tfd.kernel_tile(args, fk, row_tile)
-            assert 1 <= th <= h and 1 <= tw <= h
-            if row_tile:
-                assert th == row_tile
-    with pytest.raises(ValueError, match="no decoder tile fits"):
-        d = torch.zeros(1, 8, 8, 64, device=cuda_device)
-        tfd.kernel_tile(tfd.kernel_args(
-            d, None, torch.zeros(3, 3, 64, 16384, device=cuda_device), None,
-            torch.zeros(16384, device=cuda_device),
-            torch.zeros(3, 3, 16384, 64, device=cuda_device),
-            torch.zeros(64, device=cuda_device), 3), 3, None)
+            plan = tfd.kernel_plan(args, fk)
+            assert 1 <= plan.bh <= h and 1 <= plan.bw <= h
+            assert plan.bh * plan.bw <= 64 and plan.rows_ratio >= 1
+            tc = dtype == torch.bfloat16
+            assert plan.launches == (1 if tc and fk == 1 else 2)
+            if tc and h in (28, 56, 112):
+                assert plan.rows_ratio <= 1.15, (h, plan)
+    rng = np.random.default_rng(11)
+    d, _, w1d, _, b1, w2, b2 = _decoder_args(rng, 1, 8, 8, 64, 0, 16384, 64,
+                                             3, cuda_device)
+    got = tfd.fused_decoder_level(d.bfloat16(), None, w1d, None, b1, w2, b2)
+    want = tfd.plain_decoder_level(d.bfloat16(), None, w1d, None, b1, w2, b2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.cuda
