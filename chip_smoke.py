@@ -12,10 +12,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
              main-path shape (224 px; batch 64 on the global path, 32 on
              the CLU path, whose CLIP tower runs the bottleneck kernels
              too), in float32 with TF32 off and in bf16, with the
-             stated tolerances (the decoder also at a v2 shape and at the
-             u=None level-4 shape); then CUDA-event times in bf16
-             (the serving dtype) of the kernel, its plain version, a
-             one-call PyTorch yardstick, and the card's bound.
+             stated tolerances (the bottleneck also at a ragged shape, the
+             decoder at a v2 shape and at the u=None level-4 shape); then
+             CUDA-event times in bf16 (the serving dtype) of the kernel,
+             its plain version, a one-call PyTorch yardstick, and the
+             card's bound; for the bottleneck also its plan and each of
+             its three launches' device time (torch.profiler).
 4. slice   — the full-width flagship scorer GlobalModelConfig(resnet50,
              224, bfloat16, stages_cnn, depth 3) with seeded random
              weights: PairScorer.score_paths over synthetic JPEG/PNG pairs
@@ -93,6 +95,28 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def launch_ms(torch, fn, name: str, per_call: int, reps: int = 5):
+    """Device ms of each of the ``per_call`` CUDA launches a call of ``fn``
+    makes (kernels whose name holds ``name``, in launch order), averaged
+    over ``reps`` calls, from torch.profiler; None when it saw no launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and name in e.name)
+    if len(spans) != reps * per_call:
+        return None
+    return [sum(end - start for start, end in spans[i::per_call]) / reps / 1e3
+            for i in range(per_call)]
+
+
 def bound(nbytes: float, flops: float, peak_flops: float):
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -113,6 +137,9 @@ BOTTLENECK_SHAPES = {path: [((n, 28, 28, 512), 128, 6),
                             ((n, 14, 14, 1024), 256, 10),
                             ((n, 7, 7, 2048), 512, 4)]
                      for path, n in PATH_BATCH.items()}
+# Checked and not on the main path: ragged H and W (a ragged last flat
+# tile, ragged patches, an odd patch count).
+BOTTLENECK_SHAPES["global"].append(((9, 13, 11, 1024), 256, 0))
 TILED_SHAPES = {path: [((n, 56, 56, 256), 64, 4)]
                 for path, n in PATH_BATCH.items()}
 # CLU decoder levels at batch 32, 224 px: (n, h, w, cd, cu, cm, co,
@@ -194,6 +221,9 @@ def check_kernels(torch):
                 mk(3, 3, wd, wd, f=(9 * wd) ** -0.5), mk(wd, f=0.1),
                 mk(wd, c, f=wd ** -0.5), mk(c, f=0.1))
 
+    # A call makes three CUDA launches (conv1, conv2, conv3); ``plan`` in
+    # its line (tiling, N tile, blocks and rows computed over useful, per
+    # conv) comes from the kernel's plan.
     cases = [(name, path, shape)
              for name, table in (("fused_bottleneck", BOTTLENECK_SHAPES),
                                  ("fused_bottleneck_tiled", TILED_SHAPES))
@@ -216,8 +246,26 @@ def check_kernels(torch):
             if not bool((diff <= limit).all()):
                 raise AssertionError(f"{name} {shape} {dtype}: max |err| "
                                      f"{err} beyond rtol=atol={tol}")
-        th, tw = fb.kernel_tile(x, wd, row_tile)
-        ms = cuda_ms(torch, lambda: wrapper(x, *ws, **kw), 5)
+        plan = fb.kernel_plan(x, wd)
+        line = dict(name=name, path=path, shape=list(shape), wd=wd,
+                    cuda_launches=plan.launches,
+                    plan=[{"conv": i + 1, "tiling": plan.tilings[i],
+                           "nt": plan.nts[i], "blocks": plan.blocks[i],
+                           "rows_executed_over_useful": plan.rows_ratio[i]}
+                          for i in range(3)],
+                    max_abs_err=errs,
+                    tolerance="f32 (TF32 off) rtol=atol=1e-4; bf16 "
+                    "rtol=atol=2e-2 (bf16 ulps where f32 sums round apart)")
+        if count == 0:
+            emit("kernel", on_main_path=False, **line)
+            add(name, path, errs[str(torch.bfloat16)], 0, 0, 0, 0,
+                "operations", 0)
+            continue
+        # Timed as the tower calls it: weights packed once (fold_tower).
+        packed = fb.pack_weights(ws, x.dtype)
+        ms = cuda_ms(torch, lambda: wrapper(x, packed, **kw), 20)
+        conv_ms = launch_ms(torch, lambda: wrapper(x, packed, **kw),
+                            "fused_bottleneck_conv", plan.launches)
         plain = cuda_ms(torch, lambda: fb.plain_bottleneck(x, ws, row_tile),
                         3)
         # Yardstick: the cuDNN chain of three convs with the same folded
@@ -233,18 +281,15 @@ def check_kernels(torch):
             h = F.relu(F.conv2d(h, k2, c2, padding=1))
             return F.relu(F.conv2d(h, k3, c3) + xc)
 
-        lib = cuda_ms(torch, chain, 5)
+        lib = cuda_ms(torch, chain, 20)
         n, h, w_, c = shape
         flops = 2 * n * h * w_ * (c * wd + 9 * wd * wd + wd * c)
         nbytes = (2 * x.numel() * 2 + 2 * (2 * c * wd + 9 * wd * wd)
                   + 4 * (2 * wd + c))
         bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
-        emit("kernel", name=name, path=path, shape=list(shape), wd=wd,
-             tile=[th, tw], max_abs_err=errs,
-             tolerance="f32 (TF32 off) rtol=atol=1e-4; bf16 "
-             "rtol=atol=2e-2 (bf16 ulps where f32 sums round apart)",
-             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-             bound_by=by, tflops=flops / ms / 1e9)
+        emit("kernel", on_main_path=True, ms=ms, conv_ms=conv_ms,
+             plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+             tflops=flops / ms / 1e9, **line)
         add(name, path, errs[str(torch.bfloat16)], ms, plain, lib, bms, by,
             count)
 

@@ -14,8 +14,9 @@ names as the modules.
 ``(1, 2, 3)`` on purpose.  The JAX default leaves stage 0 out because its
 whole-image TPU kernel crashed the Mosaic compiler at 56x56x256, and makes
 the whole fused tower opt-in because it measured slower than XLA on a TPU.
-Neither reason carries over: on Hopper the kernel tiles any stage to fit
-shared memory, and the port's main path is meant to run its kernels.
+Neither reason carries over: on Hopper the kernel runs any stage (h1 and
+h2 go through memory), and the port's main path is meant to run its
+kernels.
 Stage 0 keeps the JAX package's routing through the halo-tiled wrapper
 (``TILED_STAGE_ROWS``), the configuration that
 tests/test_fused_bottleneck.py::test_fused_tower_stage0_tiled_matches_flax
@@ -42,6 +43,7 @@ from srsem_torch.ops.fused_bottleneck import (
     fold_bn_into_conv,
     fused_bottleneck,
     fused_bottleneck_tiled,
+    pack_weights,
 )
 
 Tensor = torch.Tensor
@@ -63,20 +65,18 @@ def fold_tower(model, dtype: torch.dtype = torch.bfloat16,
                fuse_stages: Tuple[int, ...] = DEFAULT_FUSE_STAGES
                ) -> List[list]:
     """BN-folded weights of every block of ``model`` (either ResNet tower),
-    cast once: per stage a list of ``("fused", (w1, b1, w2, b2, w3, b3))``
-    (kernel layout, weights in ``dtype``, biases float32) or
-    ``("plain", (stride, [conv, ...]))`` entries.  The tower is frozen, so
-    a scorer folds once and reuses the result (the JAX tower folds inside
-    every jitted call instead)."""
+    cast once: per stage a list of ``("fused", Packed)`` (the kernel's
+    K-major layout in ``dtype``, float32 biases: a call copies no weights)
+    or ``("plain", (stride, [conv, ...]))`` entries.  The tower is frozen,
+    so a scorer folds once and reuses the result (the JAX tower folds
+    inside every jitted call instead)."""
     stages = []
     for s, blocks in enumerate(model.stages()):
         folded = []
         for b, block in enumerate(blocks):
             if b > 0 and s in fuse_stages:
-                w = bottleneck_weights(block)
-                folded.append(("fused", tuple(
-                    t.to(dtype).contiguous() if t.dim() > 1 else t.contiguous()
-                    for t in w)))
+                folded.append(("fused", pack_weights(bottleneck_weights(block),
+                                                     dtype)))
             else:  # downsample block, or a stage left on cuDNN
                 convs = [(block.conv1, block.bn1), (block.conv2, block.bn2),
                          (block.conv3, block.bn3)]
@@ -112,9 +112,9 @@ def _fused_block(weights, x: Tensor, row_tile: Optional[int] = None) -> Tensor:
     h = x.shape[2]
     xn = to_nhwc(x)
     if row_tile and h // row_tile >= 2 and h % row_tile == 0:
-        y = fused_bottleneck_tiled(xn, *weights, row_tile=row_tile)
+        y = fused_bottleneck_tiled(xn, weights, row_tile=row_tile)
     else:
-        y = fused_bottleneck(xn, *weights)
+        y = fused_bottleneck(xn, weights)
     return to_nchw(y)
 
 

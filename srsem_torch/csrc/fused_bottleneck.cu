@@ -1,268 +1,240 @@
 // Fused stride-1 ResNet bottleneck for Hopper (sm_90a), float32 and bf16.
 //
 // Replaces the two Pallas TPU kernels of srsem/ops/fused_bottleneck.py:
-//   * fused_bottleneck       (_bottleneck_kernel, whole image per program)
+//   * fused_bottleneck       (_bottleneck_kernel, whole images per program)
 //   * fused_bottleneck_tiled (_tiled_bottleneck_kernel + _halo_copy, row
 //     tiles with a 1-row halo)
-// On the TPU these are two kernels because of VMEM size and Mosaic compile
-// limits (fused_bottleneck.py:97-111, fused_resnet.py:131-144).  On Hopper
-// they are one design: a thread block computes one output tile of
-// (image, rows, columns) with a 1-pixel halo, and the two Python wrappers
-// differ only in how they choose the tile (largest that fits vs the
-// caller's row tile).
+// Both compute, with BN folded into the weights (fold_bn_into_conv):
+//     h1 = relu(x . W1 + b1)                  conv1, 1x1
+//     h2 = relu(conv3x3(h1, W2) + b2)         conv2, SAME: h1 zero outside
+//     y  = relu(h2 . W3 + b3 + x)             conv3, 1x1 + residual
+// with float32 sums, h1 and h2 rounded to the compute type T between the
+// convs and y written in T.  On Hopper both wrappers are one design, and
+// the row tile of the tiled TPU kernel does not exist here.
 //
-// Computes, with BN folded into the weights (fold_bn_into_conv):
-//     h1 = relu(x . W1 + b1)                       1x1 conv, halo tile
-//     h2 = relu(sum_t shift_t(h1) . W2[t] + b2)    3x3 conv, 9 taps
-//     y  = relu(h2 . W3 + b3 + x)                  1x1 conv + residual
-// h1 and h2 live in shared memory only; x is read once (plus halo) and y
-// written once.  h1 outside the image is ZERO (conv2's SAME padding pads
-// h1, not x — the same masking as _tiled_bottleneck_kernel :250-257).
-// Every product accumulates in float32; h1 and h2 are rounded to the
-// compute type T between the convs, as the JAX kernels do.
+// What bounds it.  At 224 px every stage is 436 MFLOP an image (27.9 GFLOP
+// at batch 64, 28 us at 989 TFLOP/s).  Stages 0-1 are bound by bytes
+// (stage 0 reads x for conv1 and again for the residual and writes y:
+// 308 MB at batch 64, 92 us at 3.35 TB/s), stages 2-3 by the products.
 //
-// Layouts (what bottleneck_weights emits, in T; biases float32):
-//   x, y : (N, H, W, C) contiguous NHWC
-//   w1   : (C, wd)            [in, out]
-//   w2   : (9, wd, wd)        [tap dy*3+dx, in, out]
-//   w3   : (wd, C)            [in, out]
+// Why three launches.  The TPU kernels keep h1 and h2 in VMEM, with conv2's
+// halo.  In shared memory a halo costs products (a 4x7 output tile needs
+// conv1 on 6x9 pixels), and a block of a small tile streams all of the
+// weights (8.9 MB at stage 3).  h1 and h2 are 25.7 / 12.8 / 6.4 / 3.2 MB
+// each at stages 0-3 (batch 64): from stage 1 on they fit the 50 MB L2,
+// and writing and reading them back costs less.  So a bottleneck is three
+// launches of the implicit-GEMM conv it shares with the decoder
+// (conv_wgmma.cuh), with h1 and h2 in scratch tensors the caller allocates:
+//   1. conv1, x -> h1: flat 64-row tiles of the (N*H*W, C) pixel matrix;
+//   2. conv2, h1 -> h2: bh x bw patches (pick_patch); the TMA zero fill
+//      outside the tensor is the TPU kernel's h1 masking (:250-257);
+//   3. conv3, h2 -> y: flat tiles, x brought in by TMA for the epilogue.
+// The rows computed over the useful ones are then 1.0 for the 1x1 convs
+// (up to the last tile's ragged rows), and 1.0-1.31 for conv2.
 //
-// Shared-memory layout ("halo grid"): h1 row q holds halo pixel
-// (q / HW, q % HW) of the (th+2) x (tw+2) halo tile, HW = tw + 2; h2 row q
-// holds output pixel (q / HW, q % HW) — columns tw, tw+1 of each h2 row are
-// computed and never stored.  A 3x3 tap (dy, dx) is then the constant row
-// offset dy*HW + dx: conv2 reads h1 rows q + dy*HW + dx, conv3 reads h2 row
-// q, both straight from shared memory, with no gather.  Rows are padded by
-// 8 channels (16 B in bf16) so ldmatrix's eight row addresses hit distinct
-// banks.
+// The plan (make_plan) picks each conv's N tile by a wave model on the
+// card's SM count (pick_nt) and lives here only; the Python wrapper asks
+// for it (srsem_bottleneck_plan).  A tensor-core block of NT <= 128 takes
+// at most 112 registers a thread and at most 97 KB of shared memory, so
+// two blocks share an SM and one's loads overlap the other's epilogue;
+// NT = 256 holds 128 accumulators a thread and runs alone.
 //
-// What bounds it: at the main path's shapes every block is 436.7 MFLOP an
-// image; stages 0-1 move enough bytes to be memory-bound on the card's
-// tensor-core roofline, stages 2-3 are compute-bound.  Each conv is a
-// block-level GEMM (block_gemm.cuh):
-//   * bf16 with C and wd multiples of 64 (every main-path shape): mma.sync
-//     m16n8k16 on the tensor cores, ldmatrix operands, 32x32 accumulators
-//     per warp in registers; the block tile adapts to M (128x64 or
-//     64x128); conv1's A (x) and every weight panel stream through a
-//     cp.async pipeline with one barrier per 64-deep k-step (two stages
-//     for conv1, three for conv2 and conv3, which stage only weights), so
-//     later k-steps' loads fly while this one computes; epilogues map each
-//     output row to its destination once per row block and issue their
-//     global loads ahead of their stores;
-//   * otherwise (float32, other widths): scalar staging and float32 FMAs on
-//     the CUDA cores, bound by the 67 TFLOP/s FMA pipe.
-// Still to do for speed: conv3's residual reads of x are 4-byte and
-// scattered (the mma fragment layout), so stage the output tile through
-// shared memory for 16-byte reads and writes; at stage 3 every block
-// streams all of the weights from L2 for a 4x7 tile, so share them across
-// a cluster (TMA multicast); then wgmma.
+// float32, and bf16 at other widths, take the same three launches through
+// the shared FMA conv (patches for all three convs).
 //
-// Shared memory per block — see smem_bytes(), mirrored by
-// srsem_torch/ops/fused_bottleneck.py::bottleneck_smem_bytes.
+// Layouts (what srsem_torch/ops/fused_bottleneck.py passes, in T; biases
+// float32):
+//   x, y : (N, H, W, C)        h1, h2 : (N, H, W, wd) scratch
+//   w1t : (wd, C)    w2t : (wd, 9*wd), k = (dy*3 + dx)*wd + c    w3t : (C, wd)
 
-#include "block_gemm.cuh"
+#include <initializer_list>
+
+#include "conv_wgmma.cuh"
 
 namespace {
 
-using namespace block_gemm;
+using namespace conv;
 
-// Rows of h2 (output pixels in the halo grid, padded to 32-row warp slabs)
-// and of h1 (h2's rows plus the largest tap offset, 2*HW + 2).
-__host__ __device__ inline int h2_rows(int th, int tw) {
-  return (th * (tw + 2) + 31) / 32 * 32;
-}
-__host__ __device__ inline int h1_rows(int th, int tw) {
-  return h2_rows(th, tw) + 2 * (tw + 2) + 2;
-}
-
-__host__ __device__ inline size_t h1_bytes(int th, int tw, int wd, int item) {
-  return align128(static_cast<size_t>(h1_rows(th, tw)) * (wd + kPad) * item);
+template <int NT>
+__global__ void __launch_bounds__(kTcThreads, NT == 256 ? 1 : 2)
+    fused_bottleneck_conv_wgmma(const __grid_constant__ CUtensorMap in0,
+                                const __grid_constant__ CUtensorMap in1,
+                                const __grid_constant__ CUtensorMap wmap,
+                                const __grid_constant__ CUtensorMap rmap,
+                                const __grid_constant__ CUtensorMap omap,
+                                const TcArgs p) {
+  conv_wgmma<NT, false>(&in0, &in1, &wmap, &rmap, &omap, p);
 }
 
-__host__ __device__ inline size_t h2_bytes(int th, int tw, int wd, int item) {
-  return align128(static_cast<size_t>(h2_rows(th, tw)) * (wd + kPad) * item);
-}
-
-__host__ __device__ inline size_t smem_bytes(int th, int tw, int wd, int item) {
-  return h1_bytes(th, tw, wd, item) + h2_bytes(th, tw, wd, item) +
-         kStagingBytes;
-}
-
-template <typename T, bool TC>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    fused_bottleneck_kernel(const T* __restrict__ x, T* __restrict__ y,
-                            const T* __restrict__ w1,
-                            const float* __restrict__ b1,
-                            const T* __restrict__ w2,
-                            const float* __restrict__ b2,
-                            const T* __restrict__ w3,
-                            const float* __restrict__ b3, int H, int W, int C,
-                            int wd, int th, int tw, int tiles_h, int tiles_w) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int hw = tw + 2;                  // halo-grid row length
-  const int p_halo = (th + 2) * hw;       // conv1 rows
-  const int p_out = th * hw;              // conv2 / conv3 rows
-  const int ld = wd + kPad;
-  const int item = static_cast<int>(sizeof(T));
-  T* h1s = reinterpret_cast<T*>(smem);
-  T* h2s = reinterpret_cast<T*>(smem + h1_bytes(th, tw, wd, item));
-  unsigned char* stage =
-      smem + h1_bytes(th, tw, wd, item) + h2_bytes(th, tw, wd, item);
-
-  int tile = blockIdx.x;
-  const int tcol = tile % tiles_w;
-  tile /= tiles_w;
-  const int trow = tile % tiles_h;
-  const int img = tile / tiles_h;
-  const int r0 = trow * th, c0 = tcol * tw;
-  const T* xi = x + static_cast<size_t>(img) * H * W * C;
-  T* yi = y + static_cast<size_t>(img) * H * W * C;
-
-  // Epilogues: row(m) gives {offset of the row's element 0 in the
-  // destination, flag}, once per row; store(r, n, v0, v1, two, res) gets
-  // the biased sums of element n, and of n + 1 when `two` (the tensor-core
-  // path, where C and wd are multiples of 64 and n is even, so each pair
-  // is aligned).  Offsets within one image fit in an int (the launch
-  // checks H * W * C).
-  //
-  // conv1 over the halo tile; out-of-image pixels are zero in h1.
-  auto x_row = [&](int m) -> const T* {
-    const int gy = r0 - 1 + m / hw, gx = c0 - 1 + m % hw;
-    if (gy < 0 || gy >= H || gx < 0 || gx >= W) return nullptr;
-    return xi + (static_cast<size_t>(gy) * W + gx) * C;
-  };
-  auto a1 = [&](int m, int k) -> const T* {
-    const T* p = x_row(m);
-    return p ? p + k : nullptr;
-  };
-  auto no_res = [](int2, int, bool) { return make_float2(0.f, 0.f); };
-  auto row1 = [&](int m) {  // flag: the halo pixel lies in the image
-    const int gy = r0 - 1 + m / hw, gx = c0 - 1 + m % hw;
-    return make_int2(m * ld, gy >= 0 && gy < H && gx >= 0 && gx < W);
-  };
-  auto s1 = [&](int2 r, int n, float v0, float v1, bool two, float2) {
-    put(h1s + r.x + n, r.y ? fmaxf(v0, 0.f) : 0.f, r.y ? fmaxf(v1, 0.f) : 0.f,
-        two);
-  };
-  // conv2 (3x3): K runs over (tap, input channel); tap (dy, dx) reads h1
-  // row q + dy*hw + dx.  h1_tap(k) is the address of A(0, k).
-  auto h1_tap = [&](int k) -> const T* {
-    const int t = k / wd, dy = t / 3, dx = t - dy * 3;
-    return h1s + static_cast<size_t>(dy * hw + dx) * ld + (k - t * wd);
-  };
-  auto a2 = [&](int q, int k) -> const T* {
-    return h1_tap(k) + static_cast<size_t>(q) * ld;
-  };
-  auto row2 = [&](int q) { return make_int2(q * ld, 1); };
-  auto s2 = [&](int2 r, int n, float v0, float v1, bool two, float2) {
-    put(h2s + r.x + n, fmaxf(v0, 0.f), fmaxf(v1, 0.f), two);
-  };
-  // conv3 + residual; halo-grid columns >= tw and pixels past a ragged
-  // image edge are not written.
-  auto h2_col = [&](int k) -> const T* { return h2s + k; };
-  auto a3 = [&](int q, int k) -> const T* {
-    return h2s + static_cast<size_t>(q) * ld + k;
-  };
-  auto row3 = [&](int q) {  // flag: an output pixel of this tile
-    const int oy = q / hw, ox = q - oy * hw;
-    const int gy = r0 + oy, gx = c0 + ox;
-    return make_int2((gy * W + gx) * C, ox < tw && gy < H && gx < W);
-  };
-  auto r3 = [&](int2 r, int n, bool two) {
-    return r.y ? get(xi + r.x + n, two) : make_float2(0.f, 0.f);
-  };
-  auto s3 = [&](int2 r, int n, float v0, float v1, bool two, float2 res) {
-    if (r.y)
-      put(yi + r.x + n, fmaxf(v0 + res.x, 0.f), fmaxf(v1 + res.y, 0.f), two);
-  };
-
-  if constexpr (TC) {
-    gemm_tc<true>(
-        p_halo, wd, C, x_row,
-        [](const T* p, int k0) -> const T* { return p ? p + k0 : nullptr; },
-        0, [&](int k) { return w1 + static_cast<size_t>(k) * wd; }, b1, row1,
-        no_res, s1, w1, stage);
-    __syncthreads();
-    gemm_tc<false>(p_out, wd, 9 * wd, h1_tap, 0, ld,
-                   [&](int k) { return w2 + static_cast<size_t>(k) * wd; }, b2,
-                   row2, no_res, s2, w2, stage);
-    __syncthreads();
-    gemm_tc<false>(p_out, C, wd, h2_col, 0, ld,
-                   [&](int k) { return w3 + static_cast<size_t>(k) * C; }, b3,
-                   row3, r3, s3, w3, stage);
-  } else {
-    gemm_fma<T>(p_halo, wd, C, a1,
-                [&](int k, int n) { return w1 + static_cast<size_t>(k) * wd + n; },
-                b1, row1, no_res, s1, stage);
-    __syncthreads();
-    gemm_fma<T>(p_out, wd, 9 * wd, a2,
-                [&](int k, int n) { return w2 + static_cast<size_t>(k) * wd + n; },
-                b2, row2, no_res, s2, stage);
-    __syncthreads();
-    gemm_fma<T>(p_out, C, wd, a3,
-                [&](int k, int n) { return w3 + static_cast<size_t>(k) * C + n; },
-                b3, row3, r3, s3, stage);
-  }
+    fused_bottleneck_conv_fma(const FmaArgs<T> p) {
+  conv_fma<T>(p);
 }
 
-template <typename T, bool TC>
-int launch(const void* x, void* y, const void* w1, const float* b1,
-           const void* w2, const float* b2, const void* w3, const float* b3,
-           int n, int h, int w, int c, int wd, int th, int tw,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(th, tw, wd, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bottleneck_kernel<T, TC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_h = (h + th - 1) / th, tiles_w = (w + tw - 1) / tw;
-  const long long blocks = static_cast<long long>(n) * tiles_h * tiles_w;
-  if (blocks > 0x7fffffffLL ||
-      static_cast<long long>(h) * w * c > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  fused_bottleneck_kernel<T, TC><<<static_cast<unsigned>(blocks), kThreads,
-                                   smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2,
-      static_cast<const T*>(w3), b3, h, w, c, wd, th, tw, tiles_h, tiles_w);
-  return static_cast<int>(cudaGetLastError());
+struct BottleneckKernels {
+  static constexpr bool kHead = false;
+  template <int NT, bool HEAD>
+  static auto tc() {
+    return fused_bottleneck_conv_wgmma<NT>;
+  }
+  template <typename T>
+  static auto fma() {
+    return fused_bottleneck_conv_fma<T>;
+  }
+};
+
+bool uses_tensor_cores(bool is_bf16, int c, int wd) {
+  return is_bf16 && c % 64 == 0 && wd % 64 == 0;
+}
+
+// Ring stages: two blocks of NT <= 128 fit an SM (3 x 24 KB at NT 64,
+// 3 x 32 KB at NT 128, 2 beside conv3's 32 KB of residual tiles); NT 256
+// runs alone with 4 x 48 KB (3 beside its 64 KB of residual tiles).
+int stages(int nt, bool res) {
+  if (nt == 256) return res ? 3 : 4;
+  return nt == 128 && res ? 2 : 3;
+}
+
+// The N tile of a tensor-core conv with `tiles` M tiles and `steps`
+// k-steps on `sms` SMs, by a wave model: the SM with the most blocks sets
+// the time, and a block's k-step costs NT tensor-core cycles (x 1.5 at NT
+// 64, whose products read more shared memory each); a block alone on its
+// SM (NT 256) also exposes about two k-steps of ring fill and epilogue,
+// which a second block's work hides.  Ties go to the wider tile, which
+// reads A fewer times.  A conv without a residual stages its output tile in
+// NT / 64 ring slots, so NT <= 64 * steps.
+int pick_nt(long long tiles, int cout, int steps, int sms, bool res) {
+  int best = 0;
+  double best_cost = 0.0;
+  for (const int nt : {256, 128, 64}) {
+    if (cout % nt || (!res && nt > kChunk * steps)) continue;
+    const long long per_sm = (tc_blocks(tiles, cout, nt) + sms - 1) / sms;
+    const double cost = static_cast<double>(per_sm) *
+                        (nt == 64 ? 1.5 * nt : nt) *
+                        (steps + (nt == 256 ? 2 : 0));
+    if (best == 0 || cost < best_cost) {
+      best = nt;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+struct Plan {
+  bool tc;
+  Tiling tile[3];
+};
+
+Plan make_plan(int n, int h, int w, int c, int wd, bool tc, int sms) {
+  const Patch patch = pick_patch(h, w);
+  Plan plan{tc, {}};
+  if (!tc) {
+    for (Tiling& t : plan.tile) t = {false, patch, BN, 0};
+    return plan;
+  }
+  const int cout[3] = {wd, wd, c}, k[3] = {c, 9 * wd, wd};
+  for (int i = 0; i < 3; ++i) {
+    Tiling& t = plan.tile[i];
+    t = {i != 1, patch, 0, 0};
+    t.nt = pick_nt(m_tiles(t, n, h, w), cout[i], k[i] / kChunk, sms, i == 2);
+    t.stages = stages(t.nt, i == 2);
+  }
+  return plan;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// Pixel counts fit an int (a flat tile's row), and so do offsets within
+// an image (the FMA conv's).
+bool valid(int n, int h, int w, int c, int wd) {
+  return n >= 1 && h >= 1 && w >= 1 && c >= 1 && wd >= 1 &&
+         static_cast<long long>(n) * h * w <= 0x7fffffffLL - kPatch &&
+         static_cast<long long>(h) * w * (c > wd ? c : wd) <= 0x7fffffffLL;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block of tile (th, tw) needs, in bytes.
-size_t srsem_bottleneck_smem_bytes(int th, int tw, int wd, int itemsize) {
-  return smem_bytes(th, tw, wd, itemsize);
-}
-
 // 1 when (is_bf16, c, wd) take the tensor-core path, else 0 (FMA path).
 int srsem_bottleneck_uses_tensor_cores(int is_bf16, int c, int wd) {
-  return is_bf16 && c % 64 == 0 && wd % 64 == 0;
+  return uses_tensor_cores(is_bf16 != 0, c, wd);
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
-// Pointers must be 16-byte aligned (the wrapper checks).
-int srsem_fused_bottleneck(const void* x, void* y, const void* w1,
-                           const void* b1, const void* w2, const void* b2,
-                           const void* w3, const void* b3, int n, int h, int w,
-                           int c, int wd, int th, int tw, int is_bf16,
+// How a block runs on `sms` SMs (<= 0: the current device's): *launches
+// (3) CUDA launches, and for conv i = 0, 1, 2: flat[i] (1: 64-row tiles of
+// the pixel matrix, 0: bh[i] x bw[i] patches), nt[i] output channels a
+// block (tensor cores; the FMA block's 64 otherwise), blocks[i], and
+// rows_ratio[i], the rows its products compute over the output pixels
+// (a tensor-core block computes two M tiles, an FMA block one patch).
+// Returns 0 or cudaErrorInvalidValue.
+int srsem_bottleneck_plan(int n, int h, int w, int c, int wd, int is_bf16,
+                          int sms, int* launches, int* flat, int* bh, int* bw,
+                          int* nt, long long* blocks, double* rows_ratio) {
+  if (!valid(n, h, w, c, wd)) return static_cast<int>(cudaErrorInvalidValue);
+  if (sms <= 0) sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan plan =
+      make_plan(n, h, w, c, wd, uses_tensor_cores(is_bf16 != 0, c, wd), sms);
+  const int cout[3] = {wd, wd, c};
+  *launches = 3;
+  for (int i = 0; i < 3; ++i) {
+    const Tiling& t = plan.tile[i];
+    const long long tiles = m_tiles(t, n, h, w);
+    flat[i] = t.flat;
+    bh[i] = t.flat ? 0 : t.patch.bh;
+    bw[i] = t.flat ? 0 : t.patch.bw;
+    nt[i] = t.nt;
+    blocks[i] = plan.tc ? tc_blocks(tiles, cout[i], t.nt)
+                        : tiles * ((cout[i] + BN - 1) / BN);
+    const long long rows =
+        plan.tc ? (tiles + kConsumers - 1) / kConsumers * kConsumers : tiles;
+    rows_ratio[i] = static_cast<double>(rows) * kPatch /
+                    (static_cast<double>(n) * h * w);
+  }
+  return 0;
+}
+
+// Launch the three convs on `stream`; returns the cudaError_t of the
+// launches (0 = queued).  h1 and h2 are (N, H, W, wd) scratch.  Pointers
+// must be 16-byte aligned (the wrapper checks).
+int srsem_fused_bottleneck(const void* x, const void* w1t, const void* b1,
+                           const void* w2t, const void* b2, const void* w3t,
+                           const void* b3, void* h1, void* h2, void* y, int n,
+                           int h, int w, int c, int wd, int is_bf16,
                            void* stream) {
-  if (n < 1 || h < 1 || w < 1 || c < 1 || wd < 1 || th < 1 || tw < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(n, h, w, c, wd)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto f1 = static_cast<const float*>(b1);
-  const auto f2 = static_cast<const float*>(b2);
-  const auto f3 = static_cast<const float*>(b3);
-  if (srsem_bottleneck_uses_tensor_cores(is_bf16, c, wd))
-    return launch<bf16, true>(x, y, w1, f1, w2, f2, w3, f3, n, h, w, c, wd,
-                              th, tw, s);
-  if (is_bf16)
-    return launch<bf16, false>(x, y, w1, f1, w2, f2, w3, f3, n, h, w, c, wd,
-                               th, tw, s);
-  return launch<float, false>(x, y, w1, f1, w2, f2, w3, f3, n, h, w, c, wd,
-                              th, tw, s);
+  const bool tc = uses_tensor_cores(is_bf16 != 0, c, wd);
+  const int sms = tc ? sm_count() : 1;
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan plan = make_plan(n, h, w, c, wd, tc, sms);
+  const Conv convs[3] = {
+      {x, c, nullptr, 0, 1, w1t, static_cast<const float*>(b1), wd, nullptr,
+       h1, nullptr, nullptr, 0},
+      {h1, wd, nullptr, 0, 3, w2t, static_cast<const float*>(b2), wd, nullptr,
+       h2, nullptr, nullptr, 0},
+      {h2, wd, nullptr, 0, 1, w3t, static_cast<const float*>(b3), c, x, y,
+       nullptr, nullptr, 0}};
+  for (int i = 0; i < 3; ++i) {
+    const Tiling& t = plan.tile[i];
+    const int err =
+        tc ? launch_tc<BottleneckKernels>(convs[i], n, h, w, t, s)
+        : is_bf16
+            ? launch_fma<BottleneckKernels, bf16>(convs[i], n, h, w, t.patch, s)
+            : launch_fma<BottleneckKernels, float>(convs[i], n, h, w, t.patch,
+                                                   s);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // extern "C"

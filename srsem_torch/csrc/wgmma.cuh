@@ -1,6 +1,7 @@
 // Hopper building blocks for the port's kernels (sm_90a): mbarriers, TMA
-// tensor loads, warpgroup matrix multiplies (wgmma) on 128-byte-swizzled
-// shared-memory tiles, and the host-side tensor-map encoder.
+// tensor loads and stores, warpgroup matrix multiplies (wgmma) on
+// 128-byte-swizzled shared-memory tiles, and the host-side tensor-map
+// encoder.
 //
 // The tile layout every helper here assumes: a K-major bf16 tile of R rows
 // by 64 columns (128 bytes a row), 1024-byte aligned, as a TMA load with
@@ -10,7 +11,7 @@
 //
 // The tensor-map encoder comes from the driver through the runtime's entry
 // point query, so a library that includes this header links no -lcuda.
-// Users: fused_decoder.cu.
+// Users: conv_wgmma.cuh.
 
 #pragma once
 
@@ -82,6 +83,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 // tensor (negative too): TMA fills those elements with zeros and still
 // counts the whole box towards the barrier's transactions.
 
+// Brings a tensor map into the TMA unit's cache ahead of its first load.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -101,6 +109,48 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- TMA tensor stores (shared -> global) ---------------------------------
+// Elements of the box outside the tensor are not written.  The writing
+// threads fence their shared-memory stores to the async proxy and meet at a
+// barrier first; one thread stores, commits, and waits until the box has
+// been read before the shared memory is reused or the block exits.
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15) over `threads` threads (a multiple of 32).
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile(
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---- warpgroups ------------------------------------------------------------

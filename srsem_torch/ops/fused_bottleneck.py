@@ -5,31 +5,25 @@
     y  = relu(h2 @ W3 + b3 + x)            # 1x1 conv + residual
 
 with frozen BN folded into the weights (``fold_bn_into_conv``, exact).  The
-Hopper kernel (srsem_torch/csrc/fused_bottleneck.cu) computes one output
-tile of (image, rows, columns) per thread block with a 1-pixel halo; h1 and
-h2 never leave shared memory.  It replaces both TPU kernels:
-
-* ``fused_bottleneck``       ← fused_bottleneck.py::fused_bottleneck
-  (``_bottleneck_kernel``): picks the largest tile that fits in shared
-  memory;
-* ``fused_bottleneck_tiled`` ← fused_bottleneck.py::fused_bottleneck_tiled
-  (``_tiled_bottleneck_kernel`` / ``_halo_copy``): honours ``row_tile``.
-
-Each wrapper launches the kernel for a CUDA tensor and runs the plain
-PyTorch version (``bottleneck_tiles_plain``, the same tile loop with the
-same halo and h1 masking, in torch ops) only for a CPU tensor.  Each
-counts its kernel launches in its ``launches`` attribute.
-
-The kernel computes in x's dtype (float32 or bfloat16) with float32
-accumulation; weights are folded in float32 and cast to x's dtype, biases
-stay float32, as the JAX wrapper does.
+Hopper kernel (csrc/fused_bottleneck.cu: three launches of the conv it
+shares with the decoder, csrc/conv_wgmma.cuh, with h1 and h2 in a scratch
+tensor allocated here) replaces both TPU kernels, ``fused_bottleneck`` and
+``fused_bottleneck_tiled``; its plan lives in the .cu (``kernel_plan``).
+The wrappers take the JAX weight layout and pack it on every call, or one
+``Packed`` made once (``pack_weights``, as ``fold_tower`` does).  Each
+launches the kernel for a CUDA tensor, runs the plain version
+(``bottleneck_tiles_plain``: the TPU kernels' tile loop, halo and h1
+masking) only for a CPU tensor, and counts its calls that launch the
+kernel in ``launches``.  Compute is in x's dtype with float32 sums, h1 and
+h2 rounded to it, as in the JAX kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,16 +32,7 @@ from srsem_torch.ops import _build
 
 Tensor = torch.Tensor
 Weights = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]
-
-#: Dynamic shared memory one block may use on sm_90 (227 KB).
-SMEM_LIMIT = 232448
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# Mirrors of fused_bottleneck.cu: channels of padding per h1/h2 row, and the
-# GEMM staging: the larger of two cp.async stages of a 128x64 A tile and a
-# 64x64 B tile, and three stages of a 64x128 B tile (bf16, rows padded by 8).
-_PAD = 8
-_STAGING_BYTES = max(2 * (128 * (64 + 8) + 64 * (64 + 8)) * 2,
-                     3 * 64 * (128 + 8) * 2)
 
 
 def fold_bn_into_conv(weight: Tensor, bn, eps: Optional[float] = None,
@@ -67,8 +52,8 @@ def fold_bn_into_conv(weight: Tensor, bn, eps: Optional[float] = None,
 def bottleneck_weights(block) -> Weights:
     """BN-folded float32 (w1, b1, w2, b2, w3, b3) of a stride-1
     ImageNetBottleneck or ClipBottleneck (the same block at stride 1), in
-    the kernel's layout: w1 (C, wd), w2 (3, 3, wd, wd) [dy, dx, in, out],
-    w3 (wd, C)."""
+    the JAX package's layout: w1 (C, wd), w2 (3, 3, wd, wd) [dy, dx, in,
+    out], w3 (wd, C)."""
     w1, b1 = fold_bn_into_conv(block.conv1.weight, block.bn1)
     w2, b2 = fold_bn_into_conv(block.conv2.weight, block.bn2)
     w3, b3 = fold_bn_into_conv(block.conv3.weight, block.bn3)
@@ -76,63 +61,43 @@ def bottleneck_weights(block) -> Weights:
             w3[:, :, 0, 0].t(), b3)
 
 
-def bottleneck_smem_bytes(th: int, tw: int, wd: int, itemsize: int) -> int:
-    """Shared memory of one (th, tw) tile — mirrors ``smem_bytes`` in
-    fused_bottleneck.cu: h1 and h2 in the halo-grid layout (rows of
-    ``tw + 2`` pixels, h2 padded to 32-row warp slabs, h1 = h2's rows plus
-    the largest tap offset), rows of ``wd + 8`` channels, plus staging."""
-    a128 = lambda b: (b + 127) // 128 * 128  # noqa: E731
-    h2_rows = -(-th * (tw + 2) // 32) * 32
-    h1_rows = h2_rows + 2 * (tw + 2) + 2
-    row = (wd + _PAD) * itemsize
-    return a128(h1_rows * row) + a128(h2_rows * row) + _STAGING_BYTES
+@dataclass(frozen=True)
+class Packed:
+    """A block's weights as the kernel takes them: K-major w1t (wd, C),
+    w2t (wd, 9*wd) with k = (dy*3 + dx)*wd + c, w3t (C, wd) in the compute
+    dtype, float32 biases.  Not a tuple: it cannot be star-unpacked into
+    JAX-layout arguments by mistake."""
+
+    w1t: Tensor
+    b1: Tensor
+    w2t: Tensor
+    b2: Tensor
+    w3t: Tensor
+    b3: Tensor
 
 
-def _balanced(h: int, th: int) -> int:
-    """Rows per tile when ``h`` rows split into tiles of at most ``th``
-    rows as evenly as possible (14 rows in two tiles are 7+7, not 13+1)."""
-    return -(-h // -(-h // th))
+def pack_weights(weights: Weights, dtype: torch.dtype) -> Packed:
+    """JAX-layout (w1, b1, w2, b2, w3, b3) in the kernel's layout, cast to
+    ``dtype`` (biases float32): one copy each."""
+    w1, b1, w2, b2, w3, b3 = weights
+    wd = w1.shape[-1]
+    mat = lambda t: t.to(dtype).contiguous()  # noqa: E731
+    vec = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    return Packed(mat(w1.t()), vec(b1),
+                  mat(w2.permute(3, 0, 1, 2).reshape(wd, 9 * wd)), vec(b2),
+                  mat(w3.t()), vec(b3))
 
 
-def pick_tile(h: int, w: int, wd: int, itemsize: int,
-              row_tile: Optional[int] = None) -> Tuple[int, int]:
-    """(th, tw) of an output tile that fits in shared memory.
-
-    With ``row_tile`` the tile has that many rows.  Otherwise it is the
-    largest that fits, with the rows balanced across the tiles.  The width
-    is split only when full-width rows do not fit."""
-    for splits in range(1, w + 1):
-        tw = -(-w // splits)
-        for th in [min(row_tile, h)] if row_tile else range(h, 0, -1):
-            if bottleneck_smem_bytes(th, tw, wd, itemsize) <= SMEM_LIMIT:
-                return (th if row_tile else _balanced(h, th)), tw
-    raise ValueError(f"no bottleneck tile fits {SMEM_LIMIT} B of shared "
-                     f"memory (wd={wd}, itemsize={itemsize})")
+def unpack_weights(p: Packed) -> Weights:
+    """``Packed`` back in the JAX layout (views, in the packed dtype)."""
+    wd = p.w1t.shape[0]
+    return (p.w1t.t(), p.b1, p.w2t.reshape(wd, 3, 3, wd).permute(1, 2, 3, 0),
+            p.b2, p.w3t.t(), p.b3)
 
 
-def wave_tile(n: int, h: int, w: int, c: int, wd: int, itemsize: int,
-              sms: int) -> Tuple[int, int]:
-    """The whole-image wrapper's tile for ``n`` images on ``sms`` SMs: of
-    the balanced row tiles no taller than ``pick_tile``'s, the one with the
-    least modelled time.  The model is waves of blocks (one block per SM,
-    since a tile takes most of an SM's shared memory) times one block's
-    multiply-adds, conv1's halo rows and the halo-grid columns included.
-    Ties go to the taller tile."""
-    top, tw = pick_tile(h, w, wd, itemsize)
-
-    def cost(th: int) -> int:
-        blocks = n * -(-h // th) * -(-w // tw)
-        macs = ((th + 2) * (tw + 2) * c * wd
-                + th * (tw + 2) * (9 * wd * wd + wd * c))
-        return -(-blocks // sms) * macs
-
-    rows = sorted({_balanced(h, t) for t in range(1, top + 1)}, reverse=True)
-    return min(rows, key=cost), tw
-
-
-def _prepare(x: Tensor, weights) -> Weights:
-    """Check x and the weights against what the kernel takes; cast the
-    weights to x's dtype and the biases to float32."""
+def _prepare(x: Tensor, weights: Union[Weights, Tuple[Packed]]) -> Packed:
+    """Check x and the weights against what the kernel takes; pack
+    JAX-layout weights in x's dtype."""
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got shape {tuple(x.shape)}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -140,26 +105,36 @@ def _prepare(x: Tensor, weights) -> Weights:
     if not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor")
     c = x.shape[-1]
-    w1, b1, w2, b2, w3, b3 = weights
-    wd = w1.shape[-1]
-    want = {"w1": (c, wd), "b1": (wd,), "w2": (3, 3, wd, wd), "b2": (wd,),
-            "w3": (wd, c), "b3": (c,)}
-    for name, t in zip(want, weights):
+    if len(weights) == 6:
+        wd = weights[0].shape[-1]
+        for name, t, want in zip(("w1", "w2", "w3"), weights[::2],
+                                 ((c, wd), (3, 3, wd, wd), (wd, c))):
+            if tuple(t.shape) != want:
+                raise ValueError(f"{name} shape {tuple(t.shape)} != {want}")
+        weights = (pack_weights(weights, x.dtype),)
+    if len(weights) != 1 or not isinstance(weights[0], Packed):
+        raise TypeError("weights: (w1, b1, w2, b2, w3, b3) or one Packed")
+    p = weights[0]
+    wd = p.w1t.shape[0]
+    want = {"w1t": (wd, c), "b1": (wd,), "w2t": (wd, 9 * wd), "b2": (wd,),
+            "w3t": (c, wd), "b3": (c,)}
+    for name, t in vars(p).items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {want[name]}")
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    cast = lambda t, dt: t.to(dt).contiguous()  # noqa: E731
-    return (cast(w1, x.dtype), cast(b1, torch.float32), cast(w2, x.dtype),
-            cast(b2, torch.float32), cast(w3, x.dtype), cast(b3, torch.float32))
+        dt = torch.float32 if t.dim() == 1 else x.dtype
+        if t.dtype != dt or not t.is_contiguous():
+            raise TypeError(f"packed {name} must be contiguous {dt}")
+    return p
 
 
 def bottleneck_tiles_plain(x: Tensor, weights: Weights, th: int,
                            tw: int) -> Tensor:
-    """Plain PyTorch version of the kernel: the same (rows, columns) tile
-    loop with a 1-pixel halo, h1 zeroed outside the image, float32
-    accumulation and rounding to x's dtype between the convs.  Tiles run
-    over every image at once.  ``weights`` as ``_prepare`` returns them."""
+    """Plain PyTorch version of the TPU kernels: a (rows, columns) tile loop
+    over all images with a 1-pixel halo, h1 zeroed outside the image, float32
+    sums, rounding to x's dtype between the convs (the result does not
+    depend on the tile).  ``weights`` in the JAX layout."""
     n, h, w, c = x.shape
     dt = x.dtype
     w1, b1, w2, b2, w3, b3 = (t.float() for t in weights)
@@ -185,49 +160,77 @@ def bottleneck_tiles_plain(x: Tensor, weights: Weights, th: int,
     return y
 
 
-def _launch(x: Tensor, weights: Weights, th: int, tw: int) -> Tensor:
-    lib = _build.load("fused_bottleneck")
-    fn = lib.srsem_fused_bottleneck
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    n, h, w, c = x.shape
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(),
-                 *(t.data_ptr() for t in weights),
-                 n, h, w, c, weights[0].shape[1], th, tw,
-                 int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA "
-                           f"error {err} (tile {th}x{tw}, x {tuple(x.shape)} "
-                           f"{x.dtype})")
-    return y
-
-
 def plain_bottleneck(x: Tensor, weights, row_tile: Optional[int] = None
                      ) -> Tensor:
-    """The plain version of both wrappers, on any device: the kernel's
-    tile (``pick_tile``) through ``bottleneck_tiles_plain``."""
-    weights = _prepare(x, weights)
-    th, tw = pick_tile(x.shape[1], x.shape[2], weights[0].shape[1],
-                       x.element_size(), row_tile)
-    return bottleneck_tiles_plain(x, weights, th, tw)
+    """The plain version of both wrappers, on any device:
+    ``bottleneck_tiles_plain`` over full-width tiles of ``row_tile`` rows,
+    or over whole images.  ``weights``: the wrappers' weight arguments, as
+    a tuple."""
+    h = x.shape[1]
+    return bottleneck_tiles_plain(x, unpack_weights(_prepare(x, weights)),
+                                  min(row_tile or h, h), x.shape[2])
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _kernel() -> ctypes.CDLL:
+    """fused_bottleneck.cu's library with its exports typed (built on first
+    use).  It holds the one copy of the kernel's plan."""
+    lib = _build.load("fused_bottleneck")
+    lib.srsem_fused_bottleneck.restype = ctypes.c_int
+    lib.srsem_fused_bottleneck.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.srsem_bottleneck_plan.restype = ctypes.c_int
+    lib.srsem_bottleneck_plan.argtypes = (
+        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_double)])
+    return lib
 
 
-def kernel_tile(x: Tensor, wd: int, row_tile: Optional[int]) -> Tuple[int, int]:
-    """The tile the kernel launches with on x's card: ``row_tile`` rows
-    when given, else ``wave_tile`` for the card's SM count."""
+class Plan(NamedTuple):
+    """fused_bottleneck.cu's ``srsem_bottleneck_plan``: ``launches`` CUDA
+    launches, and per conv (1, 2, 3) its ``tilings`` ("flat": 64-row tiles
+    of the pixel matrix; "BHxBW": patches), ``nts`` (output channels a
+    block), ``blocks`` and ``rows_ratio`` (rows computed over pixels)."""
+
+    launches: int
+    tilings: Tuple[str, ...]
+    nts: Tuple[int, ...]
+    blocks: Tuple[int, ...]
+    rows_ratio: Tuple[float, ...]
+
+
+def kernel_plan(x: Tensor, wd: int, sms: int = 0) -> Plan:
+    """The plan the kernel launches with for ``x`` and width ``wd`` on
+    ``sms`` SMs (0: the current card's)."""
+    launches = ctypes.c_int()
+    flat, bh, bw, nt = ((ctypes.c_int * 3)() for _ in range(4))
+    blocks, ratio = (ctypes.c_longlong * 3)(), (ctypes.c_double * 3)()
+    if _kernel().srsem_bottleneck_plan(
+            *x.shape, wd, int(x.dtype == torch.bfloat16), sms,
+            ctypes.byref(launches), flat, bh, bw, nt, blocks, ratio):
+        raise ValueError(f"no bottleneck plan for x {tuple(x.shape)}, wd {wd}")
+    return Plan(launches.value, tuple("flat" if flat[i] else f"{bh[i]}x{bw[i]}"
+                                      for i in range(3)),
+                tuple(nt), tuple(blocks), tuple(ratio))
+
+
+def _launch(x: Tensor, p: Packed) -> Tensor:
     n, h, w, c = x.shape
-    if row_tile:
-        return pick_tile(h, w, wd, x.element_size(), row_tile)
-    return wave_tile(n, h, w, c, wd, x.element_size(),
-                     _sm_count(x.device.index or 0))
+    wd = p.w1t.shape[0]
+    scratch = torch.empty(2, n, h, w, wd, dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel().srsem_fused_bottleneck(
+            x.data_ptr(), p.w1t.data_ptr(), p.b1.data_ptr(), p.w2t.data_ptr(),
+            p.b2.data_ptr(), p.w3t.data_ptr(), p.b3.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(), y.data_ptr(),
+            n, h, w, c, wd, int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA "
+                           f"error {err} (x {tuple(x.shape)} {x.dtype}, "
+                           f"wd {wd})")
+    return y
 
 
 def _run(wrapper, x: Tensor, weights, row_tile: Optional[int]) -> Tensor:
@@ -235,31 +238,27 @@ def _run(wrapper, x: Tensor, weights, row_tile: Optional[int]) -> Tensor:
         return plain_bottleneck(x, weights, row_tile)
     if x.device.type != "cuda":
         raise ValueError(f"no fused_bottleneck kernel for {x.device}")
-    weights = _prepare(x, weights)
-    if any(t.data_ptr() % 16 for t in (x, *weights)):
+    p = _prepare(x, weights)
+    if any(t.data_ptr() % 16 for t in (x, *vars(p).values())):
         raise ValueError("fused_bottleneck needs 16-byte-aligned tensors")
-    th, tw = kernel_tile(x, weights[0].shape[1], row_tile)
-    y = _launch(x, weights, th, tw)
+    y = _launch(x, p)
     wrapper.launches += 1
     return y
 
 
-def fused_bottleneck(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor,
-                     b2: Tensor, w3: Tensor, b3: Tensor) -> Tensor:
-    """Stride-1 bottleneck ``relu(x + f(x))`` on NHWC ``x`` with the
-    largest output tile that fits in shared memory."""
-    return _run(fused_bottleneck, x, (w1, b1, w2, b2, w3, b3), None)
+def fused_bottleneck(x: Tensor, *weights) -> Tensor:
+    """Stride-1 bottleneck ``relu(x + f(x))`` on NHWC ``x``; ``weights``
+    is (w1, b1, w2, b2, w3, b3) in the JAX layout, or one ``Packed``."""
+    return _run(fused_bottleneck, x, weights, None)
 
 
-def fused_bottleneck_tiled(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor,
-                           b2: Tensor, w3: Tensor, b3: Tensor,
-                           row_tile: int) -> Tensor:
-    """``fused_bottleneck`` with ``row_tile`` rows per tile and a 1-row
-    halo.  H need not divide by ``row_tile``: the last tile is ragged and
-    masked.  Columns are split only when the row tile does not fit."""
+def fused_bottleneck_tiled(x: Tensor, *weights, row_tile: int) -> Tensor:
+    """``fused_bottleneck`` for callers of the TPU's row-tiled kernel:
+    ``row_tile`` (>= 1; it need not divide H) is its rows per grid step,
+    which the CPU's plain version runs and the card's kernel ignores."""
     if row_tile < 1:
         raise ValueError(f"row_tile must be >= 1, got {row_tile}")
-    return _run(fused_bottleneck_tiled, x, (w1, b1, w2, b2, w3, b3), row_tile)
+    return _run(fused_bottleneck_tiled, x, weights, row_tile)
 
 
 fused_bottleneck.launches = 0

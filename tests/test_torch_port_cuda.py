@@ -9,13 +9,10 @@ conftest (which pins JAX) left out:
 float32 comparisons run with TF32 off.
 """
 
-import ctypes
-
 import numpy as np
 import pytest
 import torch
 
-from srsem_torch.ops import _build
 from srsem_torch.ops import fused_bottleneck as tfb
 from srsem_torch.ops import fused_decoder as tfd
 from srsem_torch.ops import fused_head as tfh
@@ -63,13 +60,18 @@ def test_stage_score_kernel_matches_plain(cuda_device, dtype, shape):
     ((2, 56, 56, 256), 64, 8), ((2, 14, 14, 1024), 256, None),
     ((2, 7, 7, 2048), 512, None), ((1, 13, 9, 256), 64, 4),
     ((3, 10, 11, 128), 64, None), ((1, 13, 9, 96), 24, 4),
-    ((1, 5, 6, 36), 12, None)])
+    ((1, 5, 6, 36), 12, None),
+    ((3, 7, 7, 2048), 512, None),   # 7x7: 147 flat rows, odd patch count
+    ((1, 7, 7, 1024), 256, 3),      # 7x7, one image: one patch, one tile
+    ((5, 13, 11, 512), 128, None),  # ragged H and W, ragged flat tile
+    ((64, 7, 7, 512), 128, None)])  # 7x7 at batch 64, narrow
 def test_bottleneck_kernel_matches_plain(cuda_device, dtype, shape, wd,
                                          row_tile):
     """CUDA kernel == plain version.  f32: FP order only (1e-4); bf16: a
     few bf16 ulps where the f32 sums round h1/h2/y apart (2e-2).  bf16 with
-    C and wd multiples of 64 takes the tensor cores; other widths (and
-    float32) the FMA path."""
+    C and wd multiples of 64 takes the tensor cores (flat tiles for the 1x1
+    convs, patches for the 3x3); other widths (and float32) the FMA path.
+    The packed weights give the same answer as the JAX-layout ones."""
     rng = np.random.default_rng(8)
     x = torch.tensor(rng.normal(size=shape).astype(np.float32),
                      device=cuda_device).to(dtype)
@@ -83,6 +85,8 @@ def test_bottleneck_kernel_matches_plain(cuda_device, dtype, shape, wd,
     want = tfb.plain_bottleneck(x, ws, row_tile)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    packed = wrapper(x, tfb.pack_weights(ws, dtype), **kwargs)
+    torch.testing.assert_close(packed, got, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -94,12 +98,39 @@ def test_bottleneck_rejects_noncontiguous_cuda_input(cuda_device):
 
 
 @pytest.mark.cuda
-def test_smem_formula_matches_kernel(cuda_device):
-    fn = _build.load("fused_bottleneck").srsem_bottleneck_smem_bytes
-    fn.restype = ctypes.c_size_t
-    fn.argtypes = [ctypes.c_int] * 4
-    for args in [(8, 56, 64, 2), (8, 28, 64, 4), (5, 7, 512, 4), (3, 3, 8, 2)]:
-        assert fn(*args) == tfb.bottleneck_smem_bytes(*args)
+@pytest.mark.parametrize("n", [64, 32])
+def test_bottleneck_plan_at_main_path_shapes(cuda_device, n):
+    """The library's plan at the four stages' shapes (224 px) on 132 SMs:
+    three launches; the 1x1 convs over flat 64-row tiles, paired into
+    blocks, so their rows computed over useful are 1.0 up to the last
+    pair's ragged rows; conv2 over patches of at most 64 pixels.  A conv
+    that the widest N tile would leave below one wave (the decoder's rule)
+    takes a narrower tile.  float32 runs on FMAs."""
+    for s, hw in enumerate((56, 28, 14, 7)):
+        c, wd = 256 * 2 ** s, 64 * 2 ** s
+        x = torch.zeros(n, hw, hw, c, dtype=torch.bfloat16,
+                        device=cuda_device)
+        plan = tfb.kernel_plan(x, wd, sms=132)
+        assert plan.launches == 3
+        assert plan.tilings[0] == plan.tilings[2] == "flat"
+        bh, bw = map(int, plan.tilings[1].split("x"))
+        assert bh * bw <= 64 and bh <= hw and bw <= hw
+        m = n * hw * hw
+        pairs = [-(-m // 128), -(-n * -(-hw // bh) * -(-hw // bw) // 2),
+                 -(-m // 128)]
+        for i, cout in enumerate((wd, wd, c)):
+            nt, blocks = plan.nts[i], plan.blocks[i]
+            assert nt in (64, 128, 256) and cout % nt == 0
+            assert blocks == pairs[i] * cout // nt, (s, i, plan)
+            widest = 256 if cout % 256 == 0 else 128 if cout % 128 == 0 else 64
+            if pairs[i] * cout // widest < 132:
+                assert nt < widest, (s, i, plan)
+        for i in (0, 2):
+            assert plan.rows_ratio[i] == pytest.approx(pairs[i] * 128 / m)
+            assert plan.rows_ratio[i] < 1.07
+        assert plan.rows_ratio[1] >= 1
+        f32 = tfb.kernel_plan(x.float(), wd, sms=132)
+        assert f32.launches == 3 and f32.nts == (64, 64, 64)
 
 
 def _decoder_args(rng, n, h, w, cd, cu, cm, co, fk, device):
