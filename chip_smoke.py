@@ -17,7 +17,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
              CUDA-event times in bf16 (the serving dtype) of the kernel,
              its plain version, a one-call PyTorch yardstick, and the
              card's bound; for the bottleneck also its plan and each of
-             its three launches' device time (torch.profiler).
+             its three launches' device time (torch.profiler).  The head
+             kernel is checked per stage (off the path), as the whole
+             head in one launch at batch 64 (the path) and in its grouped
+             form at G = 16, K = 4, each also for identical bits from two
+             launches, with its device time.
 4. slice   — the full-width flagship scorer GlobalModelConfig(resnet50,
              224, bfloat16, stages_cnn, depth 3) with seeded random
              weights: PairScorer.score_paths over synthetic JPEG/PNG pairs
@@ -26,7 +30,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
              kernel-path scores against the plain module (TF32 off, 1e-3);
              score_arrays pairs/s at batch 64; a torch.profiler window
              over three batches (device busy share, device time by
-             kernel); ``python -m srsem_torch score`` as a subprocess.
+             kernel); ``python -m srsem_torch score`` as a subprocess;
+             GroupedPairScorer pairs/s at G = 16, K = 4, its float32
+             scores against PairScorer's on the repeated pairs (1e-4),
+             and ``python -m srsem_torch score-groups`` as a subprocess.
 5. clu     — the CLU map model LocalModelConfig(resnet50_clip, 224,
              bfloat16, decoder bfloat16, v2 off), full width, seeded
              weights: PairScorer(model_kind="local").score_paths (NaN map
@@ -40,7 +47,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
              the runs of the slices that use it, worst bf16 error, and
              times summed over one scored batch's launches of each slice at
              that slice's shapes; under ``paths``, each slice's own
-             launches and times), the device line.
+             launches and times; the head's entry, ``fused_stage_score``
+             after the TPU kernel it replaces, counts the whole-head
+             launches of ``fused_global_score``), the device line.
 
 Bounds use an H100 SXM's published peaks: 3.35 TB/s, 989 TFLOP/s bf16
 tensor cores, 67 TFLOP/s float32 outside them.
@@ -125,14 +134,13 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 # Main-path shapes at 224 px, per path ("global": the global scorer at
 # batch 64; "clu": the CLU map model at batch 32), and launches per scored
-# batch (two tower passes; one head call per tapped stage).  Both towers
-# run the same interior bottlenecks: the CLIP tower's stride-1 blocks are
-# the ImageNet ones.
+# batch (two tower passes; one head launch over the four tapped stages).
+# Both towers run the same interior bottlenecks: the CLIP tower's stride-1
+# blocks are the ImageNet ones.
 PATH_BATCH = {"global": BATCH, "clu": CLU_BATCH}
-HEAD_SHAPES = {"global": [((BATCH, 56, 56, 256), 1),
-                          ((BATCH, 28, 28, 512), 1),
-                          ((BATCH, 14, 14, 1024), 1),
-                          ((BATCH, 7, 7, 2048), 1)]}
+HEAD_TAPS = [(56, 56, 256), (28, 28, 512), (14, 14, 1024), (7, 7, 2048)]
+# The grouped scorer's batch: G GT images against K SR images each.
+GROUP_G, GROUP_K = 16, 4
 BOTTLENECK_SHAPES = {path: [((n, 28, 28, 512), 128, 6),
                             ((n, 14, 14, 1024), 256, 10),
                             ((n, 7, 7, 2048), 512, 4)]
@@ -183,36 +191,129 @@ def check_kernels(torch):
             s[key] += v * count
         s["by"][by] = s["by"].get(by, 0.0) + bms * count
 
-    # -- head (Triton) ----------------------------------------------------
-    for shape, count in HEAD_SHAPES["global"]:
+    # -- head (CUDA C++) ---------------------------------------------------
+    from srsem_torch.models.global_models import (
+        ConvHeadAggregator,
+        grouped_diff_pyramid,
+        squared_diffs,
+    )
+
+    def check_head(label, make, call, plain):
+        """``call(*make(dtype))`` against ``plain`` in float32 and bf16
+        within 1e-5 + 1e-5*max|want|, and a second launch on the same
+        inputs giving the same bits; returns the errors and the bf16
+        inputs (the serving taps), which the times use."""
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
-            fa = randn(*shape).abs().to(dtype)  # taps are post-ReLU
-            fb_ = randn(*shape).abs().to(dtype)
-            w = randn(shape[-1]) * 0.05
-            got = fh.fused_stage_score(fa, fb_, w, 0.25)
-            want = fh.plain_stage_sums(fa, fb_, w) / (shape[1] * shape[2]) + 0.25
+            args = make(dtype)
+            got = call(*args)
+            want = plain(*args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             tol = 1e-5 + 1e-5 * float(want.abs().max())
             errs[str(dtype)] = err
-            if not err <= tol:
-                raise AssertionError(f"fused_stage_score {shape} {dtype}: "
-                                     f"max |err| {err} > {tol}")
-        # bf16 inputs (the serving taps) for the times.
-        ms = cuda_ms(torch, lambda: fh.fused_stage_score(fa, fb_, w, 0.25), 20)
+            if not (err <= tol and bool((want > 0).all())):
+                raise AssertionError(f"{label} {dtype}: max |err| {err} > "
+                                     f"{tol} (or a score not > 0)")
+            if not torch.equal(call(*args), got):
+                raise AssertionError(f"{label} {dtype}: two launches differ")
+        return errs, args
+
+    head_tol = "1e-5 + 1e-5*max|want| (f32 sums in another order)"
+    head = ConvHeadAggregator([c for _, _, c in HEAD_TAPS])
+    head.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in head.w_layers:
+            layer.weight.abs_().mul_(0.05)
+            layer.bias.fill_(0.25)
+    head = head.to(dev).requires_grad_(False)
+    packed = fh.pack_head(head)
+    names = [f"tap{j}" for j in range(len(HEAD_TAPS))]
+
+    def taps(n, dtype):  # taps are post-ReLU
+        return {nm: randn(n, *s).abs().to(dtype)
+                for nm, s in zip(names, HEAD_TAPS)}
+
+    def head_bound(images, k):
+        """bf16 taps of ``images`` images (GT and SR, K SR a GT) read once,
+        the packed head read once, one float32 score a pair written: bytes;
+        4 operations an element of each pair."""
+        elems = sum(h * w * c for h, w, c in HEAD_TAPS)
+        cs = sum(c for _, _, c in HEAD_TAPS)
+        pairs = images // (1 + k) * k
+        return bound(images * elems * 2 + 4 * (cs + len(HEAD_TAPS))
+                     + 4 * pairs, 4 * elems * pairs, F32_FLOPS)
+
+    # Per stage, as the TPU kernel's wrapper is called (not on the path:
+    # the scorer makes one whole-head launch a batch).
+    for h, w_, c in HEAD_TAPS:
+        shape = (BATCH, h, w_, c)
+        errs, (fa, fb_, w) = check_head(
+            f"fused_stage_score {shape}",
+            lambda dt: (randn(*shape).abs().to(dt),
+                        randn(*shape).abs().to(dt), randn(c).abs() * 0.05),
+            lambda a, b, w: fh.fused_stage_score(a, b, w, 0.25),
+            lambda a, b, w: fh.plain_stage_sums(a, b, w) / (h * w_) + 0.25)
+        call = lambda: fh.fused_stage_score(fa, fb_, w, 0.25)  # noqa: E731
+        ms = cuda_ms(torch, call, 20)
+        dev_ms = launch_ms(torch, call, "fused_head", 1)
         plain = cuda_ms(torch, lambda: fh.plain_stage_sums(fa, fb_, w), 20)
         lib = cuda_ms(torch, lambda: ((fa - fb_) ** 2 * w).sum((1, 2, 3)), 20)
         elems = fa.numel()
-        bms, by = bound(2 * elems * fa.element_size() + 4 * shape[-1]
-                        + 4 * shape[0], 4 * elems, F32_FLOPS)
+        bms, by = bound(2 * elems * fa.element_size() + 4 * c + 4 * BATCH,
+                        4 * elems, F32_FLOPS)
         emit("kernel", name="fused_stage_score", path="global",
-             shape=list(shape),
-             max_abs_err=errs, tolerance="1e-5 + 1e-5*max|want| (f32 sums "
-             "in another order)", ms=ms, plain_ms=plain, library_ms=lib,
-             bound_ms=bms, bound_by=by)
-        add("fused_stage_score", "global", errs[str(torch.bfloat16)], ms,
-            plain, lib, bms, by, count)
+             on_main_path=False, shape=list(shape), max_abs_err=errs,
+             tolerance=head_tol, ms=ms, launch_ms=dev_ms and dev_ms[0],
+             plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+        add("fused_stage_score", "global", errs[str(torch.bfloat16)], 0, 0,
+            0, 0, by, 0)
+
+    # The whole head, as the scorer calls it: one launch a scored batch.
+    errs, (ta, tb) = check_head(
+        "fused_global_score", lambda dt: (taps(BATCH, dt), taps(BATCH, dt)),
+        lambda a, b: fh.fused_global_score(a, b, packed, names),
+        lambda a, b: fh.plain_global_score(a, b, packed, names))
+    call = lambda: fh.fused_global_score(ta, tb, packed, names)  # noqa: E731
+    ms = cuda_ms(torch, call, 20)
+    dev_ms = launch_ms(torch, call, "fused_head", 1)
+    plain = cuda_ms(torch, lambda: fh.plain_global_score(ta, tb, packed,
+                                                         names), 5)
+    # Yardstick: the module's eager head over the squared diffs.
+    lib = cuda_ms(torch, lambda: head(squared_diffs(ta, tb, names)), 5)
+    bms, by = head_bound(2 * BATCH, 1)
+    emit("kernel", name="fused_stage_score", path="global", on_main_path=True,
+         wrapper="fused_global_score", taps=[[BATCH, *s] for s in HEAD_TAPS],
+         max_abs_err=errs, tolerance=head_tol, ms=ms,
+         launch_ms=dev_ms and dev_ms[0], plain_ms=plain, library_ms=lib,
+         bound_ms=bms, bound_by=by)
+    add("fused_stage_score", "global", errs[str(torch.bfloat16)], ms, plain,
+        lib, bms, by, 1)
+    del ta, tb
+
+    # The grouped (G, K) head: each GT tap read once against its K SR taps.
+    errs, (tg, ts) = check_head(
+        "fused_grouped_score",
+        lambda dt: (taps(GROUP_G, dt), taps(GROUP_G * GROUP_K, dt)),
+        lambda a, b: fh.fused_grouped_score(a, b, packed, names),
+        lambda a, b: fh.plain_grouped_score(a, b, packed, names))
+    call = lambda: fh.fused_grouped_score(tg, ts, packed, names)  # noqa: E731
+    ms = cuda_ms(torch, call, 20)
+    dev_ms = launch_ms(torch, call, "fused_head", 1)
+    plain = cuda_ms(torch, lambda: fh.plain_grouped_score(tg, ts, packed,
+                                                          names), 5)
+    # Yardstick: the eager broadcast diffs through the module's head.
+    lib = cuda_ms(torch, lambda: head(grouped_diff_pyramid(tg, ts, names)), 5)
+    bms, by = head_bound(GROUP_G * (1 + GROUP_K), GROUP_K)
+    emit("kernel", name="fused_stage_score", path="global",
+         on_main_path=False, wrapper="fused_grouped_score", g=GROUP_G,
+         k=GROUP_K, taps=[[GROUP_G, *s] for s in HEAD_TAPS],
+         max_abs_err=errs, tolerance=head_tol, ms=ms,
+         launch_ms=dev_ms and dev_ms[0], plain_ms=plain, library_ms=lib,
+         bound_ms=bms, bound_by=by)
+    add("fused_stage_score", "global", errs[str(torch.bfloat16)], 0, 0, 0, 0,
+        by, 0)
+    del tg, ts
 
     # -- bottleneck (CUDA C++) -------------------------------------------
     def weights(c, wd):
@@ -452,7 +553,7 @@ def _kernel_group(name: str) -> str:
         return "bottleneck kernel"
     if "fused_decoder" in name:
         return "decoder kernel"
-    if name in ("partials", "total"):
+    if "fused_head" in name:
         return "head kernel"
     if "memcpy" in name.lower():
         return "memcpy"
@@ -520,7 +621,9 @@ def run_slice(torch, np, card: str):
         head="stages_cnn", depth=3)
     model = seeded_model(torch, np, cfg)
     scorer = PairScorer(cfg, model, batch_size=BATCH)
-    wrappers = {"fused_stage_score": fh.fused_stage_score,
+    # The head's kernel replaces the TPU's fused_stage_score; the scorer
+    # launches it once a batch through fused_global_score.
+    wrappers = {"fused_stage_score": fh.fused_global_score,
                 "fused_bottleneck": fb.fused_bottleneck,
                 "fused_bottleneck_tiled": fb.fused_bottleneck_tiled}
     with tempfile.TemporaryDirectory() as tmp:
@@ -603,7 +706,83 @@ def run_slice(torch, np, card: str):
         if result["nan"] != 1 or len(rows) != len(pairs) + 1:
             raise AssertionError(f"CLI result {result}, {len(rows)} rows")
         emit("slice", step="cli", result=result)
+        run_grouped(torch, np, card, Path(tmp), pairs, (cfg, model),
+                    (cfg32, model32))
     return launches
+
+
+def run_grouped(torch, np, card: str, tmp: Path, pairs, bf16, f32) -> None:
+    """The global phase's grouped step: GroupedPairScorer at G = 16, K = 4
+    (one head launch a batch; pairs/s), its float32 (G, K) scores against
+    PairScorer's on the repeated pairs, and ``score-groups`` over small
+    folders with one corrupt SR file."""
+    import shutil
+
+    from srsem_torch.eval.grouped import GroupedPairScorer
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.ops import fused_head as fh
+
+    rng = np.random.default_rng(4)
+    gt = rng.integers(0, 256, (GROUP_G, 224, 224, 3), dtype=np.uint8)
+    noise = rng.integers(-20, 21, (GROUP_G, GROUP_K, 224, 224, 3))
+    sr = np.clip(gt[:, None].astype(int) + noise, 0, 255).astype(np.uint8)
+    scorer = GroupedPairScorer(*bf16, k=GROUP_K, batch_size=GROUP_G)
+    fh.fused_grouped_score.launches = 0
+    for _ in range(2):
+        scorer.score_arrays(gt, sr)
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = scorer.score_arrays(gt, sr)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    launches = fh.fused_grouped_score.launches
+    if launches != 2 + reps:
+        raise AssertionError(f"grouped scorer: {launches} head launches in "
+                             f"{2 + reps} batches")
+    if out.shape != (GROUP_G, GROUP_K) or not torch.isfinite(out).all():
+        raise AssertionError(f"grouped scores {tuple(out.shape)} not finite")
+    emit("slice", step="grouped_throughput", g=GROUP_G, k=GROUP_K,
+         dtype="bfloat16", image=224, ms_per_batch=dt * 1e3,
+         pairs_per_s=GROUP_G * GROUP_K / dt,
+         head_launches_per_batch=launches / (2 + reps), card=card)
+
+    got = GroupedPairScorer(*f32, k=GROUP_K,
+                            batch_size=GROUP_G).score_arrays(gt, sr)
+    want = PairScorer(*f32, batch_size=GROUP_G * GROUP_K).score_arrays(
+        np.repeat(gt, GROUP_K, axis=0), sr.reshape(-1, 224, 224, 3))
+    err = float((got.reshape(-1) - want).abs().max())
+    if not torch.allclose(got.reshape(-1), want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"f32 grouped vs pairwise: max |err| {err} "
+                             "beyond rtol=atol=1e-4")
+    emit("slice", step="f32_grouped_vs_pairwise", max_abs_err=err,
+         tolerance="rtol=atol=1e-4", scores=got.tolist())
+
+    # The CLI entry point, as a user runs it: K = 2 SR folders, one
+    # corrupt SR file.
+    root = tmp / "groups"
+    dirs = [root / n for n in ("gt", "esrgan", "swinir")]
+    for d in dirs:
+        d.mkdir(parents=True)
+    for i, (pa, pb) in enumerate(pairs[:3]):
+        shutil.copy(pa, dirs[0] / f"im{i}.png")
+        shutil.copy(pb, dirs[1] / f"im{i}.jpg")
+        shutil.copy(pb, dirs[2] / f"im{i}.jpg")
+    shutil.copy(pairs[-1][1], dirs[2] / "im1.jpg")
+    out_csv = root / "scores.csv"
+    proc = subprocess.run(
+        [sys.executable, "-m", "srsem_torch", "score-groups",
+         *map(str, dirs), "--batch-size", "8", "--out", str(out_csv)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"score-groups exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    rows = out_csv.read_text().splitlines()
+    if result["nan_groups"] != 1 or len(rows) != 4 or ",nan" not in rows[2]:
+        raise AssertionError(f"score-groups result {result}, {rows}")
+    emit("slice", step="cli_score_groups", result=result)
 
 
 def run_clu_slice(torch, np, card: str):
@@ -771,7 +950,7 @@ def main() -> int:
                         f"{timed}")
 
     meta = {
-        "fused_stage_score": ("triton", "srsem_torch/ops/fused_head.py",
+        "fused_stage_score": ("cuda", "srsem_torch/csrc/fused_head.cu",
                               "srsem/ops/fused_head.py:89"),
         "fused_bottleneck": ("cuda", "srsem_torch/csrc/fused_bottleneck.cu",
                              "srsem/ops/fused_bottleneck.py:123"),

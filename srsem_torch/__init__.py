@@ -11,11 +11,12 @@ mirrors the JAX package's module paths so each counterpart is easy to find:
 * ``backbones.fused_resnet`` — srsem/backbones/fused_resnet.py
 * ``ops.fused_bottleneck``   — srsem/ops/fused_bottleneck.py (CUDA kernel)
 * ``ops.fused_decoder``      — srsem/ops/fused_decoder.py (CUDA kernel)
-* ``ops.fused_head``         — srsem/ops/fused_head.py (Triton kernel)
+* ``ops.fused_head``         — srsem/ops/fused_head.py (CUDA kernel)
 * ``models.global_models``   — srsem/models/global_models.py (stages_cnn)
 * ``models.local_models``    — srsem/models/local_models.py (CluUnet)
 * ``eval.scorer``            — srsem/eval/scorer.py (PairScorer)
-* ``eval.grouped``           — srsem/eval/grouped.py (GroupedMapScorer)
+* ``eval.grouped``           — srsem/eval/grouped.py (GroupedPairScorer,
+  GroupedMapScorer)
 * ``utils.convert``          — weights from JAX params / torchvision / CLIP
 
 Public functions keep the JAX layout (NHWC).  Entry points run on

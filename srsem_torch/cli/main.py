@@ -1,10 +1,12 @@
-"""``python -m srsem_torch`` — the port's command line (the ``score`` and
-``score-maps-groups`` subcommands of srsem/cli/main.py so far).
+"""``python -m srsem_torch`` — the port's command line (the ``score``,
+``score-groups`` and ``score-maps-groups`` subcommands of srsem/cli/main.py
+so far).
 
     python -m srsem_torch score pairs.csv --backbone resnet50 [--device cpu]
+    python -m srsem_torch score-groups GT_DIR SR_DIR... [--device cpu]
     python -m srsem_torch score-maps-groups GT_DIR SR_DIR... [--device cpu]
 
-Flags follow srsem/cli/main.py (:957-979 and :1206-1246), plus
+Flags follow srsem/cli/main.py (:957-979, :1119-1150 and :1206-1246), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path) and
 ``--no-fused-tower`` / ``--no-fused-decoder`` (the port runs its Hopper
 kernels by default).  ``--backbone-checkpoint`` takes a torchvision
@@ -92,11 +94,53 @@ def cmd_score(args) -> int:
     return 0
 
 
+def _write_rows(path: str, rows: List[dict]) -> int:
+    """Write row dicts (``image_name`` + float columns) with ``csv``;
+    returns the number of rows holding a NaN."""
+    import math
+
+    fields = list(rows[0]) if rows else ["image_name"]
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=fields)
+        writer.writeheader()
+        for row in rows:
+            writer.writerow({k: v if k == "image_name" else repr(float(v))
+                             for k, v in row.items()})
+    return sum(any(isinstance(v, float) and math.isnan(v) for v in r.values())
+               for r in rows)
+
+
+def cmd_score_groups(args) -> int:
+    """Grouped GT-vs-K-SR scoring: one shared GT tower pass per group and
+    one head launch a batch (srsem_torch/eval/grouped.py::GroupedPairScorer)."""
+    import torch
+
+    from srsem_torch.config import BackboneConfig, GlobalModelConfig
+    from srsem_torch.eval.grouped import GroupedPairScorer
+    from srsem_torch.models.global_models import make_global_model
+
+    _no_checkpoint(args)
+    cfg = GlobalModelConfig(
+        backbone=BackboneConfig(kind=args.backbone, image_size=args.image_size,
+                                compute_dtype=args.dtype),
+        head="stages_cnn", depth=args.depth)
+    model = make_global_model(cfg, torch.Generator().manual_seed(0))
+    _load_backbone(model.backbone, cfg.backbone.kind, args.backbone_checkpoint)
+    scorer = GroupedPairScorer(cfg, model, k=len(args.sr_folders),
+                               batch_size=args.batch_size,
+                               fused_tower=args.fused_tower,
+                               fast_jpeg=args.fast_jpeg, device=args.device)
+    rows = scorer.score_folder_set(args.gt_folder, args.sr_folders)
+    nan = _write_rows(args.out, rows)
+    print(json.dumps({"groups": len(rows), "sr_models": len(args.sr_folders),
+                      "nan_groups": nan, "device": str(scorer.device),
+                      "out": args.out}))
+    return 0
+
+
 def cmd_score_maps_groups(args) -> int:
     """Grouped GT-vs-K-SR CLU map scoring: one shared GT tower pass per
     group (srsem_torch/eval/grouped.py::GroupedMapScorer)."""
-    import math
-
     import torch
 
     from srsem_torch.config import BackboneConfig, LocalModelConfig, override
@@ -117,15 +161,7 @@ def cmd_score_maps_groups(args) -> int:
                               fast_jpeg=args.fast_jpeg, device=args.device)
     rows = scorer.score_folder_set(args.gt_folder, args.sr_folders,
                                    maps_dir=args.maps_dir)
-    fields = list(rows[0]) if rows else ["image_name"]
-    with open(args.out, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=fields)
-        writer.writeheader()
-        for row in rows:
-            writer.writerow({k: v if k == "image_name" else repr(float(v))
-                             for k, v in row.items()})
-    nan = sum(any(isinstance(v, float) and math.isnan(v) for v in r.values())
-              for r in rows)
+    nan = _write_rows(args.out, rows)
     print(json.dumps({"groups": len(rows), "sr_models": len(args.sr_folders),
                       "nan_groups": nan, "device": str(scorer.device),
                       "out": args.out, "maps_dir": args.maps_dir}))
@@ -160,6 +196,37 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="scores.csv")
     p.add_argument("--set", action="append", default=[])
     p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("score-groups", help="score each GT against K SR "
+                       "folders with one shared GT tower pass per group")
+    p.add_argument("gt_folder")
+    p.add_argument("sr_folders", nargs="+")
+    p.add_argument("--backbone", default="resnet50")
+    p.add_argument("--depth", type=int, default=3)
+    p.add_argument("--checkpoint",
+                   help="trained-head checkpoint (not ported yet: ROADMAP A6)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"],
+                   help="tower compute dtype — bfloat16 serves fastest; "
+                        "float32 for reproducibility (squared tap-diffs of "
+                        "near-identical pairs amplify bf16 rounding)")
+    p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="tower interiors through the Hopper bottleneck "
+                        "kernel (default); --no-fused-tower runs the plain "
+                        "F.conv2d chain")
+    p.add_argument("--backbone-checkpoint", default=None,
+                   help="torchvision resnet50 (or OpenAI-CLIP) state dict "
+                        "(.pt) to load into the tower")
+    p.add_argument("--fast-jpeg", action="store_true",
+                   help="DCT-scaled JPEG decode (PIL draft semantics): "
+                        "~LSB-scale pixel differences vs the full decode")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.add_argument("--out", default="group_scores.csv")
+    p.set_defaults(fn=cmd_score_groups)
 
     p = sub.add_parser("score-maps-groups", help="CLU fidelity maps for "
                        "each GT against K SR folders with one shared GT "

@@ -1,12 +1,17 @@
-"""Grouped GT-vs-K-SR CLU map scoring — the port of
-srsem/eval/grouped.py::GroupedMapScorer.
+"""Grouped GT-vs-K-SR scoring — the port of srsem/eval/grouped.py's
+``GroupedPairScorer`` (global scores) and ``GroupedMapScorer`` (CLU maps).
 
 The 10k-pair KonIQ SR benchmark scores each GT against the outputs of K SR
 models (reference: README.md:47-53).  Here the group shares the GT's tower
-pass: 1 + K passes instead of 2K.  The decoder still runs once per pair on
-its own diff pyramid, built by broadcasting the shared GT taps against the
-K SR taps (``grouped_diff_pyramid``), so the maps equal the pairwise
-scorer's.
+pass: 1 + K passes instead of 2K.
+
+* ``GroupedPairScorer`` scores the (G, K) pairs with one launch of the head
+  kernel (``fused_grouped_score``), which reads each GT tap once against
+  its K SR taps.  stages_cnn on the ResNet towers; the other conv and ViT
+  heads wait for ROADMAP A4/A10.
+* ``GroupedMapScorer``'s decoder still runs once per pair on its own diff
+  pyramid, built by broadcasting the shared GT taps against the K SR taps
+  (``grouped_diff_pyramid``), so the maps equal the pairwise scorer's.
 
 ``score_folder_set`` returns a list of row dicts (the card's machine has no
 pandas); the CLI writes them with ``csv``.
@@ -26,6 +31,11 @@ from srsem_torch.data.preprocess import IMG_EXTENSIONS
 from srsem_torch.device import DeviceLike
 from srsem_torch.eval.scorer import PairScorer
 from srsem_torch.models.global_models import grouped_diff_pyramid
+from srsem_torch.ops.fused_head import fused_grouped_score
+
+# The heads srsem/eval/grouped.py scores in grouped form (its GROUPED_HEADS).
+GROUPED_HEADS = ("stages_cnn", "wperlay_cnn", "single_lin_vit", "stages_vit",
+                 "wperlay_vit")
 
 
 def _sr_model_names(sr_folders: Sequence[str]) -> List[str]:
@@ -100,6 +110,72 @@ def _decoded_group_chunks(preprocess, stems: Sequence[str],
                 sr[i] = np.stack(imgs[1:])
                 ok[i] = True
         yield chunk, gt, sr, ok
+
+
+class GroupedPairScorer:
+    """Batched scorer for (GT, [SR_1..SR_K]) groups:
+    ``score_arrays(gt_u8 (G,H,W,3), sr_u8 (G,K,H,W,3)) -> (G,K)`` float32
+    on the scorer's device, the scores of the K pairs scored apart (the
+    head's sums run in another order).  Two tower passes (G, then G·K
+    images) and one head launch a batch; the tower path (``fused_tower``)
+    and the packed head are PairScorer's."""
+
+    def __init__(self, cfg, model, k: int, batch_size: int = 32,
+                 num_workers: int = 16, fused_tower: bool = True,
+                 fast_jpeg: bool = False, device: DeviceLike = None):
+        if cfg.head not in GROUPED_HEADS:
+            raise ValueError(
+                f"grouped scoring supports the linear-to-scalar heads "
+                f"{GROUPED_HEADS}, got {cfg.head!r} — use PairScorer")
+        if cfg.head != "stages_cnn":
+            raise NotImplementedError(
+                f"grouped head {cfg.head!r} is not ported yet (ROADMAP "
+                "A4/A10); the port scores stages_cnn")
+        self.k = k
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+        self.pairs = PairScorer(cfg, model, batch_size=batch_size,
+                                fused_tower=fused_tower, fast_jpeg=fast_jpeg,
+                                device=device)
+        self.preprocess = self.pairs.preprocess
+        self.device = self.pairs.device
+
+    @torch.inference_mode()
+    def score_arrays(self, gt_u8: np.ndarray, sr_u8: np.ndarray) -> torch.Tensor:
+        """(G,H,W,3) GT + (G,K,H,W,3) SR uint8 → (G,K) float32 scores on
+        the scorer's device."""
+        sc = self.pairs
+        g, kk = sr_u8.shape[:2]
+        gt = sc.normalize(gt_u8)
+        sr = sc.normalize(np.asarray(sr_u8).reshape(g * kk, *sr_u8.shape[2:]))
+        _, taps_g = sc.tower(gt)
+        _, taps_s = sc.tower(sr)
+        return fused_grouped_score(taps_g, taps_s, sc.head,
+                                   sc.model.tap_names)
+
+    def score_folder_set(self, gt_folder: str,
+                         sr_folders: Sequence[str]) -> List[dict]:
+        """Match stems across GT + K SR folders; one row dict per stem,
+        ``image_name`` and one score column per SR folder (unique names via
+        ``_sr_model_names``), NaN where any decode of the group failed.
+        Host decode of chunk i+1 overlaps the device call for chunk i."""
+        if len(sr_folders) != self.k:
+            raise ValueError(
+                f"expected {self.k} SR folders, got {len(sr_folders)}")
+        stems, folder_files = _match_stems(gt_folder, sr_folders)
+        names = _sr_model_names(sr_folders)
+        rows = []
+        with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            for chunk, gt, sr, ok in _decoded_group_chunks(
+                    self.preprocess, stems, folder_files, self.k,
+                    self.batch_size, pool):
+                scores = self.score_arrays(gt, sr).float().cpu().numpy()
+                scores[~ok] = np.nan
+                for i, s in enumerate(chunk):
+                    rows.append({"image_name": s,
+                                 **{n: float(v) for n, v in
+                                    zip(names, scores[i])}})
+        return rows
 
 
 class GroupedMapScorer:

@@ -14,7 +14,8 @@ fidelity map.
 the Hopper bottleneck kernel (srsem_torch/backbones/fused_resnet.py);
 ``False`` runs the module's plain ``F.conv2d`` chain, the counterpart of
 the JAX package's dense XLA tower.  The global head always goes through
-``fused_global_score`` (the Triton kernel on the card).  The CLU map model
+``fused_global_score``: one launch of the CUDA head kernel a scored batch
+on the card, with the head packed once (``pack_head``).  The CLU map model
 decodes through ``fused_serving_decode`` (the decoder kernel on the card)
 when ``fused_decoder=True`` (the default), else through the module's
 ``decode_from_taps``.  Both towers run as two passes (a, then b).  One
@@ -38,7 +39,7 @@ from srsem_torch.models.local_models import (
     pixel_sq_error,
     squared_diff_pyramid,
 )
-from srsem_torch.ops.fused_head import fused_global_score
+from srsem_torch.ops.fused_head import fused_global_score, pack_head
 
 
 class PairScorer:
@@ -46,9 +47,9 @@ class PairScorer:
     (``model_kind="global"``, a GlobalPairScorer) or one (H, W) map
     (``"local"``, a CluUnet).
 
-    The BN-folded weights of the fused tower and decoder are computed once,
-    here, from the model's weights at construction: load weights before
-    building it."""
+    The BN-folded weights of the fused tower and decoder, and the global
+    model's packed head, are computed once, here, from the model's weights
+    at construction: load weights before building it."""
 
     def __init__(
         self,
@@ -91,6 +92,8 @@ class PairScorer:
                                   if fused_tower else None)
             self._decoder_folded = (fold_decoder(self.model)
                                     if self.fused_decoder else None)
+            self.head = (pack_head(self.model.aggregator)
+                         if model_kind == "global" else None)
 
     # ---- device path ----------------------------------------------------
 
@@ -123,7 +126,7 @@ class PairScorer:
         _, taps_b = self.tower(b)
         model = self.model
         if self.model_kind == "global":
-            return fused_global_score(taps_a, taps_b, model.aggregator,
+            return fused_global_score(taps_a, taps_b, self.head,
                                       model.tap_names)
         diffs = squared_diff_pyramid(taps_a, taps_b, model.tap_names,
                                      model.decoder_dtype)

@@ -1,146 +1,414 @@
 """Fused squared-diff → 1x1-conv head → spatial sum — the port of
-srsem/ops/fused_head.py.
+srsem/ops/fused_head.py, and of the grouped head
+srsem/models/global_models.py::fused_grouped_head.
 
 Per tapped stage the global regressor's head computes
 ``mean_hw((f_a - f_b)^2 · w) + b`` (reference numerics:
-models/global_eval_models.py:379-392).  ``fused_stage_score`` reads each
-feature map once and writes no diff tensor.
+models/global_eval_models.py:379-392); the stages_cnn score is the ReLU of
+the mean over stages.  The kernel reads each feature map once and writes
+no diff tensor.
 
-Hopper kernel (Triton; replaces fused_head.py::fused_stage_score and its
-Pallas body ``_make_kernel``).  What bounds it: about 1 FLOP a byte — a
-pure streaming reduction, memory-bound on any GPU, so it needs no tensor
-cores and no shared-memory staging.  The design:
+Hopper kernel: csrc/fused_head.cu (CUDA C++), one launch a scored batch
+with every stage, the bias, the mean and the ReLU in it; a grouped batch
+(one GT against K SR images) reads each GT tap once.  The source says what
+bounds it (bytes) and what its design does about that.  Its plan (chunk
+size, work items, grid) is made here only, by ``kernel_plan``; the
+library checks it.
 
-* grid (image, chunk of the flattened H·W·C image); each program streams
-  ``_CHUNK`` elements in ``_BLOCK``-wide vector loads (16 bytes a thread
-  in bf16), accumulates ``(a-b)^2 · w[c]`` in float32 and writes one
-  partial to an (N, T) buffer — so a batch of 64 images fills all 132 SMs
-  (one program per image would leave half of them idle);
-* a second small pass sums each image's partials in a fixed order: the
-  result is deterministic, with no atomics.
+* ``fused_stage_score(fa, fb, w, b)`` — one stage, (N,) scores
+  ``sum/(H·W) + b`` (the TPU kernel's wrapper);
+* ``fused_global_score(taps_a, taps_b, head, names)`` — (N,) stages_cnn
+  scores (ConvHeadAggregator's numerics);
+* ``fused_grouped_score(taps_g, taps_s, head, names)`` — (G, K) scores
+  from G GT and G·K SR taps (fused_grouped_head's numerics).
 
-The wrapper divides by H·W and adds ``b`` as the JAX wrapper does (:129).
-For a CPU tensor it runs the plain PyTorch version; ``triton`` is imported
-only where the kernel launches.  ``fused_stage_score.launches`` counts
-launches.
+``head`` is a ConvHeadAggregator or the ``PackedHead`` that ``pack_head``
+makes once (the scorers do, at construction).  Each function has a plain
+PyTorch version beside it (``plain_stage_sums``, ``plain_global_score``,
+``plain_grouped_score``), which runs for CPU tensors; for a CUDA tensor the
+wrapper launches the kernel or raises.  Each counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Dict, List, Sequence, Union
+import math
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
+from srsem_torch.ops import _build
+
 Tensor = torch.Tensor
+Taps = Dict[str, Tensor]
 
-_BLOCK = 1024        # elements per vector step of one program
-_CHUNK = 8 * _BLOCK  # elements per program
-_SUM_BLOCK = 128     # partials per step of the second pass
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_STEP = 2048          # elements a block streams a step (256 threads x 8)
+_UNROLL = 4 * _STEP   # chunks are whole groups of the most steps a thread unrolls
+_MAX_CHUNK = 32 * _STEP
+_ITEMS_PER_BLOCK = 8  # work items a block that the chunk size aims at
+_BLOCKS_PER_SM = 4    # csrc/fused_head.cu kMinBlocks: 64 registers a thread
+_MAX_KB = 8           # SR images an item streams against one GT chunk
+_MAX_STAGES = 4
 
 
-@functools.lru_cache(maxsize=None)
-def _kernels():
-    """Define the Triton kernels once, at first launch."""
-    import triton
-    import triton.language as tl
+@dataclass(frozen=True)
+class PackedHead:
+    """A ConvHeadAggregator's per-stage weights and biases as the kernel
+    reads them: ``w`` (ΣC,) and ``b`` (S,) float32 on the head's device,
+    stage j's weights at ``w[offsets[j]: offsets[j] + channels[j]]``."""
 
-    @triton.jit
-    def partials(fa_ptr, fb_ptr, w_ptr, part_ptr, L, C, T,
-                 CHUNK: tl.constexpr, BLOCK: tl.constexpr):
-        img = tl.program_id(0)
-        t = tl.program_id(1)
-        base = img.to(tl.int64) * L
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        for off in range(0, CHUNK, BLOCK):
-            idx = t * CHUNK + off + tl.arange(0, BLOCK)
-            mask = idx < L
-            a = tl.load(fa_ptr + base + idx, mask=mask, other=0.0)
-            b = tl.load(fb_ptr + base + idx, mask=mask, other=0.0)
-            wc = tl.load(w_ptr + idx % C, mask=mask, other=0.0)
-            d = a.to(tl.float32) - b.to(tl.float32)
-            acc += d * d * wc
-        tl.store(part_ptr + img * T + t, tl.sum(acc, axis=0))
+    w: Tensor
+    b: Tensor
+    channels: Tuple[int, ...]
 
-    @triton.jit
-    def total(part_ptr, out_ptr, T, BLOCK: tl.constexpr):
-        img = tl.program_id(0)
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        for t0 in range(0, T, BLOCK):
-            offs = t0 + tl.arange(0, BLOCK)
-            acc += tl.load(part_ptr + img * T + offs, mask=offs < T, other=0.0)
-        tl.store(out_ptr + img, tl.sum(acc, axis=0))
+    @property
+    def offsets(self) -> Tuple[int, ...]:
+        out, o = [], 0
+        for c in self.channels:
+            out.append(o)
+            o += c
+        return tuple(out)
 
-    return partials, total
+    def stage(self, j: int) -> Tuple[Tensor, Tensor]:
+        o = self.offsets[j]
+        return self.w[o: o + self.channels[j]], self.b[j]
 
 
-def _check(fa: Tensor, fb: Tensor, w: Tensor) -> None:
-    if fa.dim() != 4 or fa.shape != fb.shape:
-        raise ValueError(f"fa {tuple(fa.shape)} and fb {tuple(fb.shape)} must "
-                         "be equal (N, H, W, C) shapes")
-    if fa.dtype != fb.dtype or fa.dtype not in _DTYPES:
-        raise TypeError(f"fa/fb dtypes {fa.dtype}/{fb.dtype}: need one of "
-                        f"{_DTYPES}")
-    if tuple(w.shape) != (fa.shape[-1],) or w.dtype != torch.float32:
-        raise ValueError(f"w must be float32 of shape ({fa.shape[-1]},), got "
-                         f"{w.dtype} {tuple(w.shape)}")
-    if not (fa.device == fb.device == w.device):
-        raise ValueError(f"devices differ: {fa.device}, {fb.device}, "
-                         f"{w.device}")
-    if not (fa.is_contiguous() and fb.is_contiguous() and w.is_contiguous()):
-        raise ValueError("fa, fb and w must be contiguous")
+def pack_head(head) -> PackedHead:
+    """Concatenate a ConvHeadAggregator's ``w_layers.{j}`` weights and
+    biases in float32 on its device: one copy, made once by the scorers
+    (the head math runs in float32, so the pack has no other dtype)."""
+    layers = list(head.w_layers)
+    with torch.no_grad():
+        w = torch.cat([l.weight.reshape(-1).float() for l in layers])
+        b = torch.cat([l.bias.reshape(-1).float() for l in layers])
+    return PackedHead(w.contiguous(), b.contiguous(),
+                      tuple(l.weight.shape[1] for l in layers))
+
+
+def _as_packed(head) -> PackedHead:
+    return head if isinstance(head, PackedHead) else pack_head(head)
+
+
+# ---- checks ------------------------------------------------------------
+
+
+def _check_stages(stages: Sequence[Tuple[Tensor, Tensor]]) -> None:
+    """Check (GT, SR) tap pairs against what the kernel takes: SR batches
+    K times the GT batch, one dtype, one device, contiguous."""
+    if not stages:
+        raise ValueError("no tapped stages")
+    g = stages[0][0].shape[0] if stages[0][0].dim() else 0
+    k = None
+    dev, dt = stages[0][0].device, stages[0][0].dtype
+    for gt, sr in stages:
+        if gt.dim() != 4 or sr.dim() != 4 or gt.shape[1:] != sr.shape[1:]:
+            raise ValueError(f"GT {tuple(gt.shape)} and SR {tuple(sr.shape)} "
+                             "must be (N, H, W, C) with equal H, W, C")
+        if gt.numel() == 0 or gt.shape[0] != g:
+            raise ValueError(f"every stage needs the same nonzero GT batch "
+                             f"{g}, got {tuple(gt.shape)}")
+        if sr.shape[0] % g or (k is not None and sr.shape[0] != k * g):
+            raise ValueError(f"SR batch {sr.shape[0]} is not K x GT batch {g}")
+        k = sr.shape[0] // g
+        if gt.dtype != sr.dtype or gt.dtype != dt or dt not in _DTYPES:
+            raise TypeError(f"GT/SR dtypes {gt.dtype}/{sr.dtype}: need one "
+                            f"equal dtype of {_DTYPES}")
+        if gt.device != dev or sr.device != dev:
+            raise ValueError(f"devices differ: {gt.device}, {sr.device}, {dev}")
+        if not (gt.is_contiguous() and sr.is_contiguous()):
+            raise ValueError("GT and SR taps must be contiguous")
+
+
+def _check_head(p: PackedHead, stages, device) -> None:
+    want = tuple(gt.shape[-1] for gt, _ in stages)
+    if p.channels != want:
+        raise ValueError(f"head channels {p.channels} != tap channels {want}")
+    for name, t, n in (("w", p.w, sum(want)), ("b", p.b, len(want))):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,) \
+                or not t.is_contiguous():
+            raise TypeError(f"packed head {name} must be contiguous float32 "
+                            f"({n},), got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"packed head {name} on {t.device}, taps on "
+                             f"{device}")
+
+
+def _pairs(taps_g: Taps, taps_s: Taps, names: Sequence[str]):
+    return [(taps_g[n], taps_s[n]) for n in names]
+
+
+# ---- plain versions ----------------------------------------------------
 
 
 def plain_stage_sums(fa: Tensor, fb: Tensor, w: Tensor) -> Tensor:
-    """Plain PyTorch version of the kernel: (N,) float32
+    """Plain PyTorch version of the per-stage kernel: (N,) float32
     ``sum_{h,w,c}((fa-fb)^2 · w[c])``."""
     d = fa.float() - fb.float()
     return (d * d * w).sum(dim=(1, 2, 3))
 
 
-def _launch(fa: Tensor, fb: Tensor, w: Tensor) -> Tensor:
-    partials, total = _kernels()
-    n = fa.shape[0]
-    length = fa[0].numel()
-    tiles = -(-length // _CHUNK)
-    part = torch.empty((n, tiles), dtype=torch.float32, device=fa.device)
-    out = torch.empty((n,), dtype=torch.float32, device=fa.device)
-    with torch.cuda.device(fa.device):
-        partials[(n, tiles)](fa, fb, w, part, length, fa.shape[-1], tiles,
-                             CHUNK=_CHUNK, BLOCK=_BLOCK, num_warps=4)
-        total[(n,)](part, out, tiles, BLOCK=_SUM_BLOCK, num_warps=4)
+def plain_grouped_score(taps_g: Taps, taps_s: Taps, head,
+                        tap_names: Sequence[str]) -> Tensor:
+    """Plain PyTorch version of the kernel (fused_grouped_head's math, in
+    float32): (G, K) ``relu(mean_s(sum_hwc((g - s)^2 · w_s)/(H·W) + b_s))``
+    for G GT taps against G·K SR taps."""
+    p = _as_packed(head)
+    g = taps_g[tap_names[0]].shape[0]
+    scores = []
+    for j, name in enumerate(tap_names):
+        t = taps_s[name]
+        d = (taps_g[name].float()[:, None]
+             - t.reshape(g, t.shape[0] // g, *t.shape[1:]).float())
+        w, b = p.stage(j)
+        scores.append((d * d * w).sum(dim=(2, 3, 4))
+                      / (t.shape[1] * t.shape[2]) + b)
+    return torch.relu(torch.stack(scores).mean(dim=0))
+
+
+def plain_global_score(taps_a: Taps, taps_b: Taps, head,
+                       tap_names: Sequence[str]) -> Tensor:
+    """Plain PyTorch version of ``fused_global_score`` (ConvHeadAggregator's
+    math, in float32): (N,) scores."""
+    return plain_grouped_score(taps_a, taps_b, head, tap_names)[:, 0]
+
+
+# ---- the kernel's plan -------------------------------------------------
+
+
+class Plan(NamedTuple):
+    """How one launch walks its work: stages in ``order`` (largest tap
+    first); per stage (in that order) ``chunk`` elements a work item,
+    ``chunks`` an image, ``vec`` (fixed channels a thread, 16-byte loads),
+    its first item ``item0`` and first partial ``part0``; an item streams
+    ``kb`` SR images (``kblocks`` k-blocks a group; ``kt`` the kernel's
+    compile-time bound); ``items`` in all, ``grid`` blocks, ``partials``
+    floats of scratch."""
+
+    order: Tuple[int, ...]
+    chunk: Tuple[int, ...]
+    chunks: Tuple[int, ...]
+    vec: Tuple[bool, ...]
+    item0: Tuple[int, ...]
+    part0: Tuple[int, ...]
+    kb: int
+    kblocks: int
+    kt: int
+    items: int
+    grid: int
+    partials: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _shapes(stages) -> Tuple[tuple, tuple]:
+    """What a plan depends on: the (GT, SR) shapes and whether both taps
+    of each stage are 16-byte aligned."""
+    return (tuple((gt.shape, sr.shape) for gt, sr in stages),
+            tuple(gt.data_ptr() % 16 == 0 and sr.data_ptr() % 16 == 0
+                  for gt, sr in stages))
+
+
+def kernel_plan(stages: Sequence[Tuple[Tensor, Tensor]], sms: int) -> Plan:
+    """The plan of one launch over checked (GT, SR) tap pairs on ``sms``
+    SMs: one chunk size for every stage, near ``items / (sms x 4 blocks)
+    = 8`` items a block, in whole unrolled groups of four 2048-element
+    steps and spread evenly over each image's tap.  A stage takes the
+    fixed-channel path when C is a multiple of 8 dividing 2048 and both
+    taps are 16-byte aligned."""
+    return _plan(*_shapes(stages), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shapes: tuple, aligned: tuple, sms: int) -> Plan:
+    g = shapes[0][0][0]
+    k = shapes[0][1][0] // g
+    kb = min(k, _MAX_KB)
+    kblocks = _cdiv(k, kb)
+    per_image = [math.prod(gt[1:]) for gt, _ in shapes]
+    order = tuple(sorted(range(len(shapes)), key=lambda s: -per_image[s]))
+    cap = sms * _BLOCKS_PER_SM
+    total = g * kblocks * sum(per_image)
+    target = min(_MAX_CHUNK, _cdiv(_cdiv(total, cap * _ITEMS_PER_BLOCK),
+                                   _UNROLL) * _UNROLL)
+    chunk, chunks, vec, item0, part0 = [], [], [], [], []
+    items = parts = 0
+    for s in order:
+        n = per_image[s]
+        size = _cdiv(_cdiv(n, _cdiv(n, target)), _UNROLL) * _UNROLL
+        m = _cdiv(n, size)
+        c = shapes[s][0][-1]
+        chunk.append(size)
+        chunks.append(m)
+        vec.append(c % 8 == 0 and _STEP % c == 0 and aligned[s])
+        item0.append(items)
+        part0.append(parts)
+        items += g * kblocks * m
+        parts += g * k * m
+    return Plan(order, tuple(chunk), tuple(chunks), tuple(vec), tuple(item0),
+                tuple(part0), kb, kblocks, 1 << (kb - 1).bit_length(), items,
+                min(items, cap), parts)
+
+
+# ---- the launch --------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel() -> ctypes.CDLL:
+    """fused_head.cu's library with its export typed (built on first use)."""
+    lib = _build.load("fused_head")
+    lib.srsem_fused_head.restype = ctypes.c_int
+    lib.srsem_fused_head.argtypes = (
+        [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_void_p),
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+        + [ctypes.c_void_p] * 4)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _descriptor(shapes: tuple, aligned: tuple, sms: int, dtype: int,
+                per_stage: bool):
+    """The plan and the library's plan array for it (csrc/fused_head.cu,
+    srsem_fused_head): made once a shape; a call adds the taps' pointers."""
+    plan = _plan(shapes, aligned, sms)
+    g, k = shapes[0][0][0], shapes[0][1][0] // shapes[0][0][0]
+    offsets = [0]
+    for gt, _ in shapes:
+        offsets.append(offsets[-1] + gt[-1])
+    values = [len(shapes), dtype, g, k, plan.kb, plan.kblocks, plan.kt,
+              plan.items, plan.grid, int(per_stage)]
+    for i, s in enumerate(plan.order):
+        gt = shapes[s][0]
+        values += [math.prod(gt[1:]), plan.item0[i], plan.part0[i], gt[-1],
+                   offsets[s], s, plan.chunk[i], plan.chunks[i],
+                   int(plan.vec[i]), gt[1] * gt[2]]
+    return plan, (ctypes.c_longlong * len(values))(*values)
+
+
+_TICKETS: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _ticket(device: torch.device, stream: int) -> Tensor:
+    """One zeroed counter for the launches on ``stream`` (the kernel leaves
+    it zero), allocated once."""
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def _launch(stages, w: Tensor, b, b_const: float, per_stage: bool) -> Tensor:
+    """One launch over checked (GT, SR) pairs, stage s weighted by the
+    packed head's stage s (``b`` None: every stage adds ``b_const``).
+    Returns (G·K,) float32 scores."""
+    dev = stages[0][0].device
+    plan, desc = _descriptor(*_shapes(stages), _sm_count(dev.index),
+                             _DTYPES.index(stages[0][0].dtype), per_stage)
+    taps = (ctypes.c_void_p * (2 * len(stages)))(
+        *[t.data_ptr() for s in plan.order for t in stages[s]])
+    pairs = stages[0][1].shape[0]
+    scratch = torch.empty(plan.partials + pairs, dtype=torch.float32,
+                          device=dev)
+    out = scratch[plan.partials:]
+    # The raw handle of the device's current stream: torch.cuda's Stream
+    # object costs about 9 us of host time a call, the launch itself ~15.
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    args = (desc, taps, w.data_ptr(), None if b is None else b.data_ptr(),
+            b_const, scratch.data_ptr(), _ticket(dev, stream).data_ptr(),
+            out.data_ptr(), stream)
+    if dev.index == torch.cuda.current_device():
+        err = _kernel().srsem_fused_head(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _kernel().srsem_fused_head(*args)
+    if err != 0:
+        raise RuntimeError(f"fused_head kernel launch failed: CUDA error "
+                           f"{err} (stages {[tuple(t.shape) for t, _ in stages]}"
+                           f", {stages[0][0].dtype}, plan {plan})")
+    return out
+
+
+def _on_card(device: torch.device, name: str) -> bool:
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no {name} kernel for {device}")
+    return True
+
+
+def _score(wrapper, taps_g: Taps, taps_s: Taps, head,
+           tap_names: Sequence[str]) -> Tensor:
+    """(G·K,) stages_cnn scores through the kernel or its plain version."""
+    stages = _pairs(taps_g, taps_s, tap_names)
+    _check_stages(stages)
+    p = _as_packed(head)
+    dev = stages[0][0].device
+    _check_head(p, stages, dev)
+    if not _on_card(dev, wrapper.__name__):
+        return plain_grouped_score(taps_g, taps_s, p, tap_names).reshape(-1)
+    if len(stages) > _MAX_STAGES:
+        raise ValueError(f"the kernel scores at most {_MAX_STAGES} stages, "
+                         f"got {len(stages)}")
+    out = _launch(stages, p.w, p.b, 0.0, False)
+    wrapper.launches += 1
     return out
 
 
 def fused_stage_score(fa: Tensor, fb: Tensor, w: Tensor,
                       b: Union[Tensor, float]) -> Tensor:
     """(N, H, W, C) feature pair + head weights (C,) float32 + bias →
-    (N,) float32 scores ``mean_hw((fa-fb)^2 · w) + b``."""
-    _check(fa, fb, w)
-    if fa.device.type == "cpu":
-        sums = plain_stage_sums(fa, fb, w)
-    elif fa.device.type == "cuda":
-        sums = _launch(fa, fb, w)
-        fused_stage_score.launches += 1
+    (N,) float32 scores ``mean_hw((fa-fb)^2 · w) + b``.  On the card a
+    tensor ``b`` is read there (no host sync)."""
+    if fa.shape != fb.shape:
+        raise ValueError(f"fa {tuple(fa.shape)} and fb {tuple(fb.shape)} "
+                         "must be equal (N, H, W, C) shapes")
+    _check_stages([(fa, fb)])
+    if tuple(w.shape) != (fa.shape[-1],) or w.dtype != torch.float32:
+        raise ValueError(f"w must be float32 of shape ({fa.shape[-1]},), got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    if w.device != fa.device or not w.is_contiguous():
+        raise ValueError(f"w must be contiguous on {fa.device}, got "
+                         f"{w.device}")
+    if not _on_card(fa.device, "fused_stage_score"):
+        return plain_stage_sums(fa, fb, w) / (fa.shape[1] * fa.shape[2]) + b
+    if isinstance(b, Tensor) and b.device == fa.device:
+        bias = b.reshape(-1).float().contiguous()
+        if bias.numel() != 1:
+            raise ValueError(f"b must be one value, got {tuple(b.shape)}")
+        out = _launch([(fa, fb)], w, bias, 0.0, True)
     else:
-        raise ValueError(f"no fused_stage_score kernel for {fa.device}")
-    return sums / (fa.shape[1] * fa.shape[2]) + b
+        out = _launch([(fa, fb)], w, None, float(b), True)
+    fused_stage_score.launches += 1
+    return out
+
+
+def fused_global_score(taps_a: Taps, taps_b: Taps, head,
+                       tap_names: Sequence[str]) -> Tensor:
+    """The stages_cnn aggregation — per-stage score, mean over stages,
+    final ReLU, ConvHeadAggregator's numerics — in one launch: (N,)
+    float32.  ``head``: a ConvHeadAggregator or its ``pack_head``."""
+    return _score(fused_global_score, taps_a, taps_b, head, tap_names)
+
+
+def fused_grouped_score(taps_g: Taps, taps_s: Taps, head,
+                        tap_names: Sequence[str]) -> Tensor:
+    """fused_grouped_head in one launch: G GT taps against G·K SR taps
+    (SR image g·K + k against GT g) → (G, K) float32 scores."""
+    out = _score(fused_grouped_score, taps_g, taps_s, head, tap_names)
+    return out.reshape(taps_g[tap_names[0]].shape[0], -1)
 
 
 fused_stage_score.launches = 0
-
-
-def fused_global_score(taps_a: Dict[str, Tensor], taps_b: Dict[str, Tensor],
-                       head, tap_names: Sequence[str]) -> Tensor:
-    """The stages_cnn aggregation through the kernel: per-stage score,
-    mean over stages, final ReLU — ConvHeadAggregator's numerics.
-    ``head`` is a ConvHeadAggregator (srsem_torch/models/global_models.py),
-    whose ``w_layers.{j}`` Conv2d(C, 1, 1) hold the per-stage weights."""
-    scores: List[Tensor] = []
-    for j, name in enumerate(tap_names):
-        layer = head.w_layers[j]
-        scores.append(fused_stage_score(
-            taps_a[name], taps_b[name], layer.weight.reshape(-1).float(),
-            layer.bias.float()[0]))
-    return torch.relu(torch.stack(scores).mean(dim=0))
+fused_global_score.launches = 0
+fused_grouped_score.launches = 0

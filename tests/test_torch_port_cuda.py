@@ -1,4 +1,5 @@
-"""The port's kernels against their plain PyTorch versions on a CUDA card.
+"""The port's kernels against their plain PyTorch versions on a CUDA card:
+the head (csrc/fused_head.cu), the bottleneck and the decoder level.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed, with the repo's
@@ -35,22 +36,124 @@ def _weights(rng, c, wd, device):
         mk(wd, c), mk(c) * 0.1
 
 
+def _head_close(got, want):
+    """The head's tolerance: 1e-5 + 1e-5 * max|want| (float32 sums of up
+    to 10^6 terms in another order)."""
+    tol = 1e-5 + 1e-5 * float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= tol, (err, tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 8, 8, 32), (2, 56, 56, 256),
                                    (5, 7, 7, 2048), (2, 9, 11, 40)])
 def test_stage_score_kernel_matches_plain(cuda_device, dtype, shape):
-    """Triton kernel == plain version (multi-chunk and ragged chunks
-    included); float32 sums in another order: 1e-5."""
+    """csrc/fused_head.cu in its per-stage mode == plain version
+    (multi-chunk, ragged chunks and C = 40 on the general path included),
+    with b by value and as a tensor on the card; one launch a call, and two
+    launches give the same bits."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     fa = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
     fb = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
     w = torch.randn(shape[-1], device=cuda_device, generator=g)
     before = tfh.fused_stage_score.launches
     got = tfh.fused_stage_score(fa, fb, w, 0.5)
+    torch.cuda.synchronize()
     assert tfh.fused_stage_score.launches == before + 1
     want = tfh.plain_stage_sums(fa, fb, w) / (shape[1] * shape[2]) + 0.5
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    _head_close(got, want)
+    again = tfh.fused_stage_score(fa, fb, w, torch.tensor(0.5, device=cuda_device))
+    assert torch.equal(got, again)
+
+
+_HEAD_SHAPES = [(56, 56, 256), (9, 11, 40), (7, 7, 2048), (8, 8, 32)]
+
+
+def _head(channels, device, seed=0):
+    """A ConvHeadAggregator with nonnegative weights and biases +0.25, so
+    the ReLU passes every score."""
+    from srsem_torch.models.global_models import ConvHeadAggregator
+
+    head = ConvHeadAggregator(channels)
+    head.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for layer in head.w_layers:
+            layer.weight.abs_()
+            layer.bias.fill_(0.25)
+    return head.to(device)
+
+
+def _check_head_kernel(stages, k, packed):
+    """One launch of fused_global_score (K = 1) or fused_grouped_score ==
+    the plain version; a second launch gives the same bits."""
+    names = [f"s{j}" for j in range(len(stages))]
+    taps_g = {n: gt for n, (gt, _) in zip(names, stages)}
+    taps_s = {n: sr for n, (_, sr) in zip(names, stages)}
+    wrapper = tfh.fused_global_score if k == 1 else tfh.fused_grouped_score
+    before = wrapper.launches
+    got = wrapper(taps_g, taps_s, packed, names)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = tfh.plain_grouped_score(taps_g, taps_s, packed, names)
+    assert got.shape == ((want.shape[0],) if k == 1 else want.shape)
+    assert bool((want > 0).all())
+    _head_close(got.reshape(want.shape), want)
+    assert torch.equal(wrapper(taps_g, taps_s, packed, names), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_head_kernel_matches_plain(cuda_device, dtype, k, s):
+    """The whole head in one launch: S stages (the main path's 56x56x256
+    and 7x7x2048, C = 40 on the general path, a one-chunk 8x8x32), K SR
+    images a GT image."""
+    g = torch.Generator(device=cuda_device).manual_seed(s * 10 + k)
+    shapes = _HEAD_SHAPES[:s]
+    stages = [(torch.randn((2, *sh), device=cuda_device, generator=g)
+               .abs().to(dtype),
+               torch.randn((2 * k, *sh), device=cuda_device, generator=g)
+               .abs().to(dtype)) for sh in shapes]
+    packed = tfh.pack_head(_head([sh[-1] for sh in shapes], cuda_device))
+    _check_head_kernel(stages, k, packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_kernel_unaligned_slice(cuda_device, dtype):
+    """Taps that are slices of a larger tensor, one element past a 16-byte
+    boundary: the general path (the plan says so), K = 1 and 4."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    shapes = [(28, 28, 512), (7, 7, 2048)]
+
+    def sliced(n, sh):
+        flat = torch.randn(n * int(np.prod(sh)) + 1, device=cuda_device,
+                           generator=g).abs().to(dtype)
+        return flat[1:].view(n, *sh)
+
+    packed = tfh.pack_head(_head([sh[-1] for sh in shapes], cuda_device))
+    for k in (1, 4):
+        stages = [(sliced(2, sh), sliced(2 * k, sh)) for sh in shapes]
+        assert not any(tfh.kernel_plan(stages, sms=132).vec)
+        _check_head_kernel(stages, k, packed)
+
+
+@pytest.mark.cuda
+def test_head_kernel_rejects_cuda_inputs(cuda_device):
+    """Bad inputs raise before a launch; five stages exceed the kernel."""
+    packed = tfh.pack_head(_head([8], cuda_device))
+    gt = torch.zeros(2, 4, 4, 8, device=cuda_device)
+    for sr in (torch.zeros(3, 4, 4, 8, device=cuda_device),
+               torch.zeros(2, 4, 4, 8, device=cuda_device, dtype=torch.bfloat16),
+               torch.zeros(2, 8, 4, 4, device=cuda_device).permute(0, 2, 3, 1)):
+        with pytest.raises((ValueError, TypeError)):
+            tfh.fused_global_score({"s": gt}, {"s": sr}, packed, ["s"])
+    names = [f"s{j}" for j in range(5)]
+    taps = {n: gt for n in names}
+    with pytest.raises(ValueError, match="at most 4"):
+        tfh.fused_global_score(taps, taps, _head([8] * 5, cuda_device), names)
 
 
 @pytest.mark.cuda
