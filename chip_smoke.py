@@ -7,7 +7,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
 
 1. device  — the card's name and power limit (nvidia-smi) and the count.
 2. build   — nvcc builds every csrc/*.cu kernel from the checkout (one
-             nvcc per source, in parallel); the -Xptxas -v lines.
+             nvcc per source, in parallel); the -Xptxas -v lines, and per
+             head-kernel instance its registers, stack frame and spills
+             (fails if a stack frame grew past HEAD_STACK_FRAMES or the
+             pairwise bf16 instance spills).
 3. kernels — each kernel against its plain PyTorch version at every
              main-path shape (224 px; batch 64 on the global path, 32 on
              the CLU path, whose CLIP tower runs the bottleneck kernels
@@ -21,7 +24,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
              kernel is checked per stage (off the path), as the whole
              head in one launch at batch 64 (the path) and in its grouped
              form at G = 16, K = 4, each also for identical bits from two
-             launches, with its device time.
+             launches, with its device time; and so is wperlay_cnn's head
+             at 12 taps (depth 11) and at 4 (depth 3).
 4. slice   — the full-width flagship scorer GlobalModelConfig(resnet50,
              224, bfloat16, stages_cnn, depth 3) with seeded random
              weights: PairScorer.score_paths over synthetic JPEG/PNG pairs
@@ -43,12 +47,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
              2e-3); score_arrays maps/s at batch 32; a profile of three
              batches; ``python -m srsem_torch score-maps-groups`` (K = 2)
              as a subprocess.
-6. result  — the card line, the ``kernels`` line (per kernel: launches in
-             the runs of the slices that use it, worst bf16 error, and
-             times summed over one scored batch's launches of each slice at
-             that slice's shapes; under ``paths``, each slice's own
-             launches and times; the head's entry, ``fused_stage_score``
-             after the TPU kernel it replaces, counts the whole-head
+6. heads   — wperlay_cnn (depth 11, 12 taps) on the full-width CLIP tower,
+             bf16, with a trained head written by the port's checkpoint
+             writer and read back bit-equal (a CluUnet's decoder and
+             batch_stats too): score_paths with the launch counts reset
+             just before and read just after (the wperlay path), pairs/s
+             and one head launch a batch for PairScorer (batch 64) and
+             GroupedPairScorer (G = 16, K = 4), a profile of three
+             batches, float32 grouped vs pairwise (1e-4) and kernel path
+             vs plain module (1e-3);
+             stages_cnn_pooling, emb_lin (batch 64) and unet_global
+             (batch 32, maps, 2e-3) against their plain modules in
+             float32, finite in bf16; ``python -m srsem_torch score
+             --checkpoint DIR --set head=wperlay_cnn --set depth=11`` as a
+             subprocess (NaN on exactly the corrupt row).
+7. result  — a ``timing`` line (seconds of each phase), the card line,
+             the ``kernels`` line (per kernel: launches in the runs of
+             the slices that use it, worst bf16 error, and times summed
+             over one scored batch's launches of each slice at that
+             slice's shapes; under ``paths``, each slice's own launches
+             and times; the head's entry, ``fused_stage_score`` after
+             the TPU kernel it replaces, counts the whole-head
              launches of ``fused_global_score``), the device line.
 
 Bounds use an H100 SXM's published peaks: 3.35 TB/s, 989 TFLOP/s bf16
@@ -139,6 +158,11 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # blocks are the ImageNet ones.
 PATH_BATCH = {"global": BATCH, "clu": CLU_BATCH}
 HEAD_TAPS = [(56, 56, 256), (28, 28, 512), (14, 14, 1024), (7, 7, 2048)]
+# wperlay_cnn's taps on the CLIP tower: at depth 11 the 12 per-block taps,
+# three of each stage's shape; at depth 3 (the reference's deepest sweep
+# setting) the last four.
+WPERLAY_TAPS = {11: [s for s in HEAD_TAPS for _ in range(3)]}
+WPERLAY_TAPS[3] = WPERLAY_TAPS[11][-4:]
 # The grouped scorer's batch: G GT images against K SR images each.
 GROUP_G, GROUP_K = 16, 4
 BOTTLENECK_SHAPES = {path: [((n, 28, 28, 512), 128, 6),
@@ -220,29 +244,40 @@ def check_kernels(torch):
         return errs, args
 
     head_tol = "1e-5 + 1e-5*max|want| (f32 sums in another order)"
-    head = ConvHeadAggregator([c for _, _, c in HEAD_TAPS])
-    head.reset_parameters(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        for layer in head.w_layers:
-            layer.weight.abs_().mul_(0.05)
-            layer.bias.fill_(0.25)
-    head = head.to(dev).requires_grad_(False)
-    packed = fh.pack_head(head)
-    names = [f"tap{j}" for j in range(len(HEAD_TAPS))]
 
-    def taps(n, dtype):  # taps are post-ReLU
-        return {nm: randn(n, *s).abs().to(dtype)
-                for nm, s in zip(names, HEAD_TAPS)}
+    def conv_head(shapes):
+        """A head over ``shapes`` with small nonnegative weights and biases
+        +0.25 (the ReLU passes every score), on the card."""
+        head = ConvHeadAggregator([c for _, _, c in shapes])
+        head.reset_parameters(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for layer in head.w_layers:
+                layer.weight.abs_().mul_(0.05)
+                layer.bias.fill_(0.25)
+        return head.to(dev).requires_grad_(False)
 
-    def head_bound(images, k):
+    def tap_set(shapes):
+        names = [f"tap{j}" for j in range(len(shapes))]
+
+        def taps(n, dtype):  # taps are post-ReLU
+            return {nm: randn(n, *s).abs().to(dtype)
+                    for nm, s in zip(names, shapes)}
+
+        return names, taps
+
+    def head_bound(images, k, shapes=HEAD_TAPS):
         """bf16 taps of ``images`` images (GT and SR, K SR a GT) read once,
         the packed head read once, one float32 score a pair written: bytes;
         4 operations an element of each pair."""
-        elems = sum(h * w * c for h, w, c in HEAD_TAPS)
-        cs = sum(c for _, _, c in HEAD_TAPS)
+        elems = sum(h * w * c for h, w, c in shapes)
+        cs = sum(c for _, _, c in shapes)
         pairs = images // (1 + k) * k
-        return bound(images * elems * 2 + 4 * (cs + len(HEAD_TAPS))
+        return bound(images * elems * 2 + 4 * (cs + len(shapes))
                      + 4 * pairs, 4 * elems * pairs, F32_FLOPS)
+
+    head = conv_head(HEAD_TAPS)
+    packed = fh.pack_head(head)
+    names, taps = tap_set(HEAD_TAPS)
 
     # Per stage, as the TPU kernel's wrapper is called (not on the path:
     # the scorer makes one whole-head launch a batch).
@@ -314,6 +349,52 @@ def check_kernels(torch):
     add("fused_stage_score", "global", errs[str(torch.bfloat16)], 0, 0, 0, 0,
         by, 0)
     del tg, ts
+
+    # wperlay_cnn's head, one launch at 12 stages (depth 11) and at 4
+    # (depth 3): pairwise at batch 64 and grouped at G = 16, K = 4.  The
+    # depth-11 pairwise batch is the wperlay path's (one launch a batch).
+    for depth, shapes in WPERLAY_TAPS.items():
+        whead = conv_head(shapes)
+        wpacked = fh.pack_head(whead)
+        wnames, wtaps = tap_set(shapes)
+        for form, g, k in (("pairwise", BATCH, 1),
+                           ("grouped", GROUP_G, GROUP_K)):
+            wrapper = (fh.fused_global_score if k == 1
+                       else fh.fused_grouped_score)
+            plain_fn = (fh.plain_global_score if k == 1
+                        else fh.plain_grouped_score)
+            errs, (tg, ts) = check_head(
+                f"wperlay depth {depth} {form}",
+                lambda dt: (wtaps(g, dt), wtaps(g * k, dt)),
+                lambda a, b: wrapper(a, b, wpacked, wnames),
+                lambda a, b: plain_fn(a, b, wpacked, wnames))
+            on_path = depth == 11 and k == 1
+            line = dict(name="fused_stage_score", path="wperlay",
+                        on_main_path=on_path, wrapper=wrapper.__name__,
+                        depth=depth, g=g, k=k,
+                        taps=[[g, *sh] for sh in shapes], max_abs_err=errs,
+                        tolerance=head_tol)
+            if depth == 3 and k > 1:  # checked, not timed
+                emit("kernel", **line)
+                add("fused_stage_score", "wperlay",
+                    errs[str(torch.bfloat16)], 0, 0, 0, 0, "bytes", 0)
+                continue
+            call = lambda: wrapper(tg, ts, wpacked, wnames)  # noqa: E731
+            ms = cuda_ms(torch, call, 20)
+            dev_ms = launch_ms(torch, call, "fused_head", 1)
+            plain = cuda_ms(torch, lambda: plain_fn(tg, ts, wpacked, wnames), 3)
+            # Yardstick: the module's eager head over the squared diffs.
+            lib = cuda_ms(torch, lambda: whead(
+                squared_diffs(tg, ts, wnames) if k == 1
+                else grouped_diff_pyramid(tg, ts, wnames)), 3)
+            bms, by = head_bound(g * (1 + k), k, shapes)
+            emit("kernel", ms=ms, launch_ms=dev_ms and dev_ms[0],
+                 plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                 **line)
+            add("fused_stage_score", "wperlay", errs[str(torch.bfloat16)],
+                *((ms, plain, lib, bms) if on_path else (0, 0, 0, 0)), by,
+                int(on_path))
+            del tg, ts
 
     # -- bottleneck (CUDA C++) -------------------------------------------
     def weights(c, wd):
@@ -901,6 +982,380 @@ def run_clu_slice(torch, np, card: str):
         emit("clu", step="cli", result=result)
     return launches
 
+def leaves(tree, prefix=()):
+    """``{path: leaf}`` of a nested tree, tuples keyed by position as the
+    checkpoint writer keys them; empty containers hold no leaf."""
+    if isinstance(tree, (tuple, list)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(leaves(v, prefix + (k,)))
+    return out
+
+
+def round_trip(torch, np, directory: Path, params, stats) -> dict:
+    """A trainable subset written with the port's writer (a chunked array,
+    a bf16 leaf and an Adam-shaped opt_state beside it, the chunk size set
+    low) and read back with its reader: every leaf bit-equal.  Returns the
+    restored tree."""
+    from srsem_torch.train import checkpoint as ck
+
+    rng = np.random.default_rng(11)
+    zeros = {k: np.zeros_like(v) for k, v in leaves(params).items()}
+    tree = {"trainable": params, "batch_stats": stats,
+            "opt_state": ({"count": np.zeros((), np.int32),
+                           "mu": list(zeros.values()),
+                           "nu": list(zeros.values())}, {}),
+            "extra": {"bf16": torch.tensor(rng.standard_normal((3, 5)))
+                      .to(torch.bfloat16),
+                      "chunked": rng.standard_normal(5000).astype(np.float32),
+                      "step": 11}}
+    chunk = ck.MAX_CHUNK_SIZE
+    ck.MAX_CHUNK_SIZE = 4096  # the 20 KB array goes as five chunks
+    try:
+        path = ck.save_checkpoint(str(directory), 11, tree)
+    finally:
+        ck.MAX_CHUNK_SIZE = chunk
+    if b"__msgpack_chunked_array__" not in Path(path).read_bytes():
+        raise AssertionError("no chunked array in the checkpoint")
+    back = ck.restore_checkpoint(str(directory))
+    want, got = leaves(tree), leaves(back)
+    if sorted(want) != sorted(got):
+        raise AssertionError(f"checkpoint paths differ: {sorted(want)[:4]} vs "
+                             f"{sorted(got)[:4]}")
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, torch.Tensor):
+            same = isinstance(g, torch.Tensor) and g.dtype == w.dtype \
+                and torch.equal(g, w)
+        elif isinstance(w, np.ndarray):
+            same = (isinstance(g, np.ndarray) and g.dtype == w.dtype
+                    and g.shape == w.shape and g.tobytes() == w.tobytes())
+        else:
+            same = g == w and type(g) is type(w)
+        if not same:
+            raise AssertionError(f"checkpoint leaf {key} changed")
+    return back
+
+
+def live_global(torch, np, cfg, seed: int):
+    """A full-width global model with seeded weights and random frozen-BN
+    statistics; a CluUnet's map head as ``seeded_clu``'s (an MLP head is
+    made live on a batch by ``calibrate_mlp``)."""
+    from srsem_torch.models.global_models import make_global_model
+
+    model = make_global_model(cfg, torch.Generator().manual_seed(seed))
+    randomize_bn(torch, np, model, np.random.default_rng(seed))
+    with torch.no_grad():
+        if cfg.head == "unet_global":
+            model.decoder[0][3].weight.mul_(0.1)
+            model.decoder[0][3].bias.add_(0.5)
+    return model
+
+
+def calibrate_mlp(torch, model, scorer, a, b) -> None:
+    """An MLP head's last layer rescaled so its scores on the batch (a, b)
+    are 1 +- 0.1 (mean, deviation): the pairs' spread, not an offset of
+    hundreds, sets the scores, so the float32 check's 1e-3 is tight."""
+    last, seen = model.aggregator.fin_lin[-2], []
+    hook = last.register_forward_hook(lambda m, inp, out: seen.append(inp[0]))
+    try:
+        scorer.score_arrays(a, b)
+    finally:
+        hook.remove()
+    with torch.no_grad():
+        z = seen[0].float() @ last.weight[0].float()
+        scale = 0.1 / float(z.std())
+        last.weight.mul_(scale)
+        last.bias.fill_(1.0 - float(z.mean()) * scale)
+
+
+def calibrate_wperlay(torch, model, scorer, a, b) -> None:
+    """Nonnegative conv-head weights scaled so each tap's weighted squared
+    diff is about 1 on the batch (a, b), biases +1: the pairs, not the
+    biases, carry the scores."""
+    with torch.inference_mode():
+        _, ta = scorer.tower(scorer.normalize(a))
+        _, tb = scorer.tower(scorer.normalize(b))
+    with torch.no_grad():
+        for name, layer in zip(model.tap_names, model.aggregator.w_layers):
+            d = ((ta[name].float() - tb[name].float()) ** 2).mean(dim=(0, 1, 2))
+            w = layer.weight.abs_().reshape(-1)
+            layer.weight.div_(float(d.cpu() @ w.cpu()))
+            layer.bias.fill_(1.0)
+
+
+def wperlay_model(torch, np, cfg, ckpt: Path):
+    """The wperlay_cnn model the heads phase scores with: a seeded
+    full-width CLIP tower with random frozen BN and the trained head from
+    ``ckpt``, merged over a fresh head as ``--checkpoint`` does."""
+    from srsem_torch.models.global_models import make_global_model
+    from srsem_torch.train.checkpoint import restore_checkpoint
+    from srsem_torch.utils.convert import load_jax_global_params
+
+    model = make_global_model(cfg, torch.Generator().manual_seed(6))
+    randomize_bn(torch, np, model.backbone, np.random.default_rng(6))
+    restored = restore_checkpoint(str(ckpt))
+    return load_jax_global_params(model, {"params": restored["trainable"]},
+                                  partial=True)
+
+
+def run_heads(torch, np, card: str):
+    """Phase 6 (heads): trained checkpoints through the port's writer and
+    reader; wperlay_cnn at depth 11 on the CLIP tower with a trained head
+    (the wperlay path: score_paths with the launch counts reset just before
+    and read just after, pairs/s and head launches a batch for PairScorer
+    at batch 64, with a profile, and GroupedPairScorer at G = 16, K = 4,
+    float32 grouped against pairwise and kernel path against plain
+    module); the other heads against their plain modules; ``score
+    --checkpoint --set head=wperlay_cnn`` as a subprocess.  Returns
+    {kernel: launches in the wperlay run}."""
+    import dataclasses
+
+    from srsem_torch.config import BackboneConfig, GlobalModelConfig
+    from srsem_torch.eval.grouped import GroupedPairScorer
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.models.global_models import make_global_model
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.ops import fused_head as fh
+    from srsem_torch.train.checkpoint import restore_checkpoint
+    from srsem_torch.utils.convert import (
+        jax_trainable_params,
+        load_jax_global_params,
+        load_jax_local_params,
+    )
+
+    def f32(c):
+        return dataclasses.replace(c, backbone=dataclasses.replace(
+            c.backbone, compute_dtype="float32"))
+
+    clip = BackboneConfig(kind="resnet50_clip", image_size=224,
+                          compute_dtype="bfloat16")
+    cfg = GlobalModelConfig(backbone=clip, head="wperlay_cnn", depth=11)
+    rng = np.random.default_rng(5)
+    # Blocky images under noise: noise alone gives nearly equal CLIP
+    # embeddings, and then the MLP heads' scores barely differ.
+    blocks = rng.integers(0, 256, (BATCH, 4, 4, 3))
+    a64 = np.clip(np.kron(blocks, np.ones((1, 56, 56, 1))) + rng.integers(
+        -30, 31, (BATCH, 224, 224, 3)), 0, 255).astype(np.uint8)
+    b64 = np.clip(a64.astype(int) + rng.integers(-20, 21, a64.shape), 0,
+                  255).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # The trained head: calibrated on the scoring tower, written with
+        # the port's writer, read back bit-equal, and merged over a fresh
+        # head as --checkpoint does.
+        model = make_global_model(cfg, torch.Generator().manual_seed(6))
+        randomize_bn(torch, np, model.backbone, np.random.default_rng(6))
+        calibrate_wperlay(torch, model, PairScorer(cfg, model, batch_size=8),
+                          a64[:8], b64[:8])
+        params, stats = jax_trainable_params(model.cpu())
+        round_trip(torch, np, tmp / "wperlay", params, stats)
+        model.aggregator.reset_parameters(torch.Generator().manual_seed(9))
+        load_jax_global_params(model, {"params": restore_checkpoint(
+            str(tmp / "wperlay"))["trainable"]}, partial=True)
+        for j, layer in enumerate(model.aggregator.w_layers):
+            want = params["aggregator"][f"w_layers.{j}"]["kernel"][:, 0]
+            if not np.array_equal(layer.weight.reshape(-1).cpu().numpy(), want):
+                raise AssertionError(f"merged head w_layers.{j} differs")
+        emit("heads", step="checkpoint_round_trip", model="wperlay_cnn",
+             leaves=len(leaves(params)), bit_equal=True)
+
+        scorer = PairScorer(cfg, model, batch_size=BATCH)
+        wrappers = {"fused_stage_score": fh.fused_global_score,
+                    "fused_bottleneck": fb.fused_bottleneck,
+                    "fused_bottleneck_tiled": fb.fused_bottleneck_tiled}
+        pairs = write_pairs(np, tmp, 8)
+        for fn in wrappers.values():
+            fn.launches = 0
+        scores = scorer.score_paths(pairs)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        nan = np.isnan(scores)
+        if not (nan[-1] and not nan[:-1].any() and (scores[:-1] > 0).all()):
+            raise AssertionError(f"wperlay score_paths: want NaN on exactly "
+                                 f"the corrupt last row, got {scores.tolist()}")
+        emit("heads", step="wperlay_score_paths", depth=11, taps=12,
+             pairs=len(pairs), scores=[float(x) for x in scores],
+             launches=launches)
+
+        def throughput(call, n_pairs, wrapper):
+            wrapper.launches = 0
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+            reps = 5
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = call()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / reps
+            if not torch.isfinite(out).all():
+                raise AssertionError("wperlay scores not finite")
+            per_batch = wrapper.launches / (2 + reps)
+            if per_batch != 1:
+                raise AssertionError(f"{per_batch} head launches a batch")
+            return dict(ms_per_batch=dt * 1e3, pairs_per_s=n_pairs / dt,
+                        head_launches_per_batch=per_batch)
+
+        emit("heads", step="wperlay_throughput", depth=11, batch=BATCH,
+             dtype="bfloat16", image=224, card=card,
+             **throughput(lambda: scorer.score_arrays(a64, b64), BATCH,
+                          fh.fused_global_score))
+        emit("heads", step="wperlay_profile", card=card,
+             **profile_scoring(torch, scorer, a64, b64))
+        gt = a64[:GROUP_G]
+        sr = np.clip(gt[:, None].astype(int) + rng.integers(
+            -20, 21, (GROUP_G, GROUP_K, 224, 224, 3)), 0, 255).astype(np.uint8)
+        grouped = GroupedPairScorer(cfg, model, k=GROUP_K, batch_size=GROUP_G)
+        emit("heads", step="wperlay_grouped_throughput", depth=11, g=GROUP_G,
+             k=GROUP_K, dtype="bfloat16", image=224, card=card,
+             **throughput(lambda: grouped.score_arrays(gt, sr),
+                          GROUP_G * GROUP_K, fh.fused_grouped_score))
+        del scorer, grouped, model
+
+        # The CLI entry point, as a user runs it, beside the untimed float32
+        # checks below (the subprocess would disturb the timed steps).
+        csv_path = tmp / "pairs.csv"
+        csv_path.write_text("img_a_pth,img_b_pth\n"
+                            + "".join(f"{x},{y}\n" for x, y in pairs))
+        out_csv = tmp / "scores.csv"
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "srsem_torch", "score", str(csv_path),
+             "--backbone", "resnet50_clip", "--checkpoint",
+             str(tmp / "wperlay"), "--set", "head=wperlay_cnn", "--set",
+             "depth=11", "--batch-size", "16", "--out", str(out_csv)],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            # float32 (TF32 off): grouped vs pairwise on the repeated pairs,
+            # and the kernel path vs the plain module.
+            cfg32 = f32(cfg)
+            model32 = wperlay_model(torch, np, cfg32, tmp / "wperlay")
+            got = GroupedPairScorer(cfg32, model32, k=GROUP_K,
+                                    batch_size=GROUP_G).score_arrays(gt, sr)
+            pair32 = PairScorer(cfg32, model32, batch_size=GROUP_G * GROUP_K)
+            want = pair32.score_arrays(np.repeat(gt, GROUP_K, axis=0),
+                                       sr.reshape(-1, 224, 224, 3))
+            err = float((got.reshape(-1) - want).abs().max())
+            if not torch.allclose(got.reshape(-1), want, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"wperlay f32 grouped vs pairwise: max |err| "
+                                     f"{err} beyond rtol=atol=1e-4")
+            emit("heads", step="wperlay_f32_grouped_vs_pairwise", max_abs_err=err,
+                 tolerance="rtol=atol=1e-4", score_range=[float(want.min()),
+                                                          float(want.max())])
+            checks = [("wperlay_cnn", cfg32, model32, pair32, BATCH)]
+
+            # The other heads on the CLIP tower, float32 kernel path against
+            # the plain module, and bf16 finite.
+            for head, n in (("stages_cnn_pooling", BATCH), ("emb_lin", BATCH),
+                            ("unet_global", CLU_BATCH)):
+                c = dataclasses.replace(cfg, head=head, depth=3)
+                m32 = live_global(torch, np, f32(c), seed=7)
+                sc = PairScorer(f32(c), m32, batch_size=n)
+                if head != "unet_global":
+                    calibrate_mlp(torch, m32, sc, a64[:n], b64[:n])
+                checks.append((head, f32(c), m32, sc, n))
+            for head, c32, m32, sc, n in checks:
+                a, b = a64[:n], b64[:n]
+                got = sc.score_arrays(a, b)
+                pre = sc.preprocess
+                with torch.inference_mode():
+                    want = m32(pre.device_normalize(torch.tensor(a).cuda()),
+                               pre.device_normalize(torch.tensor(b).cuda()))
+                tol = 2e-3 if head == "unet_global" else 1e-3
+                err = float((got - want).abs().max())
+                if not (torch.allclose(got, want, rtol=tol, atol=tol)
+                        and bool((want > 0).any())):
+                    raise AssertionError(f"{head} f32 kernel path vs plain module:"
+                                         f" max |err| {err} beyond {tol}")
+                # bf16: the wperlay scores' finiteness is the throughput step's.
+                finite = head == "wperlay_cnn" or bool(torch.isfinite(PairScorer(
+                    dataclasses.replace(c32, backbone=clip),
+                    live_global(torch, np, dataclasses.replace(c32, backbone=clip),
+                                7), batch_size=n).score_arrays(a, b)).all())
+                if not finite:
+                    raise AssertionError(f"{head} bf16 results not finite")
+                emit("heads", step="f32_kernel_path_vs_plain_module", head=head,
+                     batch=n, shape=list(got.shape), max_abs_err=err,
+                     tolerance=f"rtol=atol={tol}", bf16_finite=finite,
+                     value_range=[float(want.min()), float(want.max())])
+                if head == "unet_global":
+                    # A CluUnet's trained decoder and batch_stats round trip.
+                    params, stats = jax_trainable_params(m32.cpu())
+                    back = round_trip(torch, np, tmp / "unet", params, stats)
+                    fresh = make_global_model(c32, torch.Generator().manual_seed(8))
+                    load_jax_local_params(fresh, {
+                        "params": back["trainable"],
+                        "batch_stats": back["batch_stats"]}, partial=True)
+                    for key, v in m32.decoder.state_dict().items():
+                        if not torch.equal(fresh.decoder.state_dict()[key].cpu(),
+                                           v.cpu()):
+                            raise AssertionError(f"unet_global decoder {key} "
+                                                 "changed")
+                    emit("heads", step="checkpoint_round_trip",
+                         model="unet_global", leaves=len(leaves(params)),
+                         bit_equal=True)
+                del sc, m32
+            del checks
+            stdout, stderr = cli.communicate(timeout=300)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+        if cli.returncode != 0:
+            raise AssertionError(f"score --checkpoint exit {cli.returncode}: "
+                                 f"{stderr[-2000:]}")
+        result = json.loads(stdout.strip().splitlines()[-1])
+        rows = out_csv.read_text().splitlines()
+        if result["nan"] != 1 or len(rows) != len(pairs) + 1:
+            raise AssertionError(f"score --checkpoint result {result}, "
+                                 f"{len(rows)} rows")
+        emit("heads", step="cli_score_checkpoint_wperlay", result=result)
+    return launches
+
+
+# Stack frame bytes of each head-kernel instance (dtype 0 f32, 1 bf16,
+# 2 f16; KT SR images an item) at four stages (ptxas -v, H100 build of
+# csrc/fused_head.cu before the limit went to 12).  Twelve stage
+# descriptors in the __grid_constant__ parameters must not add to them.
+HEAD_STACK_FRAMES = {(0, 1): 8, (0, 2): 0, (0, 4): 16, (0, 8): 8,
+                     (1, 1): 0, (1, 2): 0, (1, 4): 16, (1, 8): 8,
+                     (2, 1): 0, (2, 2): 0, (2, 4): 16, (2, 8): 8}
+
+
+def check_head_build(log: str) -> list:
+    """Each fused_head_kernel instance's registers, stack frame and spills
+    from nvcc's ``-Xptxas -v`` log; fails if a stack frame grew, or if the
+    pairwise bf16 instance (1, 1) spills."""
+    import re
+
+    out, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"fused_head_kernelILi(\d)ELi(\d)E", line)
+        if m and "entry function" in line:
+            current = {"dtype": int(m.group(1)), "kt": int(m.group(2))}
+            out.append(current)
+        elif current is not None and "bytes stack frame" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            current.update(stack=nums[0], spill_stores=nums[1],
+                           spill_loads=nums[2])
+        elif current is not None and "Used" in line and "registers" in line:
+            current["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+    if len(out) != len(HEAD_STACK_FRAMES):
+        raise AssertionError(f"head kernel instances in the ptxas log: {out}")
+    for inst in out:
+        key = (inst["dtype"], inst["kt"])
+        if inst.get("stack", 1 << 30) > HEAD_STACK_FRAMES[key]:
+            raise AssertionError(f"head instance {key} stack frame grew: "
+                                 f"{inst}")
+        if key == (1, 1) and (inst["spill_stores"] or inst["spill_loads"]):
+            raise AssertionError(f"pairwise bf16 head instance spills: {inst}")
+    return out
+
 
 def main() -> int:
     if not (REPO / "srsem_torch" / "csrc").is_dir():
@@ -931,12 +1386,27 @@ def main() -> int:
                       "ptxas": [ln.strip() for ln in b.log.splitlines()
                                 if any(k in ln for k in (
                                     "entry function", "registers", "spill"))]}
-                  for n, b in built.items()})
+                  for n, b in built.items()},
+         head_instances=(check_head_build(built["fused_head"].log)
+                         if built["fused_head"].log else
+                         "built before this run: no ptxas log"))
 
+    seconds = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     summary = check_kernels(torch)
+    seconds["kernels"] = time.perf_counter() - t0
     # Each path's launch counts, each from its own reset-then-run.
-    runs = {"global": run_slice(torch, np, card),
-            "clu": run_clu_slice(torch, np, card)}
+    runs = {}
+    for path, fn in (("global", run_slice), ("clu", run_clu_slice),
+                     ("wperlay", run_heads)):
+        t0 = time.perf_counter()
+        runs[path] = fn(torch, np, card)
+        seconds[path] = time.perf_counter() - t0
+    emit("timing", seconds=seconds)
+    # The wperlay path's towers run the global path's bottleneck shapes
+    # (the CLIP tower's stride-1 blocks are the ImageNet ones, batch 64).
+    for name in ("fused_bottleneck", "fused_bottleneck_tiled"):
+        summary[(name, "wperlay")] = summary[(name, "global")]
     for path, launches in runs.items():
         missing = [k for k, v in launches.items() if v <= 0]
         if missing:

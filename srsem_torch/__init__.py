@@ -12,11 +12,13 @@ mirrors the JAX package's module paths so each counterpart is easy to find:
 * ``ops.fused_bottleneck``   — srsem/ops/fused_bottleneck.py (CUDA kernel)
 * ``ops.fused_decoder``      — srsem/ops/fused_decoder.py (CUDA kernel)
 * ``ops.fused_head``         — srsem/ops/fused_head.py (CUDA kernel)
-* ``models.global_models``   — srsem/models/global_models.py (stages_cnn)
+* ``models.global_models``   — srsem/models/global_models.py (CNN heads)
 * ``models.local_models``    — srsem/models/local_models.py (CluUnet)
 * ``eval.scorer``            — srsem/eval/scorer.py (PairScorer)
 * ``eval.grouped``           — srsem/eval/grouped.py (GroupedPairScorer,
   GroupedMapScorer)
+* ``train.checkpoint``       — srsem/train/checkpoint.py (flax msgpack)
+* ``train.partition``        — srsem/train/partition.py
 * ``utils.convert``          — weights from JAX params / torchvision / CLIP
 
 Public functions keep the JAX layout (NHWC).  Entry points run on

@@ -3,16 +3,22 @@
 so far).
 
     python -m srsem_torch score pairs.csv --backbone resnet50 [--device cpu]
+    python -m srsem_torch score pairs.csv --backbone resnet50_clip \
+        --set head=wperlay_cnn --set depth=11 --checkpoint CKPT_DIR
     python -m srsem_torch score-groups GT_DIR SR_DIR... [--device cpu]
     python -m srsem_torch score-maps-groups GT_DIR SR_DIR... [--device cpu]
 
 Flags follow srsem/cli/main.py (:957-979, :1119-1150 and :1206-1246), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path) and
 ``--no-fused-tower`` / ``--no-fused-decoder`` (the port runs its Hopper
-kernels by default).  ``--backbone-checkpoint`` takes a torchvision
-``resnet50`` or an OpenAI-CLIP state dict (``.pt``): the JAX package's
-msgpack trees need flax.  ``--checkpoint`` (trained heads or decoders)
-waits for the checkpoint port (ROADMAP A6).
+kernels by default).  ``--checkpoint DIR`` reads the JAX package's
+checkpoint directories (``latest.json`` + ``step_N.msgpack``, through
+srsem_torch/train/checkpoint.py) and loads their ``trainable`` subset, and
+for CLU maps their ``batch_stats``, over the model, as the JAX CLI's
+``merge_params`` does.  ``--backbone-checkpoint`` takes a converted tower
+param tree (``.msgpack``, the JAX CLI's ``srsem convert`` output) or a
+torchvision ``resnet50`` / OpenAI-CLIP state dict (``.pt``).  Without
+either, the weights are seeded random ones.
 """
 
 from __future__ import annotations
@@ -36,27 +42,54 @@ def _parse_sets(pairs: List[str]) -> Dict[str, Any]:
     return out
 
 
-def _no_checkpoint(args) -> None:
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint (trained heads and decoders) is not ported yet: it "
-            "needs srsem/train/checkpoint.py (ROADMAP A6)")
-
-
 def _load_backbone(backbone, kind: str, path) -> None:
-    """A torchvision ``resnet50`` or OpenAI-CLIP state dict into the tower."""
+    """A converted JAX tower param tree (``.msgpack``), or a torchvision
+    ``resnet50`` / OpenAI-CLIP state dict, into the tower."""
     if not path:
         return
     import torch
 
-    from srsem_torch.utils.convert import load_clip_resnet50, load_torch_resnet50
+    from srsem_torch.utils.convert import (
+        jax_backbone_state_dict,
+        load_clip_resnet50,
+        load_torch_resnet50,
+    )
 
+    if str(path).endswith(".msgpack"):
+        from srsem_torch.train.checkpoint import msgpack_restore
+
+        with open(path, "rb") as f:
+            tree = msgpack_restore(f.read())
+        backbone.load_state_dict(jax_backbone_state_dict(tree), strict=True)
+        return
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = sd.get("state_dict", sd)
     if kind == "resnet50_clip":
         load_clip_resnet50(backbone, sd)
     else:
         load_torch_resnet50(backbone, sd)
+
+
+def _load_checkpoint(model, directory) -> None:
+    """The latest checkpoint under ``directory``: its ``trainable`` tree
+    (and a CluUnet's ``batch_stats``) over the model's weights."""
+    if not directory:
+        return
+    from srsem_torch.models.local_models import CluUnet
+    from srsem_torch.train.checkpoint import restore_checkpoint
+    from srsem_torch.utils.convert import (
+        load_jax_global_params,
+        load_jax_local_params,
+    )
+
+    restored = restore_checkpoint(directory)
+    if isinstance(model, CluUnet):
+        load_jax_local_params(model, {
+            "params": restored["trainable"],
+            "batch_stats": restored.get("batch_stats") or {}}, partial=True)
+    else:
+        load_jax_global_params(model, {"params": restored["trainable"]},
+                               partial=True)
 
 
 def cmd_score(args) -> int:
@@ -67,12 +100,12 @@ def cmd_score(args) -> int:
     from srsem_torch.eval.scorer import PairScorer
     from srsem_torch.models.global_models import make_global_model
 
-    _no_checkpoint(args)
     cfg = override(
         GlobalModelConfig(backbone=BackboneConfig(kind=args.backbone)),
         _parse_sets(args.set))
     model = make_global_model(cfg, torch.Generator().manual_seed(0))
     _load_backbone(model.backbone, cfg.backbone.kind, args.backbone_checkpoint)
+    _load_checkpoint(model, args.checkpoint)
 
     with open(args.pairs_csv, newline="") as f:
         rows = list(csv.DictReader(f))
@@ -119,13 +152,13 @@ def cmd_score_groups(args) -> int:
     from srsem_torch.eval.grouped import GroupedPairScorer
     from srsem_torch.models.global_models import make_global_model
 
-    _no_checkpoint(args)
     cfg = GlobalModelConfig(
         backbone=BackboneConfig(kind=args.backbone, image_size=args.image_size,
                                 compute_dtype=args.dtype),
         head="stages_cnn", depth=args.depth)
     model = make_global_model(cfg, torch.Generator().manual_seed(0))
     _load_backbone(model.backbone, cfg.backbone.kind, args.backbone_checkpoint)
+    _load_checkpoint(model, args.checkpoint)
     scorer = GroupedPairScorer(cfg, model, k=len(args.sr_folders),
                                batch_size=args.batch_size,
                                fused_tower=args.fused_tower,
@@ -147,13 +180,13 @@ def cmd_score_maps_groups(args) -> int:
     from srsem_torch.eval.grouped import GroupedMapScorer
     from srsem_torch.models.local_models import make_local_model
 
-    _no_checkpoint(args)
     cfg = override(LocalModelConfig(
         backbone=BackboneConfig(kind=args.backbone, image_size=args.image_size,
                                 compute_dtype=args.dtype),
         v2=args.v2), _parse_sets(args.set))
     model = make_local_model(cfg, generator=torch.Generator().manual_seed(0))
     _load_backbone(model.backbone, cfg.backbone.kind, args.backbone_checkpoint)
+    _load_checkpoint(model, args.checkpoint)
     scorer = GroupedMapScorer(cfg, model, k=len(args.sr_folders),
                               batch_size=args.batch_size,
                               fused_tower=args.fused_tower,
@@ -174,14 +207,16 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("score", help="batch-score GT/SR pairs from a CSV")
     p.add_argument("--backbone-checkpoint", default=None,
-                   help="torchvision resnet50 (or OpenAI-CLIP) state dict "
-                        "(.pt) to load into the tower")
+                   help="converted tower param tree (.msgpack, srsem "
+                        "convert) or torchvision resnet50 / OpenAI-CLIP "
+                        "state dict (.pt) to load into the tower")
     p.add_argument("pairs_csv")
     p.add_argument("--col-a", default="img_a_pth")
     p.add_argument("--col-b", default="img_b_pth")
     p.add_argument("--backbone", default="resnet50")
     p.add_argument("--checkpoint",
-                   help="trained-head checkpoint (not ported yet: ROADMAP A6)")
+                   help="checkpoint directory (latest.json + step_N.msgpack) "
+                        "whose trained head is loaded over the model")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
                    default=True,
@@ -204,7 +239,8 @@ def main(argv=None) -> int:
     p.add_argument("--backbone", default="resnet50")
     p.add_argument("--depth", type=int, default=3)
     p.add_argument("--checkpoint",
-                   help="trained-head checkpoint (not ported yet: ROADMAP A6)")
+                   help="checkpoint directory (latest.json + step_N.msgpack) "
+                        "whose trained head is loaded over the model")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--dtype", default="bfloat16",
@@ -218,8 +254,9 @@ def main(argv=None) -> int:
                         "kernel (default); --no-fused-tower runs the plain "
                         "F.conv2d chain")
     p.add_argument("--backbone-checkpoint", default=None,
-                   help="torchvision resnet50 (or OpenAI-CLIP) state dict "
-                        "(.pt) to load into the tower")
+                   help="converted tower param tree (.msgpack, srsem "
+                        "convert) or torchvision resnet50 / OpenAI-CLIP "
+                        "state dict (.pt) to load into the tower")
     p.add_argument("--fast-jpeg", action="store_true",
                    help="DCT-scaled JPEG decode (PIL draft semantics): "
                         "~LSB-scale pixel differences vs the full decode")
@@ -238,7 +275,9 @@ def main(argv=None) -> int:
     p.add_argument("--v2", action="store_true",
                    help="pixel-diff channel variant")
     p.add_argument("--checkpoint",
-                   help="trained CLU decoder (not ported yet: ROADMAP A6)")
+                   help="checkpoint directory (latest.json + step_N.msgpack) "
+                        "whose trained decoder and batch_stats are loaded "
+                        "over the model")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--maps-dir", default=None,
@@ -256,8 +295,9 @@ def main(argv=None) -> int:
                         "kernel, serving BN folded (default); "
                         "--no-fused-decoder runs the module's decoder")
     p.add_argument("--backbone-checkpoint", default=None,
-                   help="OpenAI-CLIP (or torchvision resnet50) state dict "
-                        "(.pt) to load into the tower")
+                   help="converted tower param tree (.msgpack, srsem "
+                        "convert) or OpenAI-CLIP / torchvision resnet50 "
+                        "state dict (.pt) to load into the tower")
     p.add_argument("--fast-jpeg", action="store_true",
                    help="DCT-scaled JPEG decode (PIL draft semantics)")
     p.add_argument("--device", default="cuda",

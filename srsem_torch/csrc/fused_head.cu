@@ -5,7 +5,7 @@
 // (_make_kernel), with the composition fused_global_score puts around it
 // (bias, mean over stages, ReLU), and covers the grouped (G, K) head
 // srsem/models/global_models.py::fused_grouped_head, which the JAX package
-// leaves to XLA.  For S <= 4 tapped stages and P = G*K pairs:
+// leaves to XLA.  For S <= 12 tapped stages and P = G*K pairs:
 //     score[p] = relu(mean_s(sum_hwc((gt_s[p/K] - sr_s[p])^2 * w_s[c])
 //                           / (H_s*W_s) + b_s))
 // K = 1 is the pairwise head (GT = taps_a, SR = taps_b).  In the per-stage
@@ -35,7 +35,12 @@
 //     most 8) against it, the GT vector held in registers across them, with
 //     one partial sum an SR image: (1+K)/(2K) of the pairwise bytes.
 //   * One launch: every stage's descriptor goes to the kernel by value in
-//     its parameters (no descriptor table copied to the card).  The grid is
+//     its parameters (no descriptor table copied to the card): up to 12, so
+//     wperlay_cnn's 12 per-block taps are one launch too.  Twelve are under
+//     1 KB of the 4 KB of kernel parameters, and as the parameters are
+//     __grid_constant__ the walk's and the finish's reads of st[s] with a
+//     computed s read parameter space, with no copy to a stack frame (the
+//     ptxas -v lines say "0 bytes stack frame").  The grid is
 //     persistent: at most 4 blocks an SM, each walking the items by a fixed
 //     stride, largest stage first.  The plan (chunk size, items, grid) is
 //     made in one place, the Python wrapper
@@ -70,7 +75,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 8;                  // elements a thread a step
 constexpr int kStep = kThreads * kVec;   // 2048 elements a block a step
 constexpr int kMinBlocks = 4;            // blocks an SM the grid counts on
-constexpr int kMaxStages = 4;
+constexpr int kMaxStages = 12;
 constexpr int kMaxKt = 8;                // SR images an item streams
 constexpr int kHeadFields = 10;          // srsem_fused_head's plan layout
 constexpr int kStageFields = 10;
@@ -103,6 +108,8 @@ struct Params {
   unsigned* ticket;
   float* out;
 };
+
+static_assert(sizeof(Params) <= 4096, "kernel parameters are 4 KB at most");
 
 template <int D>
 using Elem = std::conditional_t<D == kF32, float, uint16_t>;

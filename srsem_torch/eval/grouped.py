@@ -7,8 +7,9 @@ pass: 1 + K passes instead of 2K.
 
 * ``GroupedPairScorer`` scores the (G, K) pairs with one launch of the head
   kernel (``fused_grouped_score``), which reads each GT tap once against
-  its K SR taps.  stages_cnn on the ResNet towers; the other conv and ViT
-  heads wait for ROADMAP A4/A10.
+  its K SR taps: the conv heads, stages_cnn on the ResNet towers and
+  wperlay_cnn (up to 12 taps) on the CLIP tower.  The ViT heads wait for
+  ROADMAP A10.
 * ``GroupedMapScorer``'s decoder still runs once per pair on its own diff
   pyramid, built by broadcasting the shared GT taps against the K SR taps
   (``grouped_diff_pyramid``), so the maps equal the pairwise scorer's.
@@ -30,7 +31,7 @@ import torch
 from srsem_torch.data.preprocess import IMG_EXTENSIONS
 from srsem_torch.device import DeviceLike
 from srsem_torch.eval.scorer import PairScorer
-from srsem_torch.models.global_models import grouped_diff_pyramid
+from srsem_torch.models.global_models import CONV_HEADS, grouped_diff_pyramid
 from srsem_torch.ops.fused_head import fused_grouped_score
 
 # The heads srsem/eval/grouped.py scores in grouped form (its GROUPED_HEADS).
@@ -127,10 +128,10 @@ class GroupedPairScorer:
             raise ValueError(
                 f"grouped scoring supports the linear-to-scalar heads "
                 f"{GROUPED_HEADS}, got {cfg.head!r} — use PairScorer")
-        if cfg.head != "stages_cnn":
+        if cfg.head not in CONV_HEADS:
             raise NotImplementedError(
-                f"grouped head {cfg.head!r} is not ported yet (ROADMAP "
-                "A4/A10); the port scores stages_cnn")
+                f"grouped head {cfg.head!r} needs the ViT tower, which is not "
+                "ported yet (ROADMAP A10)")
         self.k = k
         self.batch_size = batch_size
         self.num_workers = num_workers

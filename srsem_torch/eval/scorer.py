@@ -13,19 +13,27 @@ fidelity map.
 ``fused_tower=True`` (the default) runs the tower's interior blocks through
 the Hopper bottleneck kernel (srsem_torch/backbones/fused_resnet.py);
 ``False`` runs the module's plain ``F.conv2d`` chain, the counterpart of
-the JAX package's dense XLA tower.  The global head always goes through
-``fused_global_score``: one launch of the CUDA head kernel a scored batch
-on the card, with the head packed once (``pack_head``).  The CLU map model
-decodes through ``fused_serving_decode`` (the decoder kernel on the card)
-when ``fused_decoder=True`` (the default), else through the module's
-``decode_from_taps``.  Both towers run as two passes (a, then b).  One
-card, no mesh: multi-GPU waits for ROADMAP A9.
+the JAX package's dense XLA tower.  Both towers run as two passes (a, then
+b).  After the tower, by model:
+
+* the conv heads (stages_cnn, wperlay_cnn) go through
+  ``fused_global_score``: one launch of the CUDA head kernel a scored
+  batch on the card, with the head packed once (``pack_head``);
+* the MLP heads (stages_cnn_pooling, emb_lin) run the module's
+  ``score_from_taps``, whose small matrix products stay ``torch.matmul``
+  (the JAX package leaves them to XLA too);
+* a CluUnet (the CLU map model, or head="unet_global") decodes through
+  ``fused_serving_decode`` (the decoder kernel on the card) when
+  ``fused_decoder`` is on (the default, None, turns it on for a CluUnet),
+  else through the module's ``decode_from_diffs``.
+
+One card, no mesh: multi-GPU waits for ROADMAP A9.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +41,9 @@ import torch
 from srsem_torch.backbones.fused_resnet import fold_tower, fused_apply
 from srsem_torch.data.preprocess import Preprocess
 from srsem_torch.device import DeviceLike, resolve_device
+from srsem_torch.models.global_models import CONV_HEADS
 from srsem_torch.models.local_models import (
+    CluUnet,
     fold_decoder,
     fused_serving_decode,
     pixel_sq_error,
@@ -45,11 +55,11 @@ from srsem_torch.ops.fused_head import fused_global_score, pack_head
 class PairScorer:
     """Batched scorer for (GT, SR) image pairs: one scalar per pair
     (``model_kind="global"``, a GlobalPairScorer) or one (H, W) map
-    (``"local"``, a CluUnet).
+    (``"local"``, a CluUnet; or ``"global"`` with head="unet_global").
 
-    The BN-folded weights of the fused tower and decoder, and the global
-    model's packed head, are computed once, here, from the model's weights
-    at construction: load weights before building it."""
+    The BN-folded weights of the fused tower and decoder, and a conv head's
+    packed weights, are computed once, here, from the model's weights at
+    construction: load weights before building it."""
 
     def __init__(
         self,
@@ -60,7 +70,7 @@ class PairScorer:
         num_workers: int = 16,
         decode_backend: str = "pil",
         fused_tower: bool = True,
-        fused_decoder: bool = True,
+        fused_decoder: Optional[bool] = None,
         fast_jpeg: bool = False,
         device: DeviceLike = None,
     ):
@@ -82,7 +92,15 @@ class PairScorer:
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.fused_tower = fused_tower
-        self.fused_decoder = fused_decoder and model_kind == "local"
+        self.is_clu = isinstance(model, CluUnet)
+        if model_kind == "local" and not self.is_clu:
+            raise ValueError(f"model_kind='local' scores a CluUnet, got "
+                             f"{type(model).__name__}")
+        if fused_decoder and not self.is_clu:
+            raise ValueError(
+                "fused_decoder applies to the CLU UNet decoder — use "
+                "model_kind='local' (or the head='unet_global' copy)")
+        self.fused_decoder = self.is_clu and fused_decoder is not False
         self.dtype = getattr(torch, cfg.backbone.compute_dtype)
         self.preprocess = Preprocess.for_backbone(
             cfg.backbone.kind, cfg.backbone.image_size, fast_jpeg=fast_jpeg)
@@ -93,7 +111,8 @@ class PairScorer:
             self._decoder_folded = (fold_decoder(self.model)
                                     if self.fused_decoder else None)
             self.head = (pack_head(self.model.aggregator)
-                         if model_kind == "global" else None)
+                         if not self.is_clu and cfg.head in CONV_HEADS
+                         else None)
 
     # ---- device path ----------------------------------------------------
 
@@ -122,12 +141,14 @@ class PairScorer:
         """Score a uint8 NHWC batch pair; returns (N,) float32 scores or
         (N, H, W) maps on the scorer's device."""
         a, b = self.normalize(a_u8), self.normalize(b_u8)
-        _, taps_a = self.tower(a)
-        _, taps_b = self.tower(b)
+        emb_a, taps_a = self.tower(a)
+        emb_b, taps_b = self.tower(b)
         model = self.model
-        if self.model_kind == "global":
+        if self.head is not None:
             return fused_global_score(taps_a, taps_b, self.head,
                                       model.tap_names)
+        if not self.is_clu:
+            return model.score_from_taps(emb_a, emb_b, taps_a, taps_b)
         diffs = squared_diff_pyramid(taps_a, taps_b, model.tap_names,
                                      model.decoder_dtype)
         return self.decode(diffs, pixel_sq_error(a, b) if model.v2 else None)

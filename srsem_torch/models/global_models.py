@@ -1,19 +1,32 @@
-"""Global pair-scoring regressor ("CLIP-LPIPS") — the port of
-srsem/models/global_models.py for ``head="stages_cnn"``.
+"""Global pair-scoring regressors ("CLIP-LPIPS") — the port of
+srsem/models/global_models.py for the CNN heads.
 
 Shared numerics (reference: models/global_eval_models.py:341-397): run
-both images through the frozen backbone; per tapped stage the squared
-difference ``(f_a - f_b) ** 2``; a 1x1 conv to one channel, the spatial
-mean, the mean over stages, a final ReLU.  As in the JAX package the two
+both images through the frozen backbone; as in the JAX package the two
 backbone passes are one pass on a 2N batch, and the head runs in float32.
 
-The other heads (wperlay_cnn, stages_cnn_pooling, emb_lin, the ViT heads,
-unet_global) are not ported yet (ROADMAP A4, A5, A10).
+==================  ====================================================
+cfg.head            head
+==================  ====================================================
+stages_cnn          per tapped stage ``(f_a - f_b) ** 2``, a 1x1 conv to
+                    one channel, the spatial mean; the mean over stages,
+                    a final ReLU (``ConvHeadAggregator``)
+wperlay_cnn         the same head over the last ``depth + 1`` of the CLIP
+                    tower's 12 per-block taps (``wperlay_taps``)
+stages_cnn_pooling  the float32 spatial mean of each tapped stage of A
+                    and of B, concatenated, into ``MlpHead``
+emb_lin             the two embeddings concatenated, into ``MlpHead``
+unet_global         ``make_global_model`` returns the CLU ``CluUnet``
+                    with ``sigmoid=False`` (a raw map)
+==================  ====================================================
+
+The ViT heads wait for the ViT tower (ROADMAP A10).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -26,11 +39,17 @@ from srsem_torch.backbones.resnet import (
     reset_tower,
 )
 from srsem_torch.config import GlobalModelConfig
+from srsem_torch.models.local_models import CluUnet
 
 Tensor = torch.Tensor
 
 #: Output channels of the four stage taps (BackboneConfig.stage_channels).
 _STAGE_CHANNELS = (256, 512, 1024, 2048)
+#: Embedding width of each tower: CLIP's attention pool, ImageNet's GAP.
+_EMBED_WIDTH = {"resnet50_clip": 1024, "resnet50": 2048}
+#: The heads ``ConvHeadAggregator`` serves (the head kernel's heads).
+CONV_HEADS = ("stages_cnn", "wperlay_cnn")
+_VIT_HEADS = ("single_lin_vit", "stages_vit", "wperlay_vit")
 
 
 def head_bias_initializer(mode: str, fan_in: int
@@ -57,6 +76,13 @@ def stage_taps_for(kind: str, depth: int) -> Tuple[str, ...]:
     models/global_eval_models.py:327,701): depth∈{1,2,3} taps 2..4 stages."""
     names = CLIP_STAGE_TAPS if kind == "resnet50_clip" else IMAGENET_STAGE_TAPS
     return names[3 - depth:]
+
+
+def wperlay_taps(depth: int) -> Tuple[str, ...]:
+    """Last ``depth + 1`` of the CLIP tower's 12 per-block taps
+    (reference: models/global_eval_models.py:832-833)."""
+    names = [f"stages.{s}.{b}.act" for s in range(4) for b in range(3)]
+    return tuple(names[11 - depth:])
 
 
 def squared_diffs(taps_a: Dict[str, Tensor], taps_b: Dict[str, Tensor],
@@ -123,27 +149,96 @@ def conv_head_from_stats(head: ConvHeadAggregator,
     return F.relu(torch.stack(scores).mean(dim=0))
 
 
+def _truncated_normal_(t: Tensor, std: float,
+                       generator: Optional[torch.Generator]) -> Tensor:
+    """``std`` times a standard normal truncated to [-2, 2], by the
+    inverse CDF (as ``nn.init.trunc_normal_``)."""
+    lo, hi = (math.erf(x / math.sqrt(2.0)) for x in (-2.0, 2.0))
+    t.uniform_(lo, hi, generator=generator).erfinv_()
+    return t.mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
+
+
+class MlpHead(nn.Module):
+    """ReLU MLP ending in a scalar (reference fin_lin,
+    models/global_eval_models.py:460-469,594-601): ``fin_lin`` is the
+    reference's ``nn.Sequential``, Linear at the even indices and a ReLU
+    after every Linear, the last one included, so
+    srsem/utils/convert.py::convert_global_head reads its state dict.
+    Runs in float32; (N, in_features) → (N,)."""
+
+    def __init__(self, in_features: int, widths: Sequence[int]):
+        super().__init__()
+        layers: List[nn.Module] = []
+        for width in widths:
+            layers += [nn.Linear(in_features, width), nn.ReLU()]
+            in_features = width
+        self.fin_lin = nn.Sequential(*layers)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Kaiming-normal over fan_out, truncated at two deviations, and
+        zero biases: the JAX package's ``_mlp_init`` (variance scaling 2.0,
+        fan_out, truncated normal)."""
+        with torch.no_grad():
+            for m in self.fin_lin:
+                if isinstance(m, nn.Linear):
+                    std = math.sqrt(2.0 / m.out_features) / 0.87962566103423978
+                    _truncated_normal_(m.weight, std, generator)
+                    m.bias.zero_()
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.fin_lin(x.float())[..., 0]
+
+
 class GlobalPairScorer(nn.Module):
-    """score = model(a, b) for NHWC image batches a, b (stages_cnn)."""
+    """score = model(a, b) for NHWC image batches a, b (the CNN heads)."""
 
     def __init__(self, cfg: GlobalModelConfig):
         super().__init__()
+        head, depth, kind = cfg.head, cfg.depth, cfg.backbone.kind
         if cfg.head_bias_init not in ("live", "torch"):
             raise ValueError(f"unknown head_bias_init {cfg.head_bias_init!r}")
-        if cfg.head != "stages_cnn":
+        if head in _VIT_HEADS:
             raise NotImplementedError(
-                f"head {cfg.head!r} is not ported yet (ROADMAP A4/A10); the "
-                "port has stages_cnn")
+                f"head {head!r} needs the ViT tower, which is not ported yet "
+                "(ROADMAP A10)")
+        if head == "unet_global":
+            raise ValueError("head 'unet_global' is a CluUnet: build it with "
+                             "make_global_model")
         self.cfg = cfg
         self.backbone = make_backbone(cfg.backbone)
-        self.tap_names = stage_taps_for(cfg.backbone.kind, cfg.depth)
-        self.aggregator = ConvHeadAggregator(
-            _STAGE_CHANNELS[3 - cfg.depth:], bias_init=cfg.head_bias_init)
+        bias = cfg.head_bias_init
+        if head in ("stages_cnn", "stages_cnn_pooling"):
+            if not 0 <= depth <= 3:
+                raise ValueError(f"{head} taps depth + 1 of 4 stages, got "
+                                 f"depth {depth}")
+            self.tap_names = stage_taps_for(kind, depth)
+            channels = _STAGE_CHANNELS[3 - depth:]
+            self.aggregator = (
+                ConvHeadAggregator(channels, bias_init=bias)
+                if head == "stages_cnn" else
+                # Widths mirror the reference's (sic) 2056/1028 (:460-469).
+                MlpHead(2 * sum(channels), (2056, 1028, 512, 1)))
+        elif head == "wperlay_cnn":
+            if kind != "resnet50_clip":
+                raise ValueError("wperlay_cnn taps the CLIP tower's per-block "
+                                 f"taps; backbone {kind!r} has none")
+            if not 0 <= depth <= 11:
+                raise ValueError(f"wperlay_cnn taps depth + 1 of 12 blocks, "
+                                 f"got depth {depth}")
+            self.tap_names = wperlay_taps(depth)
+            self.aggregator = ConvHeadAggregator(
+                [_STAGE_CHANNELS[i // 3] for i in range(11 - depth, 12)],
+                bias_init=bias)
+        elif head == "emb_lin":
+            self.tap_names = ()
+            self.aggregator = MlpHead(2 * _EMBED_WIDTH[kind], (1028, 512, 1))
+        else:
+            raise ValueError(f"unknown global head {head!r}")
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Fresh weights from ``generator``: Kaiming-normal (fan_in) convs
         and identity frozen BN in the tower, as the Flax init does, and the
-        head's torch-default weights."""
+        head's own init (torch-default conv heads, Kaiming MLPs)."""
         reset_tower(self.backbone, generator)
         self.aggregator.reset_parameters(generator)
 
@@ -157,16 +252,38 @@ class GlobalPairScorer(nn.Module):
     def score_from_taps(self, emb_a: Tensor, emb_b: Tensor,
                         taps_a: Dict[str, Tensor],
                         taps_b: Dict[str, Tensor]) -> Tensor:
-        """Head on precomputed tower outputs (the plain head; the scorer's
-        kernel path is srsem_torch/ops/fused_head.py::fused_global_score)."""
+        """Head on precomputed tower outputs (the plain head; the scorer
+        runs the conv heads through the head kernel,
+        srsem_torch/ops/fused_head.py::fused_global_score, and the MLP
+        heads here, as the JAX package leaves them to XLA)."""
+        head = self.cfg.head
+        if head == "emb_lin":
+            return self.aggregator(torch.cat([emb_a.float(), emb_b.float()],
+                                             dim=-1))
+        if head == "stages_cnn_pooling":
+            # Absolute (not diff) features: per-stage GAP, concat stages,
+            # then concat A/B (reference :514-526).
+            def pool(taps):
+                return torch.cat([taps[n].float().mean(dim=(1, 2))
+                                  for n in self.tap_names], dim=-1)
+
+            return self.aggregator(torch.cat([pool(taps_a), pool(taps_b)],
+                                             dim=-1))
         return self.aggregator(squared_diffs(taps_a, taps_b, self.tap_names))
 
 
 def make_global_model(cfg: GlobalModelConfig,
                       generator: Optional[torch.Generator] = None
-                      ) -> GlobalPairScorer:
+                      ) -> Union[GlobalPairScorer, CluUnet]:
     """A GlobalPairScorer on the CPU with weights drawn from ``generator``
-    (move it with ``.to(device)``)."""
-    model = GlobalPairScorer(cfg)
+    (move it with ``.to(device)``); for ``head="unet_global"`` the
+    reference's global CLIP_lpips_Unet copy, the CLU decoder without the
+    final sigmoid (reference: models/global_eval_models.py:921-1068)."""
+    if cfg.head == "unet_global":
+        model = CluUnet(backbone_kind=cfg.backbone.kind,
+                        compute_dtype=getattr(torch, cfg.backbone.compute_dtype),
+                        image_size=cfg.backbone.image_size, sigmoid=False)
+    else:
+        model = GlobalPairScorer(cfg)
     model.reset_parameters(generator)
     return model.eval().requires_grad_(False)

@@ -18,7 +18,7 @@ library checks it.
 * ``fused_stage_score(fa, fb, w, b)`` — one stage, (N,) scores
   ``sum/(H·W) + b`` (the TPU kernel's wrapper);
 * ``fused_global_score(taps_a, taps_b, head, names)`` — (N,) stages_cnn
-  scores (ConvHeadAggregator's numerics);
+  or wperlay_cnn scores (ConvHeadAggregator's numerics, up to 12 stages);
 * ``fused_grouped_score(taps_g, taps_s, head, names)`` — (G, K) scores
   from G GT and G·K SR taps (fused_grouped_head's numerics).
 
@@ -52,7 +52,7 @@ _MAX_CHUNK = 32 * _STEP
 _ITEMS_PER_BLOCK = 8  # work items a block that the chunk size aims at
 _BLOCKS_PER_SM = 4    # csrc/fused_head.cu kMinBlocks: 64 registers a thread
 _MAX_KB = 8           # SR images an item streams against one GT chunk
-_MAX_STAGES = 4
+_MAX_STAGES = 12     # csrc/fused_head.cu kMaxStages: wperlay_cnn's 12 taps
 
 
 @dataclass(frozen=True)
@@ -217,16 +217,19 @@ def _shapes(stages) -> Tuple[tuple, tuple]:
 
 def kernel_plan(stages: Sequence[Tuple[Tensor, Tensor]], sms: int) -> Plan:
     """The plan of one launch over checked (GT, SR) tap pairs on ``sms``
-    SMs: one chunk size for every stage, near ``items / (sms x 4 blocks)
-    = 8`` items a block, in whole unrolled groups of four 2048-element
-    steps and spread evenly over each image's tap.  A stage takes the
-    fixed-channel path when C is a multiple of 8 dividing 2048 and both
-    taps are 16-byte aligned."""
+    SMs (at most 12 stages): one chunk size for every stage, near
+    ``items / (sms x 4 blocks) = 8`` items a block, in whole unrolled
+    groups of four 2048-element steps and spread evenly over each image's
+    tap.  A stage takes the fixed-channel path when C is a multiple of 8
+    dividing 2048 and both taps are 16-byte aligned."""
     return _plan(*_shapes(stages), sms)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(shapes: tuple, aligned: tuple, sms: int) -> Plan:
+    if len(shapes) > _MAX_STAGES:
+        raise ValueError(f"the kernel scores at most {_MAX_STAGES} stages, "
+                         f"got {len(shapes)}")
     g = shapes[0][0][0]
     k = shapes[0][1][0] // g
     kb = min(k, _MAX_KB)
@@ -357,9 +360,6 @@ def _score(wrapper, taps_g: Taps, taps_s: Taps, head,
     _check_head(p, stages, dev)
     if not _on_card(dev, wrapper.__name__):
         return plain_grouped_score(taps_g, taps_s, p, tap_names).reshape(-1)
-    if len(stages) > _MAX_STAGES:
-        raise ValueError(f"the kernel scores at most {_MAX_STAGES} stages, "
-                         f"got {len(stages)}")
     out = _launch(stages, p.w, p.b, 0.0, False)
     wrapper.launches += 1
     return out

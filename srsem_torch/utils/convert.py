@@ -1,26 +1,38 @@
 """Weights into the port's modules.
 
 * ``load_jax_global_params`` — the JAX GlobalPairScorer variables, as
-  numpy arrays, into the port's GlobalPairScorer: HWIO conv kernels →
-  OIHW, FrozenBatchNorm scale/bias/mean/var → weight/bias/running_mean/
-  running_var, Dense (C, 1) heads → Conv2d (1, C, 1, 1).
+  numpy arrays, into the port's GlobalPairScorer (every CNN head): HWIO
+  conv kernels → OIHW, FrozenBatchNorm scale/bias/mean/var → weight/bias/
+  running_mean/running_var, Dense (C, 1) heads ``w_layers.{j}`` → Conv2d
+  (1, C, 1, 1), MLP Dense ``fin_lin.{j}`` (in, out) → ``fin_lin.{2j}``
+  Linear (out, in).  ``unet_global``'s CluUnet takes
+  ``load_jax_local_params``.
 * ``load_jax_local_params`` — the JAX CluUnet variables (``params`` for
   the tower and ``decoder.{lvl}``, plus ``batch_stats``), as numpy arrays,
   into the port's CluUnet.
+* Both take ``partial=True`` for a checkpoint's trainable subset
+  (srsem_torch/train/checkpoint.py): what the tree holds is loaded over
+  the model, which keeps the rest — the JAX CLI's
+  ``merge_params(restored["trainable"], variables["params"])``.
+* ``jax_trainable_params`` — the reverse for the trained subset: a
+  model's heads or decoder (and BN statistics) in the JAX layout, what a
+  checkpoint's ``trainable`` / ``batch_stats`` hold, to write with
+  srsem_torch/train/checkpoint.py::save_checkpoint.
 * ``load_torch_resnet50`` — a torchvision/timm ``resnet50`` state dict
   straight into the port's ImageNet tower (the layouts are the same).
 * ``load_clip_resnet50`` — an OpenAI-CLIP ``visual`` state dict straight
   into the port's CLIP tower (the layouts are the same).
 
-The reverse direction needs no code here: the port's ``state_dict()`` is
-in the torchvision / OpenAI-CLIP / reference-decoder layouts, which
-srsem/utils/convert.py::convert_torch_resnet50, ::convert_clip_resnet50,
-::convert_global_head and ::convert_clu_decoder already read.
+Otherwise the reverse direction needs no code here: the port's
+``state_dict()`` is in the torchvision / OpenAI-CLIP / reference-decoder
+layouts, which srsem/utils/convert.py::convert_torch_resnet50,
+::convert_clip_resnet50, ::convert_global_head and ::convert_clu_decoder
+already read.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +43,10 @@ _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 
 
 def _tensor(v) -> torch.Tensor:
+    """A float32 CPU copy of a numpy array or a tensor (a checkpoint's
+    bfloat16 leaves are tensors)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32, copy=True)
     return torch.tensor(np.array(v, np.float32, copy=True))
 
 
@@ -79,31 +95,63 @@ def jax_backbone_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
     return sd
 
 
-def load_jax_global_params(model: nn.Module, variables: Mapping[str, Any]):
-    """Fill a port GlobalPairScorer from JAX ``{"params": {"backbone": ...,
-    "aggregator": {"w_layers.{j}": {"kernel": (C, 1), "bias": (1,)}}}}``
-    (numpy arrays).  Strict: every key must match.  Returns ``model``."""
-    params = variables["params"]
-    sd = {f"backbone.{k}": v
-          for k, v in jax_backbone_state_dict(params["backbone"]).items()}
-    for name, head in params["aggregator"].items():
-        kernel = _tensor(head["kernel"])  # (C, 1)
-        sd[f"aggregator.{name}.weight"] = kernel.t().reshape(1, -1, 1, 1).contiguous()
-        sd[f"aggregator.{name}.bias"] = _tensor(head["bias"]).reshape(1)
+def _load(model: nn.Module, sd: Dict[str, torch.Tensor], partial: bool):
+    """Load ``sd`` strictly, or with ``partial`` over the model's own
+    state: every key must exist in the model with the same shape."""
+    if partial:
+        own = model.state_dict()
+        unknown = sorted(set(sd) - set(own))
+        if unknown:
+            raise KeyError(f"not in the model: {unknown[:6]}")
+        for key, v in sd.items():
+            if tuple(v.shape) != tuple(own[key].shape):
+                raise ValueError(f"{key}: shape {tuple(v.shape)}, the model "
+                                 f"has {tuple(own[key].shape)}")
+        sd = {**own, **sd}
     model.load_state_dict(sd, strict=True)
     return model
 
 
-def load_jax_local_params(model: nn.Module, variables: Mapping[str, Any]):
+def _backbone(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    if "backbone" not in params:
+        return {}
+    return {f"backbone.{k}": v
+            for k, v in jax_backbone_state_dict(params["backbone"]).items()}
+
+
+def load_jax_global_params(model: nn.Module, variables: Mapping[str, Any],
+                           partial: bool = False):
+    """Fill a port GlobalPairScorer from JAX ``{"params": {"backbone": ...,
+    "aggregator": {"w_layers.{j}": {"kernel": (C, 1), "bias": (1,)}} or
+    {"fin_lin.{j}": {"kernel": (in, out), "bias": (out,)}}}}`` (numpy
+    arrays or tensors).  Strict: every key must match, unless ``partial``
+    (see the module docstring).  Returns ``model``."""
+    params = variables["params"]
+    sd = _backbone(params)
+    for name, head in params.get("aggregator", {}).items():
+        kernel = _tensor(head["kernel"])
+        if name.startswith("fin_lin."):  # Dense j → Sequential index 2j
+            dst = f"aggregator.fin_lin.{2 * int(name.split('.')[1])}"
+            sd[f"{dst}.weight"] = kernel.t().contiguous()
+            sd[f"{dst}.bias"] = _tensor(head["bias"])
+        else:  # (C, 1) Dense → (1, C, 1, 1) Conv2d
+            sd[f"aggregator.{name}.weight"] = kernel.t().reshape(
+                1, -1, 1, 1).contiguous()
+            sd[f"aggregator.{name}.bias"] = _tensor(head["bias"]).reshape(1)
+    return _load(model, sd, partial)
+
+
+def load_jax_local_params(model: nn.Module, variables: Mapping[str, Any],
+                          partial: bool = False):
     """Fill a port CluUnet from JAX ``{"params": {"backbone": ...,
     "decoder.{lvl}": {conv1, bn1, conv2[, bn2]}}, "batch_stats":
-    {"decoder.{lvl}": {bn1: {mean, var}[, bn2]}}}`` (numpy arrays) into the
-    reference layout ``decoder.{lvl}.{0: conv, 1: BN, 3: conv, 4: BN}``.
-    Strict: every key must match.  Returns ``model``."""
+    {"decoder.{lvl}": {bn1: {mean, var}[, bn2]}}}`` (numpy arrays or
+    tensors) into the reference layout ``decoder.{lvl}.{0: conv, 1: BN,
+    3: conv, 4: BN}``.  Strict: every key must match, unless ``partial``
+    (see the module docstring).  Returns ``model``."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    sd = {f"backbone.{k}": v
-          for k, v in jax_backbone_state_dict(params["backbone"]).items()}
+    sd = _backbone(params)
     for name, block in params.items():
         if not name.startswith("decoder."):
             continue
@@ -114,12 +162,54 @@ def load_jax_local_params(model: nn.Module, variables: Mapping[str, Any]):
         for src, idx in (("bn1", 1), ("bn2", 4)):
             if src not in block:
                 continue
-            bn = {**block[src], **stats[name][src]}
+            bn = {**block[src], **stats.get(name, {}).get(src, {})}
             for key, dst in _BN.items():
-                sd[f"decoder.{lvl}.{idx}.{dst}"] = _tensor(bn[key])
+                if key in bn:
+                    sd[f"decoder.{lvl}.{idx}.{dst}"] = _tensor(bn[key])
             sd[f"decoder.{lvl}.{idx}.num_batches_tracked"] = torch.tensor(0)
-    model.load_state_dict(sd, strict=True)
-    return model
+    return _load(model, sd, partial)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def jax_trainable_params(model: nn.Module
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(params, batch_stats)`` of a model's trained subset in the JAX
+    layout, float32 numpy: a GlobalPairScorer's ``{"aggregator": ...}``
+    (``w_layers.{j}`` Dense (C, 1) or ``fin_lin.{j}`` Dense (in, out)) and
+    no statistics, or a CluUnet's ``{"decoder.{lvl}": {conv1, bn1, conv2
+    [, bn2]}}`` (HWIO kernels) and its BN running statistics.  The
+    loaders' ``partial`` mode reads both back."""
+    if hasattr(model, "aggregator"):
+        head: Dict[str, Any] = {}
+        if hasattr(model.aggregator, "fin_lin"):
+            linears = [m for m in model.aggregator.fin_lin
+                       if isinstance(m, nn.Linear)]
+            for j, m in enumerate(linears):
+                head[f"fin_lin.{j}"] = {"kernel": _np(m.weight.t()),
+                                        "bias": _np(m.bias)}
+        else:
+            for j, m in enumerate(model.aggregator.w_layers):
+                head[f"w_layers.{j}"] = {"kernel": _np(m.weight.reshape(-1, 1)),
+                                         "bias": _np(m.bias)}
+        return {"aggregator": head}, {}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for lvl, block in enumerate(model.decoder):
+        name = f"decoder.{lvl}"
+        params[name], stats[name] = {}, {}
+        for dst, idx in (("conv1", 0), ("conv2", 3)):
+            params[name][dst] = {"kernel": _np(block[idx].weight.permute(2, 3, 1, 0)),
+                                 "bias": _np(block[idx].bias)}
+        for dst, idx in (("bn1", 1), ("bn2", 4)):
+            if isinstance(block[idx], nn.BatchNorm2d):
+                bn = block[idx]
+                params[name][dst] = {"scale": _np(bn.weight), "bias": _np(bn.bias)}
+                stats[name][dst] = {"mean": _np(bn.running_mean),
+                                    "var": _np(bn.running_var)}
+    return params, stats
 
 
 def _strip(state_dict: Mapping[str, Any]) -> Dict[str, Any]:

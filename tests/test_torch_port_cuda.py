@@ -141,8 +141,26 @@ def test_head_kernel_unaligned_slice(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 4])
+def test_head_kernel_twelve_stages_matches_plain(cuda_device, dtype, k):
+    """wperlay_cnn's 12 taps in one launch, pairwise (K = 1) and grouped
+    (K = 4): three each of 56x56x256, 28x28x512, 14x14x1024 and 7x7x2048
+    at batch 2."""
+    g = torch.Generator(device=cuda_device).manual_seed(12 + k)
+    shapes = [s for s in ((56, 56, 256), (28, 28, 512), (14, 14, 1024),
+                          (7, 7, 2048)) for _ in range(3)]
+    stages = [(torch.randn((2, *sh), device=cuda_device, generator=g)
+               .abs().to(dtype),
+               torch.randn((2 * k, *sh), device=cuda_device, generator=g)
+               .abs().to(dtype)) for sh in shapes]
+    packed = tfh.pack_head(_head([sh[-1] for sh in shapes], cuda_device))
+    _check_head_kernel(stages, k, packed)
+
+
+@pytest.mark.cuda
 def test_head_kernel_rejects_cuda_inputs(cuda_device):
-    """Bad inputs raise before a launch; five stages exceed the kernel."""
+    """Bad inputs raise before a launch; 13 stages exceed the kernel."""
     packed = tfh.pack_head(_head([8], cuda_device))
     gt = torch.zeros(2, 4, 4, 8, device=cuda_device)
     for sr in (torch.zeros(3, 4, 4, 8, device=cuda_device),
@@ -150,10 +168,10 @@ def test_head_kernel_rejects_cuda_inputs(cuda_device):
                torch.zeros(2, 8, 4, 4, device=cuda_device).permute(0, 2, 3, 1)):
         with pytest.raises((ValueError, TypeError)):
             tfh.fused_global_score({"s": gt}, {"s": sr}, packed, ["s"])
-    names = [f"s{j}" for j in range(5)]
+    names = [f"s{j}" for j in range(13)]
     taps = {n: gt for n in names}
-    with pytest.raises(ValueError, match="at most 4"):
-        tfh.fused_global_score(taps, taps, _head([8] * 5, cuda_device), names)
+    with pytest.raises(ValueError, match="at most 12"):
+        tfh.fused_global_score(taps, taps, _head([8] * 13, cuda_device), names)
 
 
 @pytest.mark.cuda

@@ -113,17 +113,24 @@ def test_grouped_scorer_matches_pairwise(port_model, k):
 
 
 def test_grouped_scorer_heads(port_model):
-    """The MLP heads have no grouped form (JAX's ValueError); the other
-    grouped heads wait for their port."""
+    """The MLP heads have no grouped form (JAX's ValueError); the ViT heads
+    wait for the ViT tower (A10); wperlay_cnn builds on the CLIP tower."""
     import dataclasses
 
     for head, err, match in (("emb_lin", ValueError, "use PairScorer"),
                              ("stages_cnn_pooling", ValueError, "PairScorer"),
-                             ("wperlay_cnn", NotImplementedError, "A4/A10"),
-                             ("stages_vit", NotImplementedError, "A4/A10")):
+                             ("stages_vit", NotImplementedError, "A10")):
         with pytest.raises(err, match=match):
             GroupedPairScorer(dataclasses.replace(CFG, head=head), port_model,
                               k=2, device="cpu")
+    clip = dataclasses.replace(
+        CFG, head="wperlay_cnn", depth=11,
+        backbone=dataclasses.replace(CFG.backbone, kind="resnet50_clip"))
+    scorer = GroupedPairScorer(clip, make_global_model(clip), k=2,
+                               device="cpu")
+    assert len(scorer.pairs.model.tap_names) == 12
+    assert scorer.pairs.head.channels == (256,) * 3 + (512,) * 3 + (
+        1024,) * 3 + (2048,) * 3
 
 
 def _folders(root: Path):
@@ -178,6 +185,8 @@ def test_cli_score_groups_writes_csv(tmp_path):
     assert float(rows[0]["swinir"]) >= 0.0
     refused = subprocess.run(
         [sys.executable, "-m", "srsem_torch", "score-groups", str(gt),
-         str(esrgan), "--device", "cpu", "--checkpoint", "ckpt"],
+         str(esrgan), "--device", "cpu", "--checkpoint",
+         str(tmp_path / "ckpt")],
         cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert refused.returncode != 0 and "A6" in refused.stderr
+    assert refused.returncode != 0
+    assert "FileNotFoundError: no checkpoint under" in refused.stderr

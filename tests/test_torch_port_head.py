@@ -308,6 +308,13 @@ def _unaligned(shape, rng):
     return flat[1:].view(shape)
 
 
+# wperlay_cnn's 12 per-block taps at 224 px (three each of 56x56x256,
+# 28x28x512, 14x14x1024, 7x7x2048), scaled down: a quarter of the width
+# and of the channels.
+_WPERLAY = [(2, h, h, c) for h, c in ((14, 64), (7, 128), (4, 256), (2, 512))
+            for _ in range(3)]
+
+
 @pytest.mark.parametrize("shapes,k,unaligned", [
     ([(2, 9, 11, 40)], 1, False),                 # C = 40: general path
     ([(2, 9, 11, 40)], 4, False),
@@ -317,8 +324,10 @@ def _unaligned(shape, rng):
      False),
     ([(1, 8, 8, 64)], 10, False),                 # two k-blocks, 8 + 2
     ([(2, 16, 16, 64)], 4, True),                 # unaligned: general path
+    (_WPERLAY, 1, False),                         # wperlay_cnn's 12 taps
+    (_WPERLAY, 3, False),
 ], ids=["c40", "c40_k4", "chunks", "ragged_k4", "four_stages", "k10",
-        "unaligned"])
+        "unaligned", "twelve_stages", "twelve_stages_k3"])
 def test_kernel_work_list_matches_plain(shapes, k, unaligned):
     rng = np.random.default_rng(11)
     mk = (lambda s: _unaligned(s, rng)) if unaligned else (
@@ -359,18 +368,25 @@ def _sized(shape, dtype=torch.bfloat16):
     return torch.zeros(1, dtype=dtype).as_strided(shape, (0,) * len(shape))
 
 
+@pytest.mark.parametrize("taps", [1, 3], ids=["stages_cnn", "wperlay_cnn"])
 @pytest.mark.parametrize("g,k", [(64, 1), (16, 4)])
-def test_plan_at_main_path_shapes(g, k):
-    """At 224 px on 132 SMs: every stage on the fixed-channel path, largest
-    first, chunks of whole unrolled groups (4 steps of 2048 elements)
-    spread evenly over each tap, 5-9 items a block over 528 blocks, one
-    partial a pair and chunk."""
-    shapes = [(56, 56, 256), (28, 28, 512), (14, 14, 1024), (7, 7, 2048)]
+def test_plan_at_main_path_shapes(g, k, taps):
+    """At 224 px on 132 SMs, stages_cnn's 4 taps and wperlay_cnn's 12
+    (each stage's shape three times): every stage on the fixed-channel
+    path, largest first (equal sizes in tap order), chunks of whole
+    unrolled groups (4 steps of 2048 elements, at most 32 steps) spread
+    evenly over each tap, 5-9 items a block over 528 blocks (5-10 at 12
+    taps, where the chunk reaches its cap), one partial a pair and
+    chunk."""
+    shapes = [s for s in ((56, 56, 256), (28, 28, 512), (14, 14, 1024),
+                          (7, 7, 2048)) for _ in range(taps)]
     stages = [(_sized((g, *s)), _sized((g * k, *s))) for s in shapes]
     plan = tfh.kernel_plan(stages, sms=132)
-    assert plan.order == (0, 1, 2, 3) and all(plan.vec)
+    assert plan.order == tuple(range(len(shapes))) and all(plan.vec)
     assert plan.kb == plan.kt == k and plan.kblocks == 1
-    assert plan.grid == 528 and 5 <= plan.items / plan.grid <= 9
+    assert plan.grid == 528
+    assert 5 <= plan.items / plan.grid <= (9 if taps == 1 else 10)
+    assert max(plan.chunk) <= 32 * 2048
     for i, (h, w_, c) in enumerate(shapes):
         n = h * w_ * c
         assert plan.chunk[i] % 8192 == 0
@@ -380,3 +396,26 @@ def test_plan_at_main_path_shapes(g, k):
             < plan.chunks[i] * 8192
     assert plan.partials == g * k * sum(plan.chunks)
     assert plan.items == g * sum(plan.chunks)
+
+
+def test_plan_takes_at_most_twelve_stages():
+    """csrc/fused_head.cu passes at most 12 stage descriptors by value: a
+    13th stage raises before a plan is made; the plain version takes it."""
+    shapes = [(2, 4, 4, 8)] * 13
+    stages = [(_sized(s, torch.float32), _sized(s, torch.float32))
+              for s in shapes]
+    assert len(tfh.kernel_plan(stages[:12], sms=132).order) == 12
+    with pytest.raises(ValueError, match="at most 12 stages"):
+        tfh.kernel_plan(stages, sms=132)
+    names = [f"s{j}" for j in range(13)]
+    taps = {n: torch.ones(*s) for n, s in zip(names, shapes)}
+    head = ConvHeadAggregator([8] * 13)
+    head.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in head.w_layers:
+            layer.weight.abs_()
+    got = tfh.fused_global_score(taps, {n: t * 0 for n, t in taps.items()},
+                                 head, names)
+    assert (got > 0).all()
+    torch.testing.assert_close(got, head(squared_diffs(
+        taps, {n: t * 0 for n, t in taps.items()}, names)))

@@ -188,7 +188,7 @@ def test_entry_points_refuse_cpu_fallback(port_model):
         PairScorer(CFG, port_model, decode_backend="native", device="cpu")
 
 
-_FORBIDDEN = ("jax", "flax", "srsem")
+_FORBIDDEN = ("jax", "flax", "msgpack", "srsem")
 
 
 def _imported_roots(path: Path):
@@ -206,7 +206,8 @@ def _imported_roots(path: Path):
 
 
 def test_import_hygiene():
-    """srsem_torch and chip_smoke.py never import jax, flax or srsem."""
+    """srsem_torch and chip_smoke.py never import jax, flax, msgpack or
+    srsem."""
     sources = sorted((REPO / "srsem_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for path in sources:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
