@@ -61,14 +61,46 @@ Phases (each prints one JSON line; any failure exits non-zero):
              float32, finite in bf16; ``python -m srsem_torch score
              --checkpoint DIR --set head=wperlay_cnn --set depth=11`` as a
              subprocess (NaN on exactly the corrupt row).
-7. result  — a ``timing`` line (seconds of each phase), the card line,
+7. serve   — ScoreService over the flagship global model and, with
+             maps, the CLU model (bf16 decoder), group_batch 8, warmed at
+             K = 1 and 4 (peak device memory after warmup): one score and
+             one maps batch of G = 8, K = 4 with the launch counts reset
+             just before and read just after (one grouped head launch,
+             four tower passes, three decoder calls; a null on exactly the
+             corrupt SR); a profile of one score batch; serve_http on a
+             free port, driven by client processes of their own: lone
+             K = 4 latency p50/p99 with the decode cache off and warm, 32
+             concurrent clients (pairs/s, device batches, mean fill > 1,
+             the collector's busy share and its device calls' ms); float32
+             service scores and map means against the grouped scorers
+             (1e-5 + 1e-5*max); ``python -m srsem_torch serve --warmup-k 1
+             4 --with-maps`` over stdio fed a script (ping, K = 4, scalar,
+             corrupt GT -> nulls, malformed line, maps with maps_dir,
+             stats, shutdown; exit 0).
+8. dual    — DualScorer(resnet50_clip, 224, bf16): score_folders with one
+             corrupt SR (its row NaN, the only one) and the counts reset
+             around it (24 bottleneck calls for 32 pairs, one head launch,
+             three decoder calls); float32 scores and maps against the
+             global and the local PairScorer (1e-5 + 1e-5*max); pairs/s at
+             batch 32 against the two scorers one after the other, in
+             turns; the discarded attention pool's ms; a profile;
+             ``python -m srsem_torch sweep-dataset`` as a subprocess.  Its
+             ``native`` line: whether the C++ decoder built (and why not),
+             host seconds an image through it and through PIL with the
+             host's cpu count, and when built its bytes against PIL's
+             (mean < 0.5, 99.9% <= 6, max <= 16) and
+             PairScorer(decode_backend="native") with a NaN row on exactly
+             the corrupt file.
+9. result  — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
-             the slices that use it, worst bf16 error, and times summed
-             over one scored batch's launches of each slice at that
-             slice's shapes; under ``paths``, each slice's own launches
-             and times; the head's entry, ``fused_stage_score`` after
-             the TPU kernel it replaces, counts the whole-head
-             launches of ``fused_global_score``), the device line.
+             the paths that use it, worst bf16 error, and times summed
+             over one scored batch's launches of each path at that
+             path's shapes; under ``paths``, each path's own launches
+             and times: global, clu, wperlay, serve (one score and one
+             maps batch), dual; the head's entry, ``fused_stage_score``
+             after the TPU kernel it replaces, counts the whole-head
+             launches of ``fused_global_score`` and, on the serve path,
+             ``fused_grouped_score``), the device line.
 
 Bounds use an H100 SXM's published peaks: 3.35 TB/s, 989 TFLOP/s bf16
 tensor cores, 67 TFLOP/s float32 outside them.
@@ -81,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -165,15 +198,31 @@ WPERLAY_TAPS = {11: [s for s in HEAD_TAPS for _ in range(3)]}
 WPERLAY_TAPS[3] = WPERLAY_TAPS[11][-4:]
 # The grouped scorer's batch: G GT images against K SR images each.
 GROUP_G, GROUP_K = 16, 4
+# The service's top bucket (serve --group-batch, the JAX default) and the
+# K its device batches are measured at: a score batch runs the ImageNet
+# tower over G GT and G·K SR images, a maps batch the CLIP tower over the
+# same; the dual scorer's batch (the JAX DualScorer default).
+SERVE_G, SERVE_K = 8, 4
+DUAL_BATCH = 32
+IMAGE = 224  # the serve and dual phases' image size
+# Bottleneck wrapper calls a tower pass (interior stride-1 blocks; the
+# first block of each stage downsamples) — either tower.
+PASS_CALLS = {"fused_bottleneck": 3 + 5 + 2, "fused_bottleneck_tiled": 2}
 BOTTLENECK_SHAPES = {path: [((n, 28, 28, 512), 128, 6),
                             ((n, 14, 14, 1024), 256, 10),
                             ((n, 7, 7, 2048), 512, 4)]
                      for path, n in PATH_BATCH.items()}
+# The serve path's GT passes (G = 8 images, one a tower: the score and the
+# maps batch); its G·K = 32-image SR passes run the CLU path's shapes,
+# which check_kernels adds to it, as it gives the dual path the CLU path's.
+BOTTLENECK_SHAPES["serve"] = [((SERVE_G, 28, 28, 512), 128, 6),
+                              ((SERVE_G, 14, 14, 1024), 256, 10),
+                              ((SERVE_G, 7, 7, 2048), 512, 4)]
 # Checked and not on the main path: ragged H and W (a ragged last flat
 # tile, ragged patches, an odd patch count).
 BOTTLENECK_SHAPES["global"].append(((9, 13, 11, 1024), 256, 0))
 TILED_SHAPES = {path: [((n, 56, 56, 256), 64, 4)]
-                for path, n in PATH_BATCH.items()}
+                for path, n in {**PATH_BATCH, "serve": SERVE_G}.items()}
 # CLU decoder levels at batch 32, 224 px: (n, h, w, cd, cu, cm, co,
 # final_kernel, row tile, wrapper calls per scored batch).  The last two
 # rows are checked and not on the default path (v2's odd skip width;
@@ -349,6 +398,36 @@ def check_kernels(torch):
     add("fused_stage_score", "global", errs[str(torch.bfloat16)], 0, 0, 0, 0,
         by, 0)
     del tg, ts
+
+    # The serve path's score batch (grouped, G = 8, K = 4) and the dual
+    # path's batch (pairwise, 32 pairs on the CLIP tower's stage taps, the
+    # same shapes): one head launch each.
+    for path, wrapper, plain_fn, g, k in (
+            ("serve", fh.fused_grouped_score, fh.plain_grouped_score,
+             SERVE_G, SERVE_K),
+            ("dual", fh.fused_global_score, fh.plain_global_score,
+             DUAL_BATCH, 1)):
+        errs, (tg, ts) = check_head(
+            f"{wrapper.__name__} {path}",
+            lambda dt: (taps(g, dt), taps(g * k, dt)),
+            lambda a, b: wrapper(a, b, packed, names),
+            lambda a, b: plain_fn(a, b, packed, names))
+        call = lambda: wrapper(tg, ts, packed, names)  # noqa: E731
+        ms = cuda_ms(torch, call, 20)
+        dev_ms = launch_ms(torch, call, "fused_head", 1)
+        plain = cuda_ms(torch, lambda: plain_fn(tg, ts, packed, names), 5)
+        lib = cuda_ms(torch, lambda: head(
+            squared_diffs(tg, ts, names) if k == 1
+            else grouped_diff_pyramid(tg, ts, names)), 5)
+        bms, by = head_bound(g * (1 + k), k)
+        emit("kernel", name="fused_stage_score", path=path, on_main_path=True,
+             wrapper=wrapper.__name__, g=g, k=k,
+             taps=[[g, *sh] for sh in HEAD_TAPS], max_abs_err=errs,
+             tolerance=head_tol, ms=ms, launch_ms=dev_ms and dev_ms[0],
+             plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+        add("fused_stage_score", path, errs[str(torch.bfloat16)], ms, plain,
+            lib, bms, by, 1)
+        del tg, ts
 
     # wperlay_cnn's head, one launch at 12 stages (depth 11) and at 4
     # (depth 3): pairwise at batch 64 and grouped at G = 16, K = 4.  The
@@ -552,6 +631,26 @@ def check_kernels(torch):
                  tflops=flops / ms / 1e9, **line)
             add(name, "clu", errs[str(torch.bfloat16)], ms, plain, lib, bms,
                 by, count)
+
+    # The dual path runs the CLU path's tower and decoder shapes; the serve
+    # path runs them too (its SR passes and its maps batch), beside its own
+    # batch-8 GT passes.
+    for name in ("fused_bottleneck", "fused_bottleneck_tiled",
+                 "fused_decoder_level", "fused_decoder_level_tiled"):
+        clu = summary[(name, "clu")]
+        summary[(name, "dual")] = clu
+        own = summary.get((name, "serve"))
+        if own is None:
+            summary[(name, "serve")] = clu
+            continue
+        by = dict(own["by"])
+        for b, v in clu["by"].items():
+            by[b] = by.get(b, 0.0) + v
+        summary[(name, "serve")] = {
+            **{key: own[key] + clu[key] for key in (
+                "launches", "ms", "plain_ms", "library_ms", "bound_ms")},
+            "max_abs_err": max(own["max_abs_err"], clu["max_abs_err"]),
+            "by": by}
     return summary
 
 
@@ -1317,6 +1416,597 @@ def run_heads(torch, np, card: str):
     return launches
 
 
+# An HTTP load generator run in a process of its own (``python -c``): its
+# one argument is a JSON object (url, requests, k, clients, per_client);
+# each client thread posts its requests one after another.  Prints the
+# wall seconds, every request's latency and the first wrong responses.
+HTTP_CLIENTS = r"""
+import json, sys, threading, time, urllib.request
+cfg = json.loads(sys.argv[1])
+reqs, lat, bad = cfg["requests"], [], []
+
+
+def post(obj):
+    req = urllib.request.Request(cfg["url"], data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def client(c):
+    for j in range(cfg["per_client"]):
+        t0 = time.perf_counter()
+        try:
+            resp = post(dict(reqs[(c + j) % len(reqs)], id=c * 1000 + j))
+        except OSError as e:  # a refused or reset connection
+            resp = {"error": repr(e)}
+        lat.append(time.perf_counter() - t0)
+        if len(resp.get("scores") or []) != cfg["k"]:
+            bad.append(resp)
+
+
+threads = [threading.Thread(target=client, args=(c,))
+           for c in range(cfg["clients"])]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"seconds": time.perf_counter() - t0, "latencies": lat,
+                  "errors": bad[:3]}))
+"""
+
+
+def serving_images(np, root: Path, n_gt: int, k: int):
+    """``n_gt`` GT images (PNG, four sizes as ``write_pairs``) with ``k``
+    noisy SR JPEGs each, and a corrupt file; returns (gts, srs, bad)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(8)
+    gts, srs = [], []
+    for i in range(n_gt):
+        size = [(256, 320), (300, 240), (224, 224), (480, 512)][i % 4]
+        a = rng.integers(0, 256, (*size, 3), dtype=np.uint8)
+        gts.append(str(root / f"gt{i}.png"))
+        Image.fromarray(a).save(gts[-1])
+        group = []
+        for m in range(k):
+            b = np.clip(a.astype(int) + rng.integers(-20, 21, a.shape), 0,
+                        255).astype(np.uint8)
+            group.append(str(root / f"sr{i}_{m}.jpg"))
+            Image.fromarray(b).save(group[-1], quality=90)
+        srs.append(group)
+    bad = root / "corrupt.jpg"
+    bad.write_bytes(b"\xff\xd8 truncated, not a JPEG")
+    return gts, srs, str(bad)
+
+
+def percentiles(np, seconds) -> dict:
+    ms = np.asarray(seconds) * 1e3
+    return {"n": int(ms.size), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "mean_ms": float(ms.mean())}
+
+
+def stdio_script(gts, srs, bad, maps_dir) -> list:
+    """The serve subprocess's requests: ping, K = 4, scalar sr, a corrupt
+    GT, a malformed line, a maps request with maps_dir, stats, shutdown."""
+    return [json.dumps({"cmd": "ping"}),
+            json.dumps({"id": 1, "gt": gts[0], "sr": srs[0]}),
+            json.dumps({"id": 2, "gt": gts[1], "sr": srs[1][0]}),
+            json.dumps({"id": 3, "gt": bad, "sr": srs[2]}),
+            "{this is not json",
+            json.dumps({"id": 4, "gt": gts[3], "sr": srs[3], "maps": True,
+                        "maps_dir": str(maps_dir)}),
+            json.dumps({"cmd": "stats"}),
+            json.dumps({"cmd": "shutdown"})]
+
+
+def check_stdio(resps, maps_dir: Path) -> dict:
+    """Every response of ``stdio_script``, in order; returns the stats."""
+    import math
+    import os
+
+    def num(v):
+        return isinstance(v, float) and math.isfinite(v)
+
+    want_n = 8
+    if len(resps) != want_n:
+        raise AssertionError(f"serve stdio: {len(resps)} responses, want "
+                             f"{want_n}: {resps}")
+    ping, r1, r2, r3, bad_json, r4, stats, bye = resps
+    checks = {
+        "ping": ping == {"ok": True},
+        "k4": r1.get("id") == 1 and len(r1.get("scores", [])) == SERVE_K
+        and all(num(v) for v in r1["scores"]),
+        "scalar": r2.get("id") == 2 and num(r2.get("score"))
+        and r2["scores"] == [r2["score"]],
+        "corrupt_gt_null": r3 == {"id": 3, "scores": [None] * SERVE_K},
+        "malformed": "bad JSON" in bad_json.get("error", ""),
+        "maps": r4.get("id") == 4
+        and all(num(v) and 0.0 <= v <= 1.0 for v in r4.get("map_means", []))
+        and len(r4.get("maps", [])) == SERVE_K
+        and all(p and os.path.exists(p) and str(maps_dir) in p
+                for p in r4["maps"]),
+        # The stats line may be read before the lines queued beside it are
+        # scored: no count is fixed but the errors.
+        "stats": stats.get("errors") == 0
+        and stats.get("warmed_k") == [1, SERVE_K],
+        "shutdown": bye == {"ok": True, "shutdown": True},
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve stdio responses wrong at {failed}: "
+                             f"{resps}")
+    return stats
+
+
+def run_serve(torch, np, card: str):
+    """Phase 7 (serve): the service over the flagship global model and the
+    CLU model (``--with-maps``), group_batch 8, warmed at K = 1 and 4.
+    Returns {kernel: launches in one score batch and one maps batch}."""
+    import dataclasses
+    import threading
+    import urllib.request
+
+    from srsem_torch.cli.serve import ScoreService, serve_http
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        LocalModelConfig,
+    )
+    from srsem_torch.eval.grouped import GroupedMapScorer, GroupedPairScorer
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.ops import fused_decoder as fd
+    from srsem_torch.ops import fused_head as fh
+
+    cfg = GlobalModelConfig(backbone=BackboneConfig(
+        kind="resnet50", image_size=IMAGE, compute_dtype="bfloat16"),
+        head="stages_cnn", depth=3)
+    map_cfg = LocalModelConfig(backbone=BackboneConfig(
+        kind="resnet50_clip", image_size=IMAGE, compute_dtype="bfloat16"),
+        decoder_dtype="bfloat16", v2=False)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    service = ScoreService(cfg, seeded_model(torch, np, cfg),
+                           group_batch=SERVE_G, map_cfg=map_cfg,
+                           map_model=seeded_clu(torch, np, map_cfg))
+    t0 = time.perf_counter()
+    service.warmup([1, SERVE_K])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    emit("serve", step="warmup", ladder=service._ladder(),
+         warmed_k=[1, SERVE_K], seconds=warm_s,
+         buckets=len(service._scorers) + len(service._map_scorers),
+         shared_cores=len({id(s.pairs) for s in service._scorers.values()})
+         + len({id(s.pairs) for s in service._map_scorers.values()}),
+         memory_before_bytes=base, max_memory_allocated_bytes=peak,
+         max_memory_allocated_gib=peak / 2 ** 30, card=card)
+    wrappers = {"fused_stage_score": fh.fused_grouped_score,
+                "fused_bottleneck": fb.fused_bottleneck,
+                "fused_bottleneck_tiled": fb.fused_bottleneck_tiled,
+                "fused_decoder_level": fd.fused_decoder_level,
+                "fused_decoder_level_tiled": fd.fused_decoder_level_tiled}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gts, srs, bad = serving_images(np, tmp, SERVE_G, SERVE_K)
+        reqs = [{"id": i, "gt": g, "sr": s}
+                for i, (g, s) in enumerate(zip(gts, srs))]
+        reqs[5] = dict(reqs[5], sr=[*srs[5][:3], bad])  # one null pair
+
+        # The path: one score batch and one maps batch of G = 8, K = 4.
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        scores = service.score_requests(reqs)
+        maps = service.map_requests([dict(r, maps=True) for r in reqs])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        want = {"fused_stage_score": 1,
+                "fused_bottleneck": 4 * PASS_CALLS["fused_bottleneck"],
+                "fused_bottleneck_tiled": 4 * PASS_CALLS[
+                    "fused_bottleneck_tiled"],
+                "fused_decoder_level": 1, "fused_decoder_level_tiled": 2}
+        if launches != want:
+            raise AssertionError(f"serve path launched {launches}, want "
+                                 f"{want} (one score and one maps batch)")
+        nulls = [[v is None for v in r["scores"]] for r in scores]
+        mnulls = [[v is None for v in r["map_means"]] for r in maps]
+        want_nulls = [[i == 5 and m == 3 for m in range(SERVE_K)]
+                      for i in range(SERVE_G)]
+        if nulls != want_nulls or mnulls != want_nulls:
+            raise AssertionError(f"serve nulls {nulls} / {mnulls}")
+        if not all(v > 0 for r in scores for v in r["scores"] if v is not None):
+            raise AssertionError(f"serve scores not > 0: {scores}")
+        emit("serve", step="score_and_maps_batch", g=SERVE_G, k=SERVE_K,
+             seconds=seconds, launches=launches,
+             device_batches=service.stats["device_batches"],
+             scores=[r["scores"] for r in scores],
+             map_means=[r["map_means"] for r in maps])
+        # The device side of a full score batch (G = 8, K = 4), as the
+        # service calls it.
+        pre = service._core.preprocess
+        gt = np.stack([pre.decode_uint8(g) for g in gts])
+        sr = np.stack([np.stack([pre.decode_uint8(p) for p in group])
+                       for group in srs])
+        emit("serve", step="profile_score_batch", g=SERVE_G, k=SERVE_K,
+             card=card, **profile_scoring(
+                 torch, service.scorer(SERVE_K, SERVE_G), gt, sr))
+
+        # HTTP, from client processes of their own (as users' would be):
+        # lone K = 4 requests with the decode cache off (every image
+        # decoded) and warm (every image cached), then 32 concurrent
+        # clients with the cache warm.
+        server = serve_http(service, 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/"
+
+        def clients(n, per_client):
+            proc = subprocess.run(
+                [sys.executable, "-c", HTTP_CLIENTS, json.dumps({
+                    "url": url, "requests": reqs, "k": SERVE_K,
+                    "clients": n, "per_client": per_client})],
+                capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"http clients: {proc.stderr[-2000:]}")
+            out = json.loads(proc.stdout)
+            if out["errors"]:
+                raise AssertionError(f"http responses: {out['errors']}")
+            return out
+
+        lone = {}
+        for name, cache in (("cold_decode_cache_off", 0),
+                            ("warm_decode_cache", 256)):
+            service.decode_cache = cache
+            clients(1, SERVE_G)  # fills the cache (when on)
+            lone[name] = percentiles(np, clients(1, 56)["latencies"])
+        emit("serve", step="http_lone_latency", k=SERVE_K, card=card, **lone)
+
+        # Where a device batch's time goes: the collector's score_requests
+        # calls (decode through the LRU, packing, the device call, the
+        # responses), and in them the device call to its .cpu() result.
+        n_clients, per_client = 32, 8
+        spans, device = [], []
+        bucket = service.scorer(SERVE_K, SERVE_G)
+        score_requests, score_arrays = (service.score_requests,
+                                        bucket.score_arrays)
+
+        def timed(fn, into, sync=False):
+            def call(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                if sync:
+                    torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        service.score_requests = timed(score_requests, spans)
+        bucket.score_arrays = timed(score_arrays, device, sync=True)
+        before = dict(service.stats)
+        try:
+            out = clients(n_clients, per_client)
+        finally:
+            del service.score_requests, bucket.score_arrays
+        wall = out["seconds"]
+        batches = service.stats["device_batches"] - before["device_batches"]
+        n_req = service.stats["requests"] - before["requests"]
+        fill = n_req / batches
+        if n_req != n_clients * per_client or fill <= 1:
+            raise AssertionError(f"http batcher: {n_req} requests in "
+                                 f"{batches} device batches")
+        emit("serve", step="http_concurrent", clients=n_clients,
+             requests=n_req, k=SERVE_K, seconds=wall,
+             pairs_per_s=n_req * SERVE_K / wall, device_batches=batches,
+             mean_fill=fill, linger_ms=service.linger_ms,
+             latency=percentiles(np, out["latencies"]),
+             collector_busy_share=sum(spans) / wall,
+             score_requests_ms=percentiles(np, spans),
+             g8_device_call_ms=percentiles(np, device), card=card)
+        # {"cmd": "shutdown"} over HTTP stops the server.
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=b'{"cmd": "shutdown"}'), timeout=60) as r:
+            bye = json.loads(r.read())
+        thread.join(timeout=30)
+        if bye != {"ok": True, "shutdown": True} or thread.is_alive():
+            raise AssertionError(f"http shutdown: {bye}")
+        server.server_close()
+        service.close()
+        del service
+
+        # The CLI over stdio, as a user runs it, beside the untimed float32
+        # checks below (the subprocess would disturb the timed steps).
+        maps_dir = tmp / "maps"
+        script = tmp / "requests.jsonl"
+        script.write_text("\n".join(stdio_script(gts, srs, bad, maps_dir))
+                          + "\n")
+        with open(script) as stdin:
+            cli = subprocess.Popen(
+                [sys.executable, "-m", "srsem_torch", "serve", "--warmup-k",
+                 "1", str(SERVE_K), "--with-maps"],
+                cwd=REPO, stdin=stdin, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        try:
+            cfg32 = dataclasses.replace(cfg, backbone=dataclasses.replace(
+                cfg.backbone, compute_dtype="float32"))
+            map32 = dataclasses.replace(
+                map_cfg, decoder_dtype="float32",
+                backbone=dataclasses.replace(map_cfg.backbone,
+                                             compute_dtype="float32"))
+            m32, c32 = seeded_model(torch, np, cfg32), seeded_clu(torch, np,
+                                                                  map32)
+            svc32 = ScoreService(cfg32, m32, group_batch=SERVE_G,
+                                 map_cfg=map32, map_model=c32)
+            null = lambda v: np.nan if v is None else v  # noqa: E731
+            got = np.array([[null(v) for v in r["scores"]]
+                            for r in svc32.score_requests(reqs)])
+            got_m = np.array([[null(v) for v in r["map_means"]]
+                              for r in svc32.map_requests(
+                                  [dict(r, maps=True) for r in reqs])])
+            svc32.close()
+
+            def arrays(pre):
+                """The batch as the service packs it: a failed file is a
+                zero image (its pair is null)."""
+                def one(p):
+                    try:
+                        return pre.decode_uint8(p)
+                    except Exception:  # the corrupt SR
+                        return np.zeros((IMAGE, IMAGE, 3), np.uint8)
+                return (np.stack([one(r["gt"]) for r in reqs]),
+                        np.stack([np.stack([one(p) for p in r["sr"]])
+                                  for r in reqs]))
+
+            want = GroupedPairScorer(cfg32, m32, k=SERVE_K,
+                                     batch_size=SERVE_G).score_arrays(
+                *arrays(svc32._core.preprocess)).cpu().numpy()
+            want_m = GroupedMapScorer(map32, c32, k=SERVE_K,
+                                      batch_size=SERVE_G).score_arrays(
+                *arrays(svc32._map_core.preprocess)).float().mean(
+                dim=(2, 3)).cpu().numpy()
+            ok = ~np.isnan(got)
+            if not (ok == ~np.isnan(got_m)).all() or ok.sum() != ok.size - 1:
+                raise AssertionError("f32 service: nulls differ")
+            err = float(np.abs(got - want)[ok].max())
+            tol = 1e-5 + 1e-5 * float(np.abs(want[ok]).max())
+            err_m = float(np.abs(got_m - want_m)[ok].max())
+            if not (err <= tol and err_m <= 1e-5):
+                raise AssertionError(f"f32 service vs grouped scorers: scores "
+                                     f"{err} (tol {tol}), map means {err_m}")
+            emit("serve", step="f32_service_vs_grouped_scorers",
+                 max_abs_err=err, tolerance=tol, map_means_max_abs_err=err_m,
+                 map_tolerance=1e-5, score_range=[float(want[ok].min()),
+                                                  float(want[ok].max())])
+            del m32, c32, svc32
+            stdout, stderr = cli.communicate(timeout=600)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+        if cli.returncode != 0:
+            raise AssertionError(f"serve exit {cli.returncode}: "
+                                 f"{stderr[-2000:]}")
+        resps = [json.loads(line) for line in stdout.splitlines()]
+        stats = check_stdio(resps, maps_dir)
+        emit("serve", step="cli_stdio", exit_code=cli.returncode,
+             responses=len(resps), stats=stats,
+             ready=stderr.strip().splitlines()[-1])
+    return launches
+
+
+def run_dual(torch, np, card: str):
+    """Phase 8 (dual): DualScorer(resnet50_clip, 224, bf16) — stages_cnn at
+    depth 3 and the CLU decoder (bf16) on ONE tower pass an image.  Returns
+    {kernel: launches in one score_folders batch of 32 pairs}."""
+    import dataclasses
+    import shutil
+
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        LocalModelConfig,
+    )
+    from srsem_torch.eval.dataset_sweep import DualScorer
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.ops import fused_decoder as fd
+    from srsem_torch.ops import fused_head as fh
+
+    bb = BackboneConfig(kind="resnet50_clip", image_size=IMAGE,
+                        compute_dtype="bfloat16")
+    gcfg = GlobalModelConfig(backbone=bb, head="stages_cnn", depth=3)
+    lcfg = LocalModelConfig(backbone=bb, decoder_dtype="bfloat16", v2=False)
+
+    def models(g, lc):
+        gm = seeded_model(torch, np, g)
+        lm = seeded_clu(torch, np, lc)
+        lm.backbone.load_state_dict(gm.backbone.state_dict())
+        return gm, lm
+
+    gm, lm = models(gcfg, lcfg)
+    dual = DualScorer(gcfg, lcfg, gm, lm, batch_size=DUAL_BATCH)
+    wrappers = {"fused_stage_score": fh.fused_global_score,
+                "fused_bottleneck": fb.fused_bottleneck,
+                "fused_bottleneck_tiled": fb.fused_bottleneck_tiled,
+                "fused_decoder_level": fd.fused_decoder_level,
+                "fused_decoder_level_tiled": fd.fused_decoder_level_tiled}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pairs = write_pairs(np, tmp, 8)
+        gt_dir, sr_dir = tmp / "HQ", tmp / "sr_out"
+        gt_dir.mkdir()
+        sr_dir.mkdir()
+        for i, (pa, pb) in enumerate(pairs):  # the last SR is corrupt
+            shutil.copy(pa, gt_dir / f"{i}.png")
+            shutil.copy(pb, sr_dir / f"{i}.jpg")
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rows = dual.score_folders(str(gt_dir), str(sr_dir))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        want = {"fused_stage_score": 1,
+                "fused_bottleneck": 2 * PASS_CALLS["fused_bottleneck"],
+                "fused_bottleneck_tiled": 2 * PASS_CALLS[
+                    "fused_bottleneck_tiled"],
+                "fused_decoder_level": 1, "fused_decoder_level_tiled": 2}
+        if launches != want:
+            raise AssertionError(f"dual path launched {launches}, want {want}"
+                                 " (one tower pass an image for both heads)")
+        nan = [np.isnan(r["score"]) for r in rows]
+        last = len(rows) - 1
+        if not (nan == [i == last for i in range(len(rows))]
+                and all(np.isnan(rows[last][k]) for k in ("map_mean",
+                                                          "map_min"))
+                and all(r["score"] > 0 and 0.5 <= r["map_min"] <= r["map_mean"]
+                        <= 1.0 for r in rows[:last])):
+            raise AssertionError(f"dual score_folders rows: {rows}")
+        emit("dual", step="score_folders", pairs=len(rows), seconds=seconds,
+             launches=launches, rows=rows)
+
+        # float32 (TF32 off): the dual scorer against the two PairScorers.
+        decode = dual.preprocess.decode_uint8
+        a = np.stack([decode(p[0]) for p in pairs[:-1]])
+        b = np.stack([decode(p[1]) for p in pairs[:-1]])
+        g32 = dataclasses.replace(gcfg, backbone=dataclasses.replace(
+            bb, compute_dtype="float32"))
+        l32 = dataclasses.replace(lcfg, decoder_dtype="float32",
+                                  backbone=g32.backbone)
+        gm32, lm32 = models(g32, l32)
+        scores, maps = DualScorer(g32, l32, gm32, lm32,
+                                  batch_size=len(a)).score_both(a, b)
+        want_s = PairScorer(g32, gm32, batch_size=len(a)).score_arrays(a, b)
+        want_m = PairScorer(l32, lm32, batch_size=len(a),
+                            model_kind="local").score_arrays(a, b)
+        errs = {}
+        for key, got, ref in (("scores", scores, want_s),
+                              ("maps", maps, want_m)):
+            err = float((got - ref).abs().max())
+            tol = 1e-5 + 1e-5 * float(ref.abs().max())
+            if err > tol:
+                raise AssertionError(f"f32 dual {key} vs PairScorer: {err} > "
+                                     f"{tol}")
+            errs[key] = {"max_abs_err": err, "tolerance": tol}
+        emit("dual", step="f32_dual_vs_pair_scorers", **errs,
+             score_range=[float(want_s.min()), float(want_s.max())])
+        del gm32, lm32, scores, maps, want_s, want_m
+
+        # pairs/s at batch 32: the dual scorer against the global and the
+        # local PairScorer run one after the other, in turns.
+        rng = np.random.default_rng(3)
+        a32 = rng.integers(0, 256, (DUAL_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)
+        b32 = np.clip(a32.astype(int) + rng.integers(-20, 21, a32.shape),
+                      0, 255).astype(np.uint8)
+        pg = PairScorer(gcfg, gm, batch_size=DUAL_BATCH)
+        pl = PairScorer(lcfg, lm, batch_size=DUAL_BATCH, model_kind="local")
+
+        def rate(call, reps=5):
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+            return DUAL_BATCH * reps / (time.perf_counter() - t0)
+
+        both = lambda: dual.score_both(a32, b32)  # noqa: E731
+        two = lambda: (pg.score_arrays(a32, b32),  # noqa: E731
+                       pl.score_arrays(a32, b32))
+        dual_rates, two_rates = [rate(both)], [rate(two)]
+        two_rates.append(rate(two))
+        dual_rates.append(rate(both))
+        # The CLIP attention pool the scorers compute and discard: device
+        # ms a call at the batch's layer-4 output (two calls a batch).
+        h = torch.randn(DUAL_BATCH, 2048, IMAGE // 32, IMAGE // 32,
+                        device=dual.device).to(torch.bfloat16)
+        with torch.inference_mode():
+            attn_ms = cuda_ms(torch, lambda: gm.backbone.attnpool(h), 20)
+        emit("dual", step="throughput", batch=DUAL_BATCH, dtype="bfloat16",
+             image=IMAGE, dual_pairs_per_s=dual_rates,
+             two_scorers_pairs_per_s=two_rates,
+             speedup=sum(dual_rates) / sum(two_rates),
+             attnpool_ms_per_call=attn_ms, attnpool_calls_per_batch=2,
+             card=card)
+        emit("dual", step="profile", card=card,
+             **profile_scoring(torch, types.SimpleNamespace(
+                 score_arrays=dual.score_both), a32, b32))
+        del pg, pl
+
+        # The CLI entry point, as a user runs it.
+        template = str(tmp / "scores_{folder}.csv")
+        proc = subprocess.run(
+            [sys.executable, "-m", "srsem_torch", "sweep-dataset",
+             str(gt_dir), str(sr_dir), "--batch-size", "8",
+             "--out-template", template],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"sweep-dataset exit {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        lines = (tmp / "scores_sr_out.csv").read_text().splitlines()
+        if (result[str(sr_dir)]["nan"] != 1 or len(lines) != len(pairs) + 1
+                or not lines[-1].endswith(",nan,nan,nan")):
+            raise AssertionError(f"sweep-dataset result {result}, {lines}")
+        emit("dual", step="cli_sweep_dataset", result=result)
+        run_native(torch, np, card, pairs, (gcfg, gm))
+    return launches
+
+
+def run_native(torch, np, card: str, pairs, global_model) -> None:
+    """The native line: whether the C++ decoder built here (and why not),
+    the host seconds an image costs through it and through PIL (one
+    thread), its bytes against PIL's within the JAX test's limits, and
+    PairScorer(decode_backend="native") with a NaN row on exactly the
+    corrupt file.  An unavailable library does not fail the run (the JAX
+    package then uses PIL), and no native result is printed without it."""
+    import os
+
+    from srsem_torch import native
+    from srsem_torch.data.preprocess import Preprocess
+    from srsem_torch.eval.scorer import PairScorer
+
+    ok = native.available()
+    pre = Preprocess.for_backbone(global_model[0].backbone.kind, IMAGE)
+    files = [p for pair in pairs[:-1] for p in pair]
+
+    def per_image(fn, reps=3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for f in files:
+                fn(f)
+        return (time.perf_counter() - t0) / (reps * len(files))
+
+    line = {"available": ok, "build_error": native.build_error(),
+            "cpu_count": os.cpu_count(), "images": len(files),
+            "pil_seconds_per_image": per_image(pre.decode_uint8),
+            "native_seconds_per_image": "not measured: library unavailable"}
+    if ok:
+        line["native_seconds_per_image"] = per_image(pre.decode_uint8_native)
+        diffs = []
+        for f in files:
+            if f.endswith(".png"):
+                diffs.append(np.abs(pre.decode_uint8_native(f).astype(int)
+                                    - pre.decode_uint8(f).astype(int)))
+        d = np.concatenate([x.ravel() for x in diffs])
+        stats = {"mean": float(d.mean()),
+                 "q999": float(np.quantile(d, 0.999)), "max": int(d.max())}
+        if not (stats["mean"] < 0.5 and stats["q999"] <= 6
+                and stats["max"] <= 16):
+            raise AssertionError(f"native vs PIL bytes: {stats}")
+        scores = PairScorer(*global_model, batch_size=8,
+                            decode_backend="native").score_paths(pairs)
+        nan = np.isnan(scores)
+        if not (nan[-1] and not nan[:-1].any()):
+            raise AssertionError(f"native score_paths: NaN rows {nan}")
+        line.update(png_vs_pil=stats, score_paths_nan_rows=nan.tolist())
+    emit("native", card=card, **line)
+
+
 # Stack frame bytes of each head-kernel instance (dtype 0 f32, 1 bf16,
 # 2 f16; KT SR images an item) at four stages (ptxas -v, H100 build of
 # csrc/fused_head.cu before the limit went to 12).  Twelve stage
@@ -1398,7 +2088,8 @@ def main() -> int:
     # Each path's launch counts, each from its own reset-then-run.
     runs = {}
     for path, fn in (("global", run_slice), ("clu", run_clu_slice),
-                     ("wperlay", run_heads)):
+                     ("wperlay", run_heads), ("serve", run_serve),
+                     ("dual", run_dual)):
         t0 = time.perf_counter()
         runs[path] = fn(torch, np, card)
         seconds[path] = time.perf_counter() - t0

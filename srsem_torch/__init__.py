@@ -17,6 +17,10 @@ mirrors the JAX package's module paths so each counterpart is easy to find:
 * ``eval.scorer``            — srsem/eval/scorer.py (PairScorer)
 * ``eval.grouped``           — srsem/eval/grouped.py (GroupedPairScorer,
   GroupedMapScorer)
+* ``eval.dataset_sweep``     — srsem/eval/dataset_sweep.py (DualScorer)
+* ``cli.serve``              — srsem/cli/serve.py (ScoreService, serve)
+* ``native``                 — srsem/native (C++ JPEG/PNG decoder, g++)
+* ``utils.profiling``        — srsem/utils/profiling.py (torch.profiler)
 * ``train.checkpoint``       — srsem/train/checkpoint.py (flax msgpack)
 * ``train.partition``        — srsem/train/partition.py
 * ``utils.convert``          — weights from JAX params / torchvision / CLIP

@@ -1,14 +1,20 @@
 """``python -m srsem_torch`` — the port's command line (the ``score``,
-``score-groups`` and ``score-maps-groups`` subcommands of srsem/cli/main.py
-so far).
+``score-groups``, ``score-maps-groups``, ``serve``, ``sweep-dataset`` and
+``info`` subcommands of srsem/cli/main.py so far, and the global
+``--profile DIR``).
 
     python -m srsem_torch score pairs.csv --backbone resnet50 [--device cpu]
     python -m srsem_torch score pairs.csv --backbone resnet50_clip \
         --set head=wperlay_cnn --set depth=11 --checkpoint CKPT_DIR
     python -m srsem_torch score-groups GT_DIR SR_DIR... [--device cpu]
     python -m srsem_torch score-maps-groups GT_DIR SR_DIR... [--device cpu]
+    python -m srsem_torch serve --warmup-k 1 4 --with-maps < requests.jsonl
+    python -m srsem_torch sweep-dataset GT_DIR SR_DIR... [--device cpu]
+    python -m srsem_torch info [--native] [--devices]
+    python -m srsem_torch --profile DIR score-groups GT_DIR SR_DIR...
 
-Flags follow srsem/cli/main.py (:957-979, :1119-1150 and :1206-1246), plus
+Flags follow srsem/cli/main.py (:957-979, :1119-1205, :1206-1246 and
+:1297-1328), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path) and
 ``--no-fused-tower`` / ``--no-fused-decoder`` (the port runs its Hopper
 kernels by default).  ``--checkpoint DIR`` reads the JAX package's
@@ -127,17 +133,17 @@ def cmd_score(args) -> int:
     return 0
 
 
-def _write_rows(path: str, rows: List[dict]) -> int:
-    """Write row dicts (``image_name`` + float columns) with ``csv``;
-    returns the number of rows holding a NaN."""
+def _write_rows(path: str, rows: List[dict], key: str = "image_name") -> int:
+    """Write row dicts (a ``key`` name column + float columns) with
+    ``csv``; returns the number of rows holding a NaN."""
     import math
 
-    fields = list(rows[0]) if rows else ["image_name"]
+    fields = list(rows[0]) if rows else [key]
     with open(path, "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=fields)
         writer.writeheader()
         for row in rows:
-            writer.writerow({k: v if k == "image_name" else repr(float(v))
+            writer.writerow({k: v if k == key else repr(float(v))
                              for k, v in row.items()})
     return sum(any(isinstance(v, float) and math.isnan(v) for v in r.values())
                for r in rows)
@@ -201,8 +207,105 @@ def cmd_score_maps_groups(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Persistent scoring service (srsem_torch/cli/serve.py)."""
+    from srsem_torch.cli.serve import run_serve
+
+    return run_serve(args)
+
+
+def cmd_sweep_dataset(args) -> int:
+    """Global scores + CLU maps over GT/SR folders with one shared tower
+    pass (srsem_torch/eval/dataset_sweep.py::DualScorer); one CSV a SR
+    folder."""
+    import torch
+
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        LocalModelConfig,
+    )
+    from srsem_torch.eval.dataset_sweep import DualScorer
+    from srsem_torch.models.global_models import make_global_model
+    from srsem_torch.models.local_models import make_local_model
+
+    bb = BackboneConfig(kind=args.backbone)
+    gcfg = GlobalModelConfig(backbone=bb, head="stages_cnn", depth=3)
+    lcfg = LocalModelConfig(backbone=bb)
+    gmodel = make_global_model(gcfg, torch.Generator().manual_seed(0))
+    lmodel = make_local_model(lcfg, generator=torch.Generator().manual_seed(1))
+    scorer = DualScorer(gcfg, lcfg, gmodel, lmodel,
+                        batch_size=args.batch_size,
+                        fused_tower=args.fused_tower,
+                        fused_decoder=args.fused_decoder,
+                        fast_jpeg=args.fast_jpeg, device=args.device)
+    summary = {}
+    for sr_folder in args.sr_folders:
+        rows = scorer.score_folders(args.gt_folder, sr_folder)
+        out = args.out_template.format(
+            folder=sr_folder.rstrip("/").split("/")[-1])
+        nan = _write_rows(out, rows, key="image")
+        summary[sr_folder] = {"pairs": len(rows), "nan": nan, "out": out}
+    print(json.dumps({**summary, "device": str(scorer.device)}))
+    return 0
+
+
+def cmd_info(args) -> int:
+    """Deployment diagnostic: versions, host, nvcc, native decoder, env
+    knobs.  Headless by default: without ``--devices`` nothing here
+    initializes CUDA, so it is safe next to a live ``serve``.  ``--native``
+    builds/loads the C++ decoder.  One JSON object on stdout."""
+    import os
+    import platform
+    from importlib import metadata
+
+    import torch
+
+    from srsem_torch.ops import _build
+
+    def _version(dist: str) -> str:
+        try:
+            return metadata.version(dist)
+        except metadata.PackageNotFoundError:
+            return "not-installed"
+
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    out: Dict[str, Any] = {
+        "python": platform.python_version(),
+        "platform": platform.platform(),
+        "cpu_count": os.cpu_count(),
+        "versions": {d: _version(d) for d in ("torch", "numpy", "Pillow")},
+        "torch_cuda": torch.version.cuda,
+        "nvcc": nvcc,
+        "env": {k: os.environ[k] for k in ("CUDA_VISIBLE_DEVICES",
+                                           "CUDA_HOME")
+                if k in os.environ},
+    }
+    if args.native:
+        from srsem_torch import native
+
+        out["native_decoder"] = {"available": native.available(),
+                                 "build_error": native.build_error()}
+    if args.devices:
+        # THIS initializes CUDA.
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        out["cuda"] = {"device_count": count,
+                       "devices": [torch.cuda.get_device_name(i)
+                                   for i in range(count)]}
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="srsem_torch")
+    parser.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="capture a torch.profiler trace (CPU, and CUDA where a card "
+             "is present) of the subcommand into DIR/trace.json (Chrome "
+             "trace format; goes BEFORE the subcommand)")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("score", help="batch-score GT/SR pairs from a CSV")
@@ -307,7 +410,101 @@ def main(argv=None) -> int:
                    help="config override, e.g. decoder_dtype=bfloat16")
     p.set_defaults(fn=cmd_score_maps_groups)
 
+    p = sub.add_parser(
+        "serve", help="persistent scoring service: JSONL requests over "
+        "stdio (or --http PORT) against a model built once — see "
+        "srsem_torch/cli/serve.py for the protocol")
+    p.add_argument("--backbone", default="resnet50")
+    p.add_argument("--head", default="stages_cnn",
+                   choices=["stages_cnn", "wperlay_cnn", "single_lin_vit",
+                            "stages_vit", "wperlay_vit"],
+                   help="a grouped-scorable head (wperlay_cnn needs "
+                        "--backbone resnet50_clip; the ViT heads wait for "
+                        "the ViT tower, ROADMAP A10)")
+    p.add_argument("--depth", type=int, default=3)
+    p.add_argument("--checkpoint",
+                   help="checkpoint directory (latest.json + step_N.msgpack) "
+                        "whose trained head is loaded over the model")
+    p.add_argument("--backbone-checkpoint", default=None,
+                   help="converted tower param tree (.msgpack, srsem "
+                        "convert) or torchvision resnet50 / OpenAI-CLIP "
+                        "state dict (.pt) to load into the tower")
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--group-batch", type=int, default=8,
+                   help="largest device group batch G: requests are padded "
+                        "to (G, K) with G from a power-of-two bucket ladder "
+                        "up to this")
+    p.add_argument("--num-workers", type=int, default=16,
+                   help="host decode thread pool size")
+    p.add_argument("--decode-cache", type=int, default=256,
+                   help="decoded-image LRU entries (repeat GTs skip host "
+                        "decode; keyed on path+mtime; 0 disables)")
+    p.add_argument("--linger-ms", type=float, default=None,
+                   help="micro-batch collection window: wait up to this "
+                        "long for more same-K requests before the device "
+                        "call (0 = score whatever is already queued; "
+                        "default 0 for stdio, 2 ms for the HTTP batcher)")
+    p.add_argument("--http", type=int, default=None, metavar="PORT",
+                   help="serve an embedded HTTP endpoint (POST /, same "
+                        "JSON schema) instead of stdio; 0 binds a free port")
+    p.add_argument("--fast-jpeg", action="store_true",
+                   help="DCT-scaled JPEG decode for large SR outputs")
+    p.add_argument("--with-maps", action="store_true",
+                   help="also serve CLU fidelity-map requests "
+                        '({"maps": true[, "maps_dir": DIR]} in the '
+                        "request: map mean/min summaries, full maps as "
+                        ".npy under maps_dir)")
+    p.add_argument("--clu-backbone", default="resnet50_clip",
+                   choices=["resnet50_clip", "resnet50"],
+                   help="CLU backbone for --with-maps")
+    p.add_argument("--clu-checkpoint", default=None,
+                   help="trained CLU decoder checkpoint for --with-maps")
+    p.add_argument("--warmup-k", type=int, nargs="*", default=[1],
+                   help="build the kernels and run every (G, K) bucket for "
+                        "these K values before accepting requests (prints "
+                        "a ready line on stderr)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("sweep-dataset", help="global scores + CLU maps "
+                       "over GT/SR folders with one shared tower pass")
+    p.add_argument("gt_folder")
+    p.add_argument("sr_folders", nargs="+")
+    p.add_argument("--backbone", default="resnet50_clip")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="tower interiors through the Hopper bottleneck "
+                        "kernel (default)")
+    p.add_argument("--fused-decoder", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="decoder levels 0-2 through the Hopper decoder "
+                        "kernel, serving BN folded (default)")
+    p.add_argument("--fast-jpeg", action="store_true",
+                   help="DCT-scaled JPEG decode (PIL draft semantics)")
+    p.add_argument("--out-template", default="scores_{folder}.csv")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.set_defaults(fn=cmd_sweep_dataset)
+
+    p = sub.add_parser(
+        "info", help="environment diagnostic: versions, host, nvcc, native "
+                     "decoder, env knobs (headless unless --devices)")
+    p.add_argument("--devices", action="store_true",
+                   help="probe torch.cuda (initializes CUDA)")
+    p.add_argument("--native", action="store_true",
+                   help="build/load the C++ decoder and report its status")
+    p.set_defaults(fn=cmd_info)
+
     args = parser.parse_args(argv)
+    if args.profile:
+        from srsem_torch.utils.profiling import capture_trace
+
+        with capture_trace(args.profile):
+            return args.fn(args)
     return args.fn(args)
 
 

@@ -7,7 +7,8 @@ backbones use crop_pct 1.0 and CLIP mean/std; the ImageNet backbone uses
 crop_pct 0.875 and ImageNet mean/std.
 
 Decode + resize + crop run on host threads and produce HWC uint8 (PIL, the
-same code as the JAX package, so the bytes are identical); the
+same code as the JAX package, so the bytes are identical; or the native
+C++ decoder, srsem_torch/native, with ``decode_uint8_native``); the
 scale+normalize step runs on the device (``device_normalize``), so only 3
 bytes a pixel cross PCIe.
 """
@@ -56,11 +57,22 @@ class Preprocess:
         raise ValueError(f"unknown backbone kind {kind!r}")
 
     def decode_uint8_native(self, path: str) -> Optional[np.ndarray]:
-        """The C++ decoder (srsem/native/decoder.cpp) is host code, not a
-        kernel; its port waits for ROADMAP A2."""
-        raise NotImplementedError(
-            "native decode is not ported yet (ROADMAP A2) — use the PIL "
-            "backend (decode_uint8)")
+        """The C++ decoder (srsem_torch/native): libjpeg/libpng decode +
+        bicubic resample, within ~0.2 LSB mean of PIL.  Returns None when
+        the native library is unavailable or the file fails to decode."""
+        from srsem_torch import native
+
+        if not native.available():
+            return None
+        return native.decode(path, self.size, self.crop_pct,
+                             fast_jpeg=self.fast_jpeg)
+
+    def decode_batch_native(self, paths, n_threads: int = 16):
+        """Batch C++ decode → (N, size, size, 3) uint8 + ok mask."""
+        from srsem_torch import native
+
+        return native.decode_batch(paths, self.size, self.crop_pct,
+                                   n_threads, fast_jpeg=self.fast_jpeg)
 
     def decode_uint8(self, path_or_img) -> np.ndarray:
         """Host path: decode → shortest-edge bicubic resize → center crop.
@@ -96,3 +108,7 @@ class Preprocess:
         mean = torch.tensor(self.mean, dtype=torch.float32, device=x.device)
         std = torch.tensor(self.std, dtype=torch.float32, device=x.device)
         return (x - mean) / std
+
+
+def decode_image(path, size: int = 224, kind: str = "resnet50_clip") -> np.ndarray:
+    return Preprocess.for_backbone(kind, size).decode_uint8(path)

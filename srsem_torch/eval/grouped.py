@@ -113,38 +113,54 @@ def _decoded_group_chunks(preprocess, stems: Sequence[str],
         yield chunk, gt, sr, ok
 
 
+def check_grouped_head(head: str) -> None:
+    """Raise unless ``head`` has a grouped form in the port."""
+    if head not in GROUPED_HEADS:
+        raise ValueError(
+            f"grouped scoring supports the linear-to-scalar heads "
+            f"{GROUPED_HEADS}, got {head!r} — use PairScorer")
+    if head not in CONV_HEADS:
+        raise NotImplementedError(
+            f"grouped head {head!r} needs the ViT tower, which is not "
+            "ported yet (ROADMAP A10)")
+
+
+def _check_shared(pairs: PairScorer, model, kind: str) -> None:
+    """A shared core must score ``model`` in the scorer's kind."""
+    if pairs.model is not model or pairs.model_kind != kind:
+        raise ValueError(f"the shared PairScorer must be a {kind!r} scorer of "
+                         "the same model")
+
+
 class GroupedPairScorer:
     """Batched scorer for (GT, [SR_1..SR_K]) groups:
     ``score_arrays(gt_u8 (G,H,W,3), sr_u8 (G,K,H,W,3)) -> (G,K)`` float32
     on the scorer's device, the scores of the K pairs scored apart (the
     head's sums run in another order).  Two tower passes (G, then G·K
     images) and one head launch a batch; the tower path (``fused_tower``)
-    and the packed head are PairScorer's."""
+    and the packed head are PairScorer's.  ``pairs``, a PairScorer of the
+    same model, lets several grouped scorers (a service's (K, G) buckets)
+    share one copy of the folded tower and the packed head on the card."""
 
     def __init__(self, cfg, model, k: int, batch_size: int = 32,
                  num_workers: int = 16, fused_tower: bool = True,
-                 fast_jpeg: bool = False, device: DeviceLike = None):
-        if cfg.head not in GROUPED_HEADS:
-            raise ValueError(
-                f"grouped scoring supports the linear-to-scalar heads "
-                f"{GROUPED_HEADS}, got {cfg.head!r} — use PairScorer")
-        if cfg.head not in CONV_HEADS:
-            raise NotImplementedError(
-                f"grouped head {cfg.head!r} needs the ViT tower, which is not "
-                "ported yet (ROADMAP A10)")
+                 fast_jpeg: bool = False, device: DeviceLike = None,
+                 pairs: Optional[PairScorer] = None):
+        check_grouped_head(cfg.head)
         self.k = k
         self.batch_size = batch_size
         self.num_workers = num_workers
-        self.pairs = PairScorer(cfg, model, batch_size=batch_size,
-                                fused_tower=fused_tower, fast_jpeg=fast_jpeg,
-                                device=device)
+        self.pairs = pairs or PairScorer(
+            cfg, model, batch_size=batch_size, fused_tower=fused_tower,
+            fast_jpeg=fast_jpeg, device=device)
+        _check_shared(self.pairs, model, "global")
         self.preprocess = self.pairs.preprocess
         self.device = self.pairs.device
 
     @torch.inference_mode()
     def score_arrays(self, gt_u8: np.ndarray, sr_u8: np.ndarray) -> torch.Tensor:
         """(G,H,W,3) GT + (G,K,H,W,3) SR uint8 → (G,K) float32 scores on
-        the scorer's device."""
+        the scorer's device.  G and K come from the input's shape."""
         sc = self.pairs
         g, kk = sr_u8.shape[:2]
         gt = sc.normalize(gt_u8)
@@ -182,17 +198,20 @@ class GroupedPairScorer:
 class GroupedMapScorer:
     """Grouped CLU map scoring: (GT, [SR_1..K]) → (G, K, H, W) fidelity maps
     with one shared GT tower pass per group.  The tower and decoder paths
-    (``fused_tower``, ``fused_decoder``) are PairScorer's."""
+    (``fused_tower``, ``fused_decoder``) are PairScorer's; ``pairs`` shares
+    one (``model_kind="local"``) as GroupedPairScorer's does."""
 
     def __init__(self, cfg, model, k: int, batch_size: int = 8,
                  fused_tower: bool = True, fused_decoder: bool = True,
-                 fast_jpeg: bool = False, device: DeviceLike = None):
+                 fast_jpeg: bool = False, device: DeviceLike = None,
+                 pairs: Optional[PairScorer] = None):
         self.k = k
         self.batch_size = batch_size
-        self.pairs = PairScorer(cfg, model, batch_size=batch_size,
-                                model_kind="local", fused_tower=fused_tower,
-                                fused_decoder=fused_decoder,
-                                fast_jpeg=fast_jpeg, device=device)
+        self.pairs = pairs or PairScorer(
+            cfg, model, batch_size=batch_size, model_kind="local",
+            fused_tower=fused_tower, fused_decoder=fused_decoder,
+            fast_jpeg=fast_jpeg, device=device)
+        _check_shared(self.pairs, model, "local")
         self.preprocess = self.pairs.preprocess
         self.device = self.pairs.device
 

@@ -3,7 +3,8 @@
 fidelity map.
 
 * host threads decode JPEG/PNG and do the antialiased resize + crop to
-  uint8 (srsem_torch/data/preprocess.py);
+  uint8 (srsem_torch/data/preprocess.py: PIL, or the native C++ decoder
+  with ``decode_backend="native"``);
 * uint8 batches go to the device (3 bytes a pixel), where normalize →
   tower → head run;
 * double-buffering: batch i+1 decodes while batch i computes;
@@ -27,7 +28,7 @@ b).  After the tower, by model:
   ``fused_decoder`` is on (the default, None, turns it on for a CluUnet),
   else through the module's ``decode_from_diffs``.
 
-One card, no mesh: multi-GPU waits for ROADMAP A9.
+One card, no mesh: multi-GPU waits for ROADMAP A9b.
 """
 
 from __future__ import annotations
@@ -78,10 +79,22 @@ class PairScorer:
         if model_kind not in ("global", "local"):
             raise ValueError(f"model_kind must be 'global' or 'local', got "
                              f"{model_kind!r}")
-        if decode_backend != "pil":
-            raise NotImplementedError(
-                f"decode_backend {decode_backend!r} is not ported yet "
-                "(native decode: ROADMAP A2)")
+        if decode_backend not in ("pil", "native"):
+            raise ValueError(f"decode_backend must be 'pil' or 'native', got "
+                             f"{decode_backend!r}")
+        if decode_backend == "native":
+            # Fail fast on the config error: decode_uint8_native returns
+            # None both for "library not built" and "file undecodable", so
+            # without this check a missing library would surface as an
+            # all-NaN result set.
+            from srsem_torch import native
+
+            if not native.available():
+                raise RuntimeError(
+                    "decode_backend='native' but the native decoder is "
+                    "unavailable — build srsem_torch/native (see `python -m "
+                    "srsem_torch info --native`) or use the default PIL "
+                    "backend")
         if cfg.backbone.kind not in ("resnet50", "resnet50_clip"):
             raise NotImplementedError(
                 f"backbone {cfg.backbone.kind!r} is not ported yet "
@@ -91,6 +104,7 @@ class PairScorer:
         self.model_kind = model_kind
         self.batch_size = batch_size
         self.num_workers = num_workers
+        self.decode_backend = decode_backend
         self.fused_tower = fused_tower
         self.is_clu = isinstance(model, CluUnet)
         if model_kind == "local" and not self.is_clu:
@@ -155,9 +169,17 @@ class PairScorer:
 
     # ---- end-to-end path -------------------------------------------------
 
+    def _decode_one(self, path: str) -> np.ndarray:
+        if self.decode_backend == "native":
+            # C++ decode (GIL-free inside the thread pool; srsem_torch/native).
+            img = self.preprocess.decode_uint8_native(path)
+            if img is None:
+                raise IOError(f"native decode failed: {path}")
+            return img
+        return self.preprocess.decode_uint8(path)
+
     def _decode_pair(self, pair: Tuple[str, str]):
-        return (self.preprocess.decode_uint8(pair[0]),
-                self.preprocess.decode_uint8(pair[1]))
+        return self._decode_one(pair[0]), self._decode_one(pair[1])
 
     def _safe_decode(self, pair):
         try:

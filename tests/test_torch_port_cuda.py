@@ -1,5 +1,7 @@
 """The port's kernels against their plain PyTorch versions on a CUDA card:
-the head (csrc/fused_head.cu), the bottleneck and the decoder level.
+the head (csrc/fused_head.cu), the bottleneck and the decoder level; the
+scoring service and the dual scorer on the card against the scorers they
+share kernels with.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed, with the repo's
@@ -357,3 +359,118 @@ def test_decoder_pads_odd_skip_for_tensor_cores(cuda_device):
                                mk(3, 3, 257, 256), mk(3, 3, 512, 256),
                                mk(256), mk(3, 3, 256, 256), mk(256), 3)
         assert args[0].shape[-1] == want and args[2].shape[1] == want
+
+
+def _serving_models(size):
+    """A global model (resnet50_clip, stages_cnn, depth 3, live head) and
+    a CluUnet on the same tower, seeded, float32, at ``size`` px."""
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        LocalModelConfig,
+    )
+    from srsem_torch.models.global_models import make_global_model
+    from srsem_torch.models.local_models import make_local_model
+
+    bb = BackboneConfig(kind="resnet50_clip", image_size=size,
+                        compute_dtype="float32")
+    gcfg = GlobalModelConfig(backbone=bb, head="stages_cnn", depth=3)
+    lcfg = LocalModelConfig(backbone=bb)
+    gm = make_global_model(gcfg, torch.Generator().manual_seed(3))
+    lm = make_local_model(lcfg, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        for layer in gm.aggregator.w_layers:
+            layer.weight.abs_().mul_(100.0)
+            layer.bias.add_(1.0)
+        lm.decoder[0][3].weight.mul_(0.1)
+        lm.decoder[0][3].bias.add_(0.5)
+    lm.backbone.load_state_dict(gm.backbone.state_dict())
+    return gcfg, gm, lcfg, lm
+
+
+def _images(tmp_path, n, size, seed):
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        img = rng.integers(0, 256, (size + 8, size + 16, 3), dtype=np.uint8)
+        p = tmp_path / f"im{seed}_{i}.png"
+        Image.fromarray(img).save(p)
+        paths.append(str(p))
+    return paths
+
+
+def _close(got, want):
+    """1e-5 + 1e-5 * max|want|: the head's tolerance (the same kernels on
+    the same taps, float32 sums in another order)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    tol = 1e-5 + 1e-5 * float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+def test_score_service_matches_grouped_scorers(cuda_device, tmp_path):
+    """ScoreService on the card (float32, TF32 off) against the grouped
+    scorers on the same decoded images: scores and map means; one grouped
+    head launch a score batch, three decoder calls a maps batch."""
+    from srsem_torch.cli.serve import ScoreService
+    from srsem_torch.eval.grouped import GroupedMapScorer, GroupedPairScorer
+
+    gcfg, gm, lcfg, lm = _serving_models(64)
+    svc = ScoreService(gcfg, gm, group_batch=4, map_cfg=lcfg, map_model=lm)
+    svc.warmup([2])
+    files = _images(tmp_path, 9, 64, 0)
+    reqs = [{"id": i, "gt": files[3 * i], "sr": files[3 * i + 1: 3 * i + 3]}
+            for i in range(3)]
+    head0 = tfh.fused_grouped_score.launches
+    dec0 = (tfd.fused_decoder_level.launches,
+            tfd.fused_decoder_level_tiled.launches)
+    scores = svc.score_requests(reqs)
+    maps = svc.map_requests([dict(r, maps=True) for r in reqs])
+    assert tfh.fused_grouped_score.launches == head0 + 1
+    assert (tfd.fused_decoder_level.launches - dec0[0],
+            tfd.fused_decoder_level_tiled.launches - dec0[1]) == (1, 2)
+    svc.close()
+    pre = svc._core.preprocess
+    gt = np.stack([pre.decode_uint8(r["gt"]) for r in reqs])
+    sr = np.stack([np.stack([pre.decode_uint8(p) for p in r["sr"]])
+                   for r in reqs])
+    want = GroupedPairScorer(gcfg, gm, k=2).score_arrays(gt, sr).cpu()
+    assert bool((want > 1).all())
+    _close([r["scores"] for r in scores], want.numpy())
+    want_m = GroupedMapScorer(lcfg, lm, k=2).score_arrays(gt, sr).cpu()
+    np.testing.assert_allclose([r["map_means"] for r in maps],
+                               want_m.mean(dim=(2, 3)).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_dual_scorer_matches_pair_scorers(cuda_device):
+    """DualScorer on the card (float32, TF32 off): one tower pass an image
+    feeding both heads == the global and the local PairScorer (the same
+    kernels on the same taps); 24 bottleneck calls a batch, not 48."""
+    from srsem_torch.eval.dataset_sweep import DualScorer
+    from srsem_torch.eval.scorer import PairScorer
+
+    gcfg, gm, lcfg, lm = _serving_models(64)
+    dual = DualScorer(gcfg, lcfg, gm, lm, batch_size=4)
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-30, 31, a.shape), 0,
+                255).astype(np.uint8)
+    calls = tfb.fused_bottleneck.launches + tfb.fused_bottleneck_tiled.launches
+    scores, maps = dual.score_both(a, b)
+    torch.cuda.synchronize()
+    assert (tfb.fused_bottleneck.launches + tfb.fused_bottleneck_tiled.launches
+            - calls) == 24
+    want_s = PairScorer(gcfg, gm, batch_size=4).score_arrays(a, b)
+    want_m = PairScorer(lcfg, lm, batch_size=4,
+                        model_kind="local").score_arrays(a, b)
+    _close(scores.cpu().numpy(), want_s.cpu().numpy())
+    _close(maps.cpu().numpy(), want_m.cpu().numpy())
+    gs, gmaps = dual.score_group_arrays(a[:2], b.reshape(2, 2, 64, 64, 3))
+    ps, pm = dual.score_both(np.repeat(a[:2], 2, axis=0), b)
+    _close(gs.reshape(-1).cpu().numpy(), ps.cpu().numpy())
+    _close(gmaps.reshape(4, 64, 64).cpu().numpy(), pm.cpu().numpy())

@@ -184,8 +184,8 @@ def test_entry_points_refuse_cpu_fallback(port_model):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         PairScorer(CFG, port_model)
-    with pytest.raises(NotImplementedError, match="A2"):
-        PairScorer(CFG, port_model, decode_backend="native", device="cpu")
+    with pytest.raises(ValueError, match="decode_backend"):
+        PairScorer(CFG, port_model, decode_backend="opencv", device="cpu")
 
 
 _FORBIDDEN = ("jax", "flax", "msgpack", "srsem")
