@@ -91,13 +91,33 @@ Phases (each prints one JSON line; any failure exits non-zero):
              (mean < 0.5, 99.9% <= 6, max <= 16) and
              PairScorer(decode_backend="native") with a NaN row on exactly
              the corrupt file.
-9. result  — a ``timing`` line (seconds of each phase), the card line,
+9. train   — the training slice with a CLIP tower with random BN
+             statistics, written as an OpenAI-CLIP state dict and read
+             through ``--backbone-checkpoint``: ``train-global`` in process
+             at its defaults (resnet50_clip, 224, bf16 tower, stages_cnn
+             depth 3, batch 5) for two epochs over a synthetic user-study
+             set (SR = GT blended with a permuted copy at strength alpha,
+             label alpha) with a checkpoint directory; ``eval-global
+             --checkpoint --val-only``; ``score --checkpoint`` on the
+             validation pairs against the trained model's validation
+             predictions (1e-3 + 1e-3*max); ``train-clu`` at batch 80 over
+             a KonIQ-style pairs CSV with pickled maps (every decoder BN's
+             running statistics moved); the train path: one global step at
+             batch 5 and one CLU step at batch 80 with the launch counts
+             reset just before and read just after (a tower pass over the
+             2N images: 10 + 2 bottleneck calls each); throughput at batch
+             5 and 64 (global) and 80 (CLU): steps/s, pairs/s or maps/s,
+             peak memory, losses and a profile of three steps; one
+             float32 train step through the fused tower against the module
+             tower (loss rtol 1e-5, head atol 1e-6).
+10. result — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
              the paths that use it, worst bf16 error, and times summed
              over one scored batch's launches of each path at that
              path's shapes; under ``paths``, each path's own launches
              and times: global, clu, wperlay, serve (one score and one
-             maps batch), dual; the head's entry, ``fused_stage_score``
+             maps batch), dual, train (one global and one CLU train
+             step); the head's entry, ``fused_stage_score``
              after the TPU kernel it replaces, counts the whole-head
              launches of ``fused_global_score`` and, on the serve path,
              ``fused_grouped_score``), the device line.
@@ -218,11 +238,20 @@ BOTTLENECK_SHAPES = {path: [((n, 28, 28, 512), 128, 6),
 BOTTLENECK_SHAPES["serve"] = [((SERVE_G, 28, 28, 512), 128, 6),
                               ((SERVE_G, 14, 14, 1024), 256, 10),
                               ((SERVE_G, 7, 7, 2048), 512, 4)]
+# The train path: one global train step at batch 5 and one CLU train step
+# at batch 80, each one tower pass over its 2N images (10 and 160).
+BOTTLENECK_SHAPES["train"] = [((n, h, h, c), wd, k)
+                              for n in (10, 160)
+                              for (h, c, wd, k) in ((28, 512, 128, 3),
+                                                    (14, 1024, 256, 5),
+                                                    (7, 2048, 512, 2))]
 # Checked and not on the main path: ragged H and W (a ragged last flat
 # tile, ragged patches, an odd patch count).
 BOTTLENECK_SHAPES["global"].append(((9, 13, 11, 1024), 256, 0))
 TILED_SHAPES = {path: [((n, 56, 56, 256), 64, 4)]
                 for path, n in {**PATH_BATCH, "serve": SERVE_G}.items()}
+TILED_SHAPES["train"] = [((10, 56, 56, 256), 64, 2),
+                         ((160, 56, 56, 256), 64, 2)]
 # CLU decoder levels at batch 32, 224 px: (n, h, w, cd, cu, cm, co,
 # final_kernel, row tile, wrapper calls per scored batch).  The last two
 # rows are checked and not on the default path (v2's odd skip width;
@@ -735,18 +764,26 @@ def _kernel_group(name: str) -> str:
         return "decoder kernel"
     if "fused_head" in name:
         return "head kernel"
-    if "memcpy" in name.lower():
+    low = name.lower()
+    if "memcpy" in low:
         return "memcpy"
-    if any(k in name.lower() for k in ("conv", "xmma", "cudnn", "implicit",
-                                       "gemm", "cutlass", "sm90")):
+    if "adam" in low or "multi_tensor_apply" in low:
+        return "optimizer (Adam)"
+    if any(k in low for k in ("dgrad", "wgrad", "bprop", "backward")):
+        return "cudnn conv backward and other backward"
+    if any(k in low for k in ("conv", "xmma", "cudnn", "implicit",
+                              "gemm", "cutlass", "sm90")):
         return "cudnn conv"
     return "other (elementwise, pooling, casts)"
 
 
-def profile_scoring(torch, scorer, a, b, reps: int = 3) -> dict:
+def profile_scoring(torch, scorer, a, b, reps: int = 3,
+                    host_top: int = 0) -> dict:
     """torch.profiler over ``reps`` scored batches: the device's busy and
     idle share of the host wall time, and device ms a batch by group and
-    by kernel.  Busy time is the union of the device events' intervals."""
+    by kernel; with ``host_top``, the host operations that took the most
+    self CPU time, ms a batch.  Busy time is the union of the device
+    events' intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -779,7 +816,13 @@ def profile_scoring(torch, scorer, a, b, reps: int = 3) -> dict:
         g = _kernel_group(name)
         groups[g] = groups.get(g, 0.0) + us / reps / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"batches": reps, "wall_ms_per_batch": wall_us / reps / 1e3,
+    host = {}
+    if host_top:
+        avgs = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        host = {"host_self_cpu_ms_per_batch": {
+            e.key[:90]: e.self_cpu_time_total / reps / 1e3
+            for e in avgs[:host_top]}}
+    return {**host, "batches": reps, "wall_ms_per_batch": wall_us / reps / 1e3,
             "device_busy_ms_per_batch": busy / reps / 1e3,
             "busy_share": busy / wall_us, "idle_share": 1 - busy / wall_us,
             "device_ms_per_batch_by_group": groups,
@@ -2007,6 +2050,313 @@ def run_native(torch, np, card: str, pairs, global_model) -> None:
     emit("native", card=card, **line)
 
 
+# The train phase's batches: the reference batch sizes (TrainConfig's 5
+# for train-global, train-clu's 80) and the global scorer's batch of 64;
+# a train step runs the frozen tower once over its 2N images.
+TRAIN_BATCH, TRAIN_BIG_BATCH, CLU_TRAIN_BATCH = 5, BATCH, 80
+N_STUDY, N_CLU_ROWS = 48, 240
+TRAIN_DEVICE = "cuda"
+
+
+def write_study(np, root: Path):
+    """A user-study set at the reference layout: ``HQ/{i}.jpg`` and
+    ``SR/x4_{i}.png`` at 256x288, the SR the GT blended with a permuted
+    copy at strength alpha and labelled alpha (tests/test_srcc_rehearsal.py
+    plants its signal so), its CSV, and a KonIQ-style pairs CSV over the
+    same images with pickled 28x28 cosine maps."""
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.default_rng(4)
+    for d in ("SR", "HQ", "maps"):
+        (root / d).mkdir()
+    scores, pairs = [], []
+    for i in range(N_STUDY):
+        gt = rng.integers(0, 256, (256, 288, 3), dtype=np.uint8)
+        alpha = float(rng.uniform(0.05, 0.95))
+        perm = rng.permutation(gt.reshape(-1, 3)).reshape(gt.shape)
+        sr = ((1 - alpha) * gt + alpha * perm).astype(np.uint8)
+        Image.fromarray(gt).save(root / "HQ" / f"{i}.jpg", quality=90)
+        Image.fromarray(sr).save(root / "SR" / f"x4_{i}.png")
+        scores.append(f"x4_{i}.png,{alpha!r}")
+    (root / "study.csv").write_text(
+        "img_names,userStudyScores\n" + "\n".join(scores) + "\n")
+    rows = ["img_a_pth,img_b_pth,out_paths,ima_ncaps"]
+    for r in range(N_CLU_ROWS):
+        i = r % N_STUDY
+        path = root / "maps" / f"{r}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(rng.uniform(0, 1, (28, 28)).astype(np.float32), f)
+        rows.append(f"{root / 'HQ' / f'{i}.jpg'},{root / 'SR' / f'x4_{i}.png'},"
+                    f"{path},4")
+    (root / "pairs.csv").write_text("\n".join(rows) + "\n")
+
+
+def cli_json(argv) -> dict:
+    """``python -m srsem_torch ARGV`` in this process; its JSON line."""
+    import contextlib
+    import io
+
+    from srsem_torch.cli.main import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv + ["--device", TRAIN_DEVICE])
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def train_setup(torch, np, model, is_map: bool, fused: bool = True):
+    """The training loop's step functions for ``model`` on the card: Adam
+    over everything outside the tower, the steps over the folded tower
+    (or the module's, ``fused=False``)."""
+    from srsem_torch.train.loop import build_training
+    from srsem_torch.train.partition import trainable_predicate
+
+    return build_training(model, is_map, trainable_predicate(), 1e-4,
+                          torch.device(TRAIN_DEVICE), fused)[0]
+
+
+def host_batch(np, n: int, is_map: bool, seed: int):
+    """A normalized float32 host batch of ``n`` pairs at 224 px (what the
+    loader yields), labels in [0, 1] (maps for the CLU), all rows valid."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(np.float32)
+    b = (a + rng.standard_normal(a.shape)).astype(np.float32)
+    y = rng.uniform(0, 1, (n, IMAGE, IMAGE) if is_map else (n,))
+    return ((a, b), y.astype(np.float32)), np.ones((n,), np.float32)
+
+
+def train_rate(torch, np, steps, batch, n: int, reps: int) -> dict:
+    """Train steps/s and items/s over ``reps`` steps of ``batch`` (host to
+    card through pinned memory each step, as the loop does; one sync at
+    the end), the device memory (resident before the steps: every model
+    the phase holds; the peak; their difference, the step's own), the
+    losses, and a profile of three steps (busy share, device ms by group
+    and by kernel, the top host operations)."""
+    from srsem_torch.train.loop import batch_to_device
+
+    dev = torch.device(TRAIN_DEVICE)
+    step = lambda: steps.train_step(*batch_to_device(batch, dev))  # noqa: E731
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(reps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_scoring(torch, types.SimpleNamespace(
+        score_arrays=lambda *_: step()), None, None, host_top=10)
+    return {"batch": n, "steps": reps, "steps_per_s": reps / dt,
+            "items_per_s": n * reps / dt, "ms_per_step": dt / reps * 1e3,
+            "peak_memory_bytes": peak,
+            "resident_bytes_before": resident,
+            "step_memory_bytes": peak - resident,
+            "losses": [float(v) for v in losses], "profile": prof}
+
+
+def run_train(torch, np, card: str):
+    """Phase 9 (train): ``train-global`` at its defaults (resnet50_clip,
+    224, bf16 tower, stages_cnn depth 3, batch 5) for two epochs with a
+    checkpoint directory, ``eval-global`` and ``score`` on that checkpoint
+    (the scores are the trained model's validation predictions),
+    ``train-clu`` at batch 80 (the BN running statistics moved); the
+    launches of one global and one CLU train step (the train path);
+    throughput at batch 5, 64 (global) and 80 (CLU); one float32 train
+    step through the fused tower against the module tower (TF32 off).
+    Returns {kernel: launches in the two counted train steps}."""
+    import copy
+
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        LocalModelConfig,
+    )
+    from srsem_torch.models.global_models import make_global_model
+    from srsem_torch.models.local_models import make_local_model
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.train.checkpoint import restore_checkpoint
+    from srsem_torch.train.loop import batch_to_device
+    from srsem_torch.train.partition import flatten_dict
+    from srsem_torch.utils.convert import jax_trainable_params
+
+    def bb(dtype="bfloat16"):
+        return BackboneConfig(kind="resnet50_clip", image_size=IMAGE,
+                              compute_dtype=dtype)
+
+    dev = torch.device(TRAIN_DEVICE)
+
+    gcfg = GlobalModelConfig(backbone=bb(), head="stages_cnn", depth=3)
+    tower_model = make_global_model(gcfg, torch.Generator().manual_seed(7))
+    randomize_bn(torch, np, tower_model.backbone, np.random.default_rng(7))
+    tower = {k: v.clone() for k, v in tower_model.backbone.state_dict().items()}
+    del tower_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_study(np, tmp)
+        torch.save(tower, tmp / "tower.pt")
+        study = [str(tmp / "study.csv"), str(tmp)]
+        ck = tmp / "ckpt"
+        t0 = time.perf_counter()
+        trained = cli_json(["train-global", *study, "--backbone-checkpoint",
+                            str(tmp / "tower.pt"), "--checkpoint-dir", str(ck),
+                            "--train-set", "epochs=2"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n_val = round(N_STUDY * 0.2)
+        want_steps = 2 * -(-(N_STUDY - n_val) // TRAIN_BATCH)
+        if trained["steps"] != want_steps or not all(
+                np.isfinite(v) for v in trained["val_metrics"].values()):
+            raise AssertionError(f"train-global: {trained}")
+        saved = restore_checkpoint(str(ck))
+        emit("train", step="train_global_cli", batch=TRAIN_BATCH, epochs=2,
+             result=trained, seconds=seconds,
+             steps_per_s_with_data_and_validation=trained["steps"] / seconds,
+             checkpoint_keys=sorted(saved),
+             adam_count=int(saved["opt_state"]["0"]["count"]), card=card)
+
+        # eval-global on that checkpoint (PairScorer: bottleneck and head
+        # kernels), and score --checkpoint on the validation pairs against
+        # the trained model's validation predictions (module head, fused
+        # tower, the loop's eval step), batch 5 both.
+        common = ["--backbone", "resnet50_clip", "--backbone-checkpoint",
+                  str(tmp / "tower.pt"), "--checkpoint", str(ck)]
+        evaluated = cli_json(["eval-global", *study, *common, "--val-only"])
+        if evaluated["n"] != n_val:
+            raise AssertionError(f"eval-global: {evaluated}")
+        from srsem_torch.cli.main import _load_checkpoint
+        from srsem_torch.data.datasets import (
+            Subset,
+            UserStudyScores,
+            seeded_split,
+        )
+        from srsem_torch.data.loader import Loader
+        from srsem_torch.data.preprocess import Preprocess
+
+        ds = UserStudyScores(*study, Preprocess.for_backbone(
+            "resnet50_clip", IMAGE))
+        _, val_idx = seeded_split(len(ds), 0.2, 42)
+        csv_path = tmp / "val_pairs.csv"
+        csv_path.write_text("img_a_pth,img_b_pth\n" + "".join(
+            "{1},{0}\n".format(*ds.paths(int(i))) for i in val_idx))
+        scored = cli_json(["score", str(csv_path), *common, "--batch-size",
+                           str(TRAIN_BATCH), "--out", str(tmp / "val.csv")])
+        got = np.array([float(r.split(",")[-1]) for r in
+                        (tmp / "val.csv").read_text().splitlines()[1:]])
+        model = make_global_model(gcfg, torch.Generator().manual_seed(0))
+        model.backbone.load_state_dict(tower)
+        _load_checkpoint(model, str(ck))
+        val_steps = train_setup(torch, np, model, False)
+        preds = []
+        for batch in Loader(Subset(ds, val_idx), TRAIN_BATCH):
+            pred, _ = val_steps.eval_step(*batch_to_device(batch, dev))
+            preds.append(pred.float().cpu().numpy()[batch[1] > 0])
+        want = np.concatenate(preds)
+        err = float(np.abs(got - want).max())
+        tol = 1e-3 + 1e-3 * float(np.abs(want).max())
+        if scored["nan"] or err > tol:
+            raise AssertionError(f"score --checkpoint vs the trained model's "
+                                 f"validation predictions: {err} > {tol}")
+        val_mse = float(np.mean((want - np.array(
+            [ds.label(int(i)) for i in val_idx])) ** 2))
+        emit("train", step="eval_global_and_score", eval_global=evaluated,
+             score_vs_validation_predictions={"max_abs_err": err,
+                                              "tolerance": tol},
+             validation_mse_recomputed=val_mse,
+             validation_mse_logged=trained["val_metrics"]["mse"])
+        del model, val_steps
+
+        # train-clu at its batch of 80 (one epoch, with the tower above).
+        ckc = tmp / "ckpt_clu"
+        t0 = time.perf_counter()
+        clu = cli_json(["train-clu", str(tmp / "pairs.csv"),
+                        "--backbone-checkpoint", str(tmp / "tower.pt"),
+                        "--checkpoint-dir", str(ckc),
+                        "--train-set", "epochs=1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats = flatten_dict(restore_checkpoint(str(ckc))["batch_stats"])
+        still = [k for k, v in stats.items()
+                 if np.allclose(v, 0.0 if k[-1] == "mean" else 1.0)]
+        if still or not np.isfinite(clu["val_metrics"]["mse"]):
+            raise AssertionError(f"train-clu: {clu}; unmoved BN stats {still}")
+        emit("train", step="train_clu_cli", batch=CLU_TRAIN_BATCH, result=clu,
+             seconds=seconds, bn_statistics_moved=len(stats), card=card)
+
+    # The train path: one global train step at batch 5 and one CLU train
+    # step at batch 80, launch counts reset just before and read just
+    # after.
+    gmodel = make_global_model(gcfg, torch.Generator().manual_seed(1))
+    gmodel.backbone.load_state_dict(tower)
+    gsteps = train_setup(torch, np, gmodel, False)
+    lmodel = make_local_model(LocalModelConfig(backbone=bb()),
+                              generator=torch.Generator().manual_seed(2))
+    lmodel.backbone.load_state_dict(tower)
+    lsteps = train_setup(torch, np, lmodel, True)
+    g5 = host_batch(np, TRAIN_BATCH, False, 10)
+    c80 = host_batch(np, CLU_TRAIN_BATCH, True, 11)
+    wrappers = {"fused_bottleneck": fb.fused_bottleneck,
+                "fused_bottleneck_tiled": fb.fused_bottleneck_tiled}
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses = [gsteps.train_step(*batch_to_device(g5, dev)),
+              lsteps.train_step(*batch_to_device(c80, dev))]
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = {k: 2 * v for k, v in PASS_CALLS.items()}
+    if launches != want or not all(torch.isfinite(v) for v in losses):
+        raise AssertionError(f"train path launched {launches}, want {want}; "
+                             f"losses {losses}")
+    emit("train", step="train_path", launches=launches,
+         losses=[float(v) for v in losses])
+
+    # Throughput (bf16 tower, float32 head and decoder, TF32 off).
+    rates = {
+        "global_batch5": train_rate(torch, np, gsteps, g5, TRAIN_BATCH, 20),
+        "global_batch64": train_rate(
+            torch, np, gsteps, host_batch(np, TRAIN_BIG_BATCH, False, 12),
+            TRAIN_BIG_BATCH, 10),
+        "clu_batch80": train_rate(torch, np, lsteps, c80, CLU_TRAIN_BATCH, 5),
+    }
+    for key, rate in rates.items():
+        if not all(np.isfinite(rate["losses"])):
+            raise AssertionError(f"{key} losses {rate['losses']}")
+        emit("train", step="throughput", path=key, card=card,
+             unit="maps/s" if key.startswith("clu") else "pairs/s", **rate)
+    del gmodel, gsteps, lmodel, lsteps
+
+    # float32, TF32 off: one train step through the fused tower against
+    # the module tower, from the same weights on the same batch.
+    cfg32 = GlobalModelConfig(backbone=bb("float32"), head="stages_cnn",
+                              depth=3)
+    fused = make_global_model(cfg32, torch.Generator().manual_seed(3))
+    fused.backbone.load_state_dict(tower)
+    module = copy.deepcopy(fused)
+    out = {}
+    for name, m, use_fused in (("fused", fused, True),
+                               ("module", module, False)):
+        steps = train_setup(torch, np, m, False, fused=use_fused)
+        loss = float(steps.train_step(*batch_to_device(g5, dev)))
+        out[name] = (loss, flatten_dict(jax_trainable_params(m)[0]))
+    (lf, pf), (lm, pm) = out["fused"], out["module"]
+    rel = abs(lf - lm) / abs(lm)
+    perr = max(float(np.abs(pf[k] - pm[k]).max()) for k in pm)
+    if rel > 1e-5 or perr > 1e-6:
+        raise AssertionError(f"f32 train step, fused vs module tower: loss "
+                             f"rel {rel} (1e-5), head params {perr} (1e-6)")
+    emit("train", step="f32_fused_vs_module_train_step",
+         losses={"fused": lf, "module": lm}, loss_rel_err=rel,
+         head_param_max_abs_err=perr,
+         tolerance="loss rtol 1e-5, head params atol 1e-6")
+    return launches
+
+
 # Stack frame bytes of each head-kernel instance (dtype 0 f32, 1 bf16,
 # 2 f16; KT SR images an item) at four stages (ptxas -v, H100 build of
 # csrc/fused_head.cu before the limit went to 12).  Twelve stage
@@ -2089,7 +2439,7 @@ def main() -> int:
     runs = {}
     for path, fn in (("global", run_slice), ("clu", run_clu_slice),
                      ("wperlay", run_heads), ("serve", run_serve),
-                     ("dual", run_dual)):
+                     ("dual", run_dual), ("train", run_train)):
         t0 = time.perf_counter()
         runs[path] = fn(torch, np, card)
         seconds[path] = time.perf_counter() - t0

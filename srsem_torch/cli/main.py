@@ -1,7 +1,8 @@
 """``python -m srsem_torch`` — the port's command line (the ``score``,
-``score-groups``, ``score-maps-groups``, ``serve``, ``sweep-dataset`` and
-``info`` subcommands of srsem/cli/main.py so far, and the global
-``--profile DIR``).
+``score-groups``, ``score-maps-groups``, ``serve``, ``sweep-dataset``,
+``train-global``, ``eval-global``, ``train-clu``, ``sweep-global``,
+``sweep-clu`` and ``info`` subcommands of srsem/cli/main.py so far, and
+the global ``--profile DIR``).
 
     python -m srsem_torch score pairs.csv --backbone resnet50 [--device cpu]
     python -m srsem_torch score pairs.csv --backbone resnet50_clip \
@@ -10,10 +11,15 @@
     python -m srsem_torch score-maps-groups GT_DIR SR_DIR... [--device cpu]
     python -m srsem_torch serve --warmup-k 1 4 --with-maps < requests.jsonl
     python -m srsem_torch sweep-dataset GT_DIR SR_DIR... [--device cpu]
+    python -m srsem_torch train-global study.csv ROOT [--device cpu] \
+        [--checkpoint-dir DIR] [--train-set epochs=1]
+    python -m srsem_torch eval-global study.csv ROOT --checkpoint DIR
+    python -m srsem_torch train-clu pairs.csv [--checkpoint-dir DIR]
+    python -m srsem_torch sweep-clu pairs.csv --limit-axis lora_rank=None
     python -m srsem_torch info [--native] [--devices]
     python -m srsem_torch --profile DIR score-groups GT_DIR SR_DIR...
 
-Flags follow srsem/cli/main.py (:957-979, :1119-1205, :1206-1246 and
+Flags follow srsem/cli/main.py (:957-1072, :1119-1205, :1206-1246 and
 :1297-1328), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path) and
 ``--no-fused-tower`` / ``--no-fused-decoder`` (the port runs its Hopper
@@ -24,7 +30,12 @@ for CLU maps their ``batch_stats``, over the model, as the JAX CLI's
 ``merge_params`` does.  ``--backbone-checkpoint`` takes a converted tower
 param tree (``.msgpack``, the JAX CLI's ``srsem convert`` output) or a
 torchvision ``resnet50`` / OpenAI-CLIP state dict (``.pt``).  Without
-either, the weights are seeded random ones.
+either, the weights are seeded random ones.  The training commands train
+the head or decoder on the frozen tower (srsem_torch/train/loop.py) and
+write the JAX package's checkpoint layout; their fast paths
+(``--cached-diffs``, ``--thresholds``, ``--shared-tower``,
+``--cached-stats``, ``--closed-form``, ``--shared-thresholds``) raise
+until ROADMAP A8, and tower training (``enc_ft``, LoRA) until A7.
 """
 
 from __future__ import annotations
@@ -48,32 +59,30 @@ def _parse_sets(pairs: List[str]) -> Dict[str, Any]:
     return out
 
 
-def _load_backbone(backbone, kind: str, path) -> None:
-    """A converted JAX tower param tree (``.msgpack``), or a torchvision
-    ``resnet50`` / OpenAI-CLIP state dict, into the tower."""
+def _read_backbone(path):
+    """A tower file's weights: a converted JAX tower param tree
+    (``.msgpack``, ``srsem convert``) or a torchvision ``resnet50`` /
+    OpenAI-CLIP state dict (``.pt``); None without a path."""
     if not path:
-        return
-    import torch
-
-    from srsem_torch.utils.convert import (
-        jax_backbone_state_dict,
-        load_clip_resnet50,
-        load_torch_resnet50,
-    )
-
+        return None
     if str(path).endswith(".msgpack"):
         from srsem_torch.train.checkpoint import msgpack_restore
 
         with open(path, "rb") as f:
-            tree = msgpack_restore(f.read())
-        backbone.load_state_dict(jax_backbone_state_dict(tree), strict=True)
-        return
+            return msgpack_restore(f.read())
+    import torch
+
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = sd.get("state_dict", sd)
-    if kind == "resnet50_clip":
-        load_clip_resnet50(backbone, sd)
-    else:
-        load_torch_resnet50(backbone, sd)
+    return sd.get("state_dict", sd)
+
+
+def _load_backbone(backbone, kind: str, path) -> None:
+    """A tower file (``_read_backbone``) into the tower."""
+    params = _read_backbone(path)
+    if params is not None:
+        from srsem_torch.utils.convert import load_backbone_params
+
+        load_backbone_params(backbone, kind, params)
 
 
 def _load_checkpoint(model, directory) -> None:
@@ -250,6 +259,174 @@ def cmd_sweep_dataset(args) -> int:
     return 0
 
 
+def _a8(flag: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{flag} needs the sweep amortizations (diffcache, statcache, "
+        "multisweep), which are not ported yet (ROADMAP A8)")
+
+
+def _train_kw(args) -> Dict[str, Any]:
+    """run_training's keywords from the flags; a missing card fails here,
+    before any data or weights load."""
+    from srsem_torch.device import resolve_device
+
+    return {"device": resolve_device(args.device),
+            "fused_tower": args.fused_tower,
+            "backbone_params": _read_backbone(args.backbone_checkpoint)}
+
+
+def cmd_train_global(args) -> int:
+    """Train a global regressor's head on the frozen tower
+    (srsem_torch/train/loop.py::train_global)."""
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        TrainConfig,
+        override,
+    )
+    from srsem_torch.data.datasets import Subset, UserStudyScores, seeded_split
+    from srsem_torch.data.loader import Loader
+    from srsem_torch.data.preprocess import Preprocess
+    from srsem_torch.train.loop import train_global
+
+    cfg = override(
+        GlobalModelConfig(backbone=BackboneConfig(kind=args.backbone)),
+        _parse_sets(args.set))
+    tcfg = override(TrainConfig(checkpoint_dir=args.checkpoint_dir),
+                    _parse_sets(args.train_set))
+    pre = Preprocess.for_backbone(cfg.backbone.kind, cfg.backbone.image_size)
+    ds = UserStudyScores(args.csv, args.root, pre)
+    train_idx, val_idx = seeded_split(len(ds), tcfg.val_fraction, tcfg.seed)
+    train_loader = Loader(Subset(ds, train_idx), tcfg.batch_size, shuffle=True,
+                          seed=tcfg.seed)
+    val_loader = Loader(Subset(ds, val_idx), tcfg.batch_size)
+    result = train_global(cfg, tcfg, train_loader, val_loader,
+                          **_train_kw(args))
+    print(json.dumps({"val_metrics": result.val_metrics, "steps": result.step}))
+    return 0
+
+
+def cmd_eval_global(args) -> int:
+    """SRCC/MSE of a (trained) global regressor against the user-study
+    labels, scored through PairScorer (the bottleneck and head kernels on
+    the card) — the reference's README table numbers (reference:
+    README.md:98-105)."""
+    import numpy as np
+    import torch
+
+    from srsem_torch.config import BackboneConfig, GlobalModelConfig, override
+    from srsem_torch.data.datasets import UserStudyScores, seeded_split
+    from srsem_torch.data.preprocess import Preprocess
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.models.global_models import make_global_model
+    from srsem_torch.train.metrics import mse, srcc
+
+    cfg = override(
+        GlobalModelConfig(backbone=BackboneConfig(kind=args.backbone)),
+        _parse_sets(args.set))
+    model = make_global_model(cfg, torch.Generator().manual_seed(0))
+    _load_backbone(model.backbone, cfg.backbone.kind, args.backbone_checkpoint)
+    _load_checkpoint(model, args.checkpoint)
+
+    pre = Preprocess.for_backbone(cfg.backbone.kind, cfg.backbone.image_size)
+    ds = UserStudyScores(args.csv, args.root, pre)
+    idx = list(range(len(ds)))
+    if args.val_only:
+        # The held-out 20% of the seeded split (reference: split seed 42).
+        _, val_idx = seeded_split(len(ds), 0.2, args.seed)
+        idx = [int(i) for i in val_idx]
+    pairs = [ds.paths(i) for i in idx]
+    labels = np.array([ds.label(i) for i in idx])
+    scorer = PairScorer(cfg, model, batch_size=args.batch_size,
+                        fused_tower=args.fused_tower, device=args.device)
+    scores = scorer.score_paths(pairs)
+    valid = ~np.isnan(scores)
+    print(json.dumps({"n": int(valid.sum()),
+                      "srcc": srcc(scores[valid], labels[valid]),
+                      "mse": mse(scores[valid], labels[valid])}))
+    return 0
+
+
+def cmd_train_clu(args) -> int:
+    """Train a CLU map model's decoder on the frozen tower
+    (srsem_torch/train/loop.py::train_local)."""
+    if args.cached_diffs:
+        raise _a8("train-clu --cached-diffs")
+    if args.thresholds:
+        raise _a8("train-clu --thresholds")
+    from srsem_torch.config import (
+        BackboneConfig,
+        LocalModelConfig,
+        TrainConfig,
+        override,
+    )
+    from srsem_torch.data.datasets import (
+        KoniqPairsMapsDataset,
+        Subset,
+        seeded_split,
+    )
+    from srsem_torch.data.loader import Loader
+    from srsem_torch.data.preprocess import Preprocess
+    from srsem_torch.train.loop import train_local
+
+    cfg = override(
+        LocalModelConfig(backbone=BackboneConfig(kind=args.backbone)),
+        _parse_sets(args.set))
+    tcfg = override(
+        TrainConfig(batch_size=80, epochs=60, checkpoint_dir=args.checkpoint_dir),
+        _parse_sets(args.train_set))
+    pre = Preprocess.for_backbone(cfg.backbone.kind, cfg.backbone.image_size)
+    ds = KoniqPairsMapsDataset(args.csv, pre, only_hq=args.only_hq,
+                               imgamincaps=args.min_caps,
+                               threshold=tcfg.map_threshold)
+    train_idx, val_idx = seeded_split(len(ds), tcfg.val_fraction, tcfg.seed)
+    train_loader = Loader(Subset(ds, train_idx), tcfg.batch_size, shuffle=True,
+                          seed=tcfg.seed)
+    val_loader = Loader(Subset(ds, val_idx), tcfg.batch_size)
+    result = train_local(cfg, tcfg, train_loader, val_loader,
+                         **_train_kw(args))
+    print(json.dumps({"val_metrics": result.val_metrics, "steps": result.step}))
+    return 0
+
+
+def cmd_sweep_global(args) -> int:
+    """The reference's global depth grid, one training run a point."""
+    for flag in ("shared_tower", "cached_diffs", "cached_stats",
+                 "closed_form"):
+        if getattr(args, flag):
+            raise _a8("sweep-global --" + flag.replace("_", "-"))
+    from srsem_torch.train.sweep import (
+        GLOBAL_SWEEP,
+        make_global_train_fn,
+        run_sweep,
+    )
+
+    results = run_sweep(
+        make_global_train_fn(args.csv, args.root, backbone=args.backbone,
+                             **_train_kw(args)),
+        GLOBAL_SWEEP, summary_path=args.summary)
+    print(json.dumps([{"name": r["name"],
+                       "val_srcc": r.get("srcc"),
+                       "val_mse": r.get("mse")} for r in results]))
+    return 0
+
+
+def cmd_sweep_clu(args) -> int:
+    """The reference's CLU grid, one training run a point
+    (``--limit-axis key=value`` restricts an axis)."""
+    from srsem_torch.train.sweep import CLU_SWEEP, run_clu_sweep
+
+    axes = dict(CLU_SWEEP)
+    for spec in args.limit_axis:
+        key, _, raw = spec.partition("=")
+        axes[key] = [ast.literal_eval(raw) if raw != "None" else None]
+    results = run_clu_sweep(args.csv, axes, summary_path=args.summary,
+                            shared_thresholds=args.shared_thresholds,
+                            **_train_kw(args))
+    print(json.dumps({"points": len(results)}))
+    return 0
+
+
 def cmd_info(args) -> int:
     """Deployment diagnostic: versions, host, nvcc, native decoder, env
     knobs.  Headless by default: without ``--devices`` nothing here
@@ -307,6 +484,15 @@ def main(argv=None) -> int:
              "is present) of the subcommand into DIR/trace.json (Chrome "
              "trace format; goes BEFORE the subcommand)")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    def add_training_flags(p):
+        p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
+                       default=True,
+                       help="the frozen tower through the Hopper bottleneck "
+                            "kernel (default); --no-fused-tower runs the "
+                            "module's F.conv2d chain")
+        p.add_argument("--device", default="cuda",
+                       help="cuda (default) or cpu (plain PyTorch path)")
 
     p = sub.add_parser("score", help="batch-score GT/SR pairs from a CSV")
     p.add_argument("--backbone-checkpoint", default=None,
@@ -489,6 +675,88 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch path)")
     p.set_defaults(fn=cmd_sweep_dataset)
+
+    p = sub.add_parser("train-global", help="train a global regressor's "
+                       "head on the frozen tower")
+    p.add_argument("csv")
+    p.add_argument("root")
+    p.add_argument("--backbone", default="resnet50_clip")
+    p.add_argument("--backbone-checkpoint", default=None,
+                   help="converted tower param tree (.msgpack) or "
+                        "torchvision resnet50 / OpenAI-CLIP state dict "
+                        "(.pt) to train the heads on")
+    p.add_argument("--checkpoint-dir")
+    p.add_argument("--set", action="append", default=[])
+    p.add_argument("--train-set", action="append", default=[])
+    add_training_flags(p)
+    p.set_defaults(fn=cmd_train_global)
+
+    p = sub.add_parser("eval-global",
+                       help="SRCC/MSE vs the user-study labels")
+    p.add_argument("--backbone-checkpoint", default=None,
+                   help="converted tower param tree (.msgpack) or "
+                        "torchvision resnet50 / OpenAI-CLIP state dict "
+                        "(.pt) to load into the tower")
+    p.add_argument("csv")
+    p.add_argument("root")
+    p.add_argument("--backbone", default="resnet50")
+    p.add_argument("--checkpoint")
+    p.add_argument("--val-only", action="store_true")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--set", action="append", default=[])
+    add_training_flags(p)
+    p.set_defaults(fn=cmd_eval_global)
+
+    p = sub.add_parser("train-clu", help="train a CLU map model's decoder "
+                       "on the frozen tower")
+    p.add_argument("csv")
+    p.add_argument("--backbone", default="resnet50_clip")
+    p.add_argument("--backbone-checkpoint", default=None,
+                   help="converted tower param tree (.msgpack) or "
+                        "OpenAI-CLIP / torchvision resnet50 state dict "
+                        "(.pt) to train the decoder on")
+    p.add_argument("--only-hq", action="store_true")
+    p.add_argument("--min-caps", type=int, default=2)
+    p.add_argument("--checkpoint-dir")
+    p.add_argument("--set", action="append", default=[])
+    p.add_argument("--train-set", action="append", default=[])
+    p.add_argument("--cached-diffs", action="store_true",
+                   help="decoder-only fast path (not ported yet: ROADMAP A8)")
+    p.add_argument("--thresholds", nargs="+", metavar="T",
+                   help="the threshold axis in one run (not ported yet: "
+                        "ROADMAP A8)")
+    add_training_flags(p)
+    p.set_defaults(fn=cmd_train_clu)
+
+    p = sub.add_parser("sweep-global", help="the reference's global depth "
+                       "grid")
+    p.add_argument("csv")
+    p.add_argument("root")
+    p.add_argument("--backbone", default="resnet50_clip")
+    p.add_argument("--backbone-checkpoint", default=None,
+                   help="tower (.msgpack or .pt) shared by every grid point")
+    p.add_argument("--summary", default="sweep_global.jsonl")
+    for flag in ("--shared-tower", "--cached-diffs", "--cached-stats",
+                 "--closed-form"):
+        p.add_argument(flag, action="store_true",
+                       help="not ported yet (ROADMAP A8)")
+    p.add_argument("--l2", type=float, default=1e-6,
+                   help="ridge penalty for --closed-form (ROADMAP A8)")
+    add_training_flags(p)
+    p.set_defaults(fn=cmd_sweep_global)
+
+    p = sub.add_parser("sweep-clu", help="the reference's CLU grid")
+    p.add_argument("csv")
+    p.add_argument("--backbone-checkpoint", default=None,
+                   help="tower (.msgpack or .pt) shared by every grid cell")
+    p.add_argument("--summary", default="sweep_clu.jsonl")
+    p.add_argument("--limit-axis", action="append", default=[])
+    p.add_argument("--shared-thresholds", action="store_true",
+                   help="one run a cell's threshold axis (not ported yet: "
+                        "ROADMAP A8)")
+    add_training_flags(p)
+    p.set_defaults(fn=cmd_sweep_clu)
 
     p = sub.add_parser(
         "info", help="environment diagnostic: versions, host, nvcc, native "

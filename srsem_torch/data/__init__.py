@@ -1,1 +1,1 @@
-"""Host decode and preprocessing."""
+"""Host decode and preprocessing, the training datasets and the loader."""

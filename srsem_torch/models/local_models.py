@@ -22,7 +22,13 @@ Serving: ``fused_serving_decode`` folds BN (running statistics) into the
 conv weights and runs levels ``DEFAULT_FUSE_LEVELS`` through the Hopper
 kernel (srsem_torch/ops/fused_decoder.py), the rest on folded ``F.conv2d``
 (``_plain_decoder_level``), as the JAX package leaves them to XLA.
-Training of the decoder, LoRA and the full fine-tune wait (ROADMAP A6, A7).
+
+Training: ``forward(..., train=True)`` and ``decode_from_diffs(...,
+train=True)`` run the decoder's BatchNorms on batch statistics and update
+their running statistics, as the JAX package's ``TorchBatchNorm``
+(srsem/ops/batchnorm.py) does: torch momentum 0.1 (flax's 0.9), the
+biased batch variance to normalize, the Bessel-corrected one into
+``running_var``.  LoRA and the full fine-tune wait (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -70,10 +76,12 @@ DEFAULT_FUSE_LEVELS: Tuple[int, ...] = (0, 1, 2)
 DEFAULT_TILED_LEVEL_ROWS: Dict[int, int] = {0: 7, 1: 7}
 
 
-def _batch_norm(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
-    """Running-statistics BN in float32 (the decoder's serving BN)."""
+def _batch_norm(x: Tensor, bn: nn.BatchNorm2d, train: bool = False) -> Tensor:
+    """BN in float32: running statistics, or with ``train`` the batch's
+    (biased variance), updating the running statistics in place with
+    momentum 0.1 and the unbiased variance (torch's BatchNorm2d)."""
     return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                        bn.weight, bn.bias, False, 0.0, bn.eps)
+                        bn.weight, bn.bias, train, 0.1, bn.eps)
 
 
 class DecoderBlock(nn.Sequential):
@@ -84,7 +92,7 @@ class DecoderBlock(nn.Sequential):
     ``forward`` takes a ``(skip_diff, upsampled)`` pair of NCHW tensors
     (``upsampled`` None at the deepest level) and runs in ``dtype``; the
     BNs compute in float32, then ReLU, then a cast back to ``dtype``, as
-    the Flax block does."""
+    the Flax block does, in training too (``train``: batch statistics)."""
 
     def __init__(self, cin: int, mid: int, out: int, final_kernel: int = 3,
                  final_bn: bool = True, dtype: torch.dtype = torch.float32):
@@ -99,7 +107,8 @@ class DecoderBlock(nn.Sequential):
         self.final_kernel = final_kernel
         self.dtype = dtype
 
-    def forward(self, d: Tensor, u: Optional[Tensor] = None) -> Tensor:
+    def forward(self, d: Tensor, u: Optional[Tensor] = None,
+                train: bool = False) -> Tensor:
         dt = self.dtype
         conv1, bn1, conv2 = self[0], self[1], self[3]
         w = conv1.weight.to(dt)
@@ -108,11 +117,11 @@ class DecoderBlock(nn.Sequential):
         if u is not None:
             x = x + F.conv2d(u.to(dt), w[:, cd:], None, 1, 1)
         x = F.relu(_batch_norm(x + conv1.bias.to(dt).view(1, -1, 1, 1),
-                               bn1)).to(dt)
+                               bn1, train)).to(dt)
         x = F.conv2d(x, conv2.weight.to(dt), conv2.bias.to(dt), 1,
                      conv2.padding)
         if isinstance(self[4], nn.BatchNorm2d):
-            x = _batch_norm(x, self[4])
+            x = _batch_norm(x, self[4], train)
         return F.relu(x.to(dt))
 
 
@@ -182,9 +191,6 @@ class CluUnet(nn.Module):
                     m.reset_parameters()
 
     def forward(self, a: Tensor, b: Tensor, train: bool = False) -> Tensor:
-        if train:
-            raise NotImplementedError(
-                "training of the CLU decoder is not ported yet (ROADMAP A6)")
         if not self.split_tower:
             n = a.shape[0]
             _, taps = self.backbone(torch.cat([a, b], dim=0))
@@ -193,7 +199,7 @@ class CluUnet(nn.Module):
         else:
             _, taps_a = self.backbone(a)
             _, taps_b = self.backbone(b)
-        return self.decode_from_taps(taps_a, taps_b, a, b)
+        return self.decode_from_taps(taps_a, taps_b, a, b, train)
 
     def decode_from_taps(self, taps_a: Dict[str, Tensor],
                          taps_b: Dict[str, Tensor], a: Tensor, b: Tensor,
@@ -221,16 +227,14 @@ class CluUnet(nn.Module):
                           train: bool = False) -> Tensor:
         """UNet decode over NHWC squared-diff pyramids (shallow to deep, in
         ``tap_names`` order); ``img_sq`` is v2's (N, H, W, 1) pixel error.
-        Returns the (N, H, W) map in ``output_dtype``."""
-        if train:
-            raise NotImplementedError(
-                "training of the CLU decoder is not ported yet (ROADMAP A6)")
+        Returns the (N, H, W) map in ``output_dtype``; ``train`` runs the
+        BatchNorms on batch statistics and updates their running ones."""
         dd = self.decoder_dtype
         diffs = [to_nchw(d.to(dd)) for d in self.with_pixel_channel(diffs, img_sq)]
         up = lambda v: to_nchw(upsample_x2_align_corners(to_nhwc(v)))  # noqa: E731
-        h = up(self.decoder[-1](diffs[-1]))
+        h = up(self.decoder[-1](diffs[-1], None, train))
         for lvl in range(len(diffs) - 2, -1, -1):
-            h = up(self.decoder[lvl](diffs[lvl], h))
+            h = up(self.decoder[lvl](diffs[lvl], h, train))
         return finish_map(to_nhwc(h), self.sigmoid, self.output_dtype)
 
 

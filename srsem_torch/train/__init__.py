@@ -1,1 +1,2 @@
-"""Checkpoints and parameter partitioning (training itself: ROADMAP A6)."""
+"""Training on the frozen tower: steps, loop, sweeps, metrics, logging,
+checkpoints and parameter partitioning."""

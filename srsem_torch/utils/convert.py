@@ -17,7 +17,10 @@
 * ``jax_trainable_params`` — the reverse for the trained subset: a
   model's heads or decoder (and BN statistics) in the JAX layout, what a
   checkpoint's ``trainable`` / ``batch_stats`` hold, to write with
-  srsem_torch/train/checkpoint.py::save_checkpoint.
+  srsem_torch/train/checkpoint.py::save_checkpoint; ``jax_adam_state``
+  writes a ``torch.optim.Adam``'s state as the checkpoint's ``opt_state``.
+* ``load_backbone_params`` — a JAX tower param tree or a torchvision /
+  OpenAI-CLIP state dict into a tower.
 * ``load_torch_resnet50`` — a torchvision/timm ``resnet50`` state dict
   straight into the port's ImageNet tower (the layouts are the same).
 * ``load_clip_resnet50`` — an OpenAI-CLIP ``visual`` state dict straight
@@ -32,7 +35,7 @@ already read.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,26 +177,30 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
-def jax_trainable_params(model: nn.Module
+def jax_trainable_params(model: nn.Module,
+                         value: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                          ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """``(params, batch_stats)`` of a model's trained subset in the JAX
     layout, float32 numpy: a GlobalPairScorer's ``{"aggregator": ...}``
     (``w_layers.{j}`` Dense (C, 1) or ``fin_lin.{j}`` Dense (in, out)) and
     no statistics, or a CluUnet's ``{"decoder.{lvl}": {conv1, bn1, conv2
     [, bn2]}}`` (HWIO kernels) and its BN running statistics.  The
-    loaders' ``partial`` mode reads both back."""
+    loaders' ``partial`` mode reads both back.  ``value`` maps each
+    parameter to the tensor written in its place, in the parameter's own
+    layout (``jax_adam_state`` writes Adam's moments so)."""
+    v = value or (lambda p: p)
     if hasattr(model, "aggregator"):
         head: Dict[str, Any] = {}
         if hasattr(model.aggregator, "fin_lin"):
             linears = [m for m in model.aggregator.fin_lin
                        if isinstance(m, nn.Linear)]
             for j, m in enumerate(linears):
-                head[f"fin_lin.{j}"] = {"kernel": _np(m.weight.t()),
-                                        "bias": _np(m.bias)}
+                head[f"fin_lin.{j}"] = {"kernel": _np(v(m.weight).t()),
+                                        "bias": _np(v(m.bias))}
         else:
             for j, m in enumerate(model.aggregator.w_layers):
-                head[f"w_layers.{j}"] = {"kernel": _np(m.weight.reshape(-1, 1)),
-                                         "bias": _np(m.bias)}
+                head[f"w_layers.{j}"] = {"kernel": _np(v(m.weight).reshape(-1, 1)),
+                                         "bias": _np(v(m.bias))}
         return {"aggregator": head}, {}
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
@@ -201,15 +208,51 @@ def jax_trainable_params(model: nn.Module
         name = f"decoder.{lvl}"
         params[name], stats[name] = {}, {}
         for dst, idx in (("conv1", 0), ("conv2", 3)):
-            params[name][dst] = {"kernel": _np(block[idx].weight.permute(2, 3, 1, 0)),
-                                 "bias": _np(block[idx].bias)}
+            params[name][dst] = {"kernel": _np(v(block[idx].weight).permute(2, 3, 1, 0)),
+                                 "bias": _np(v(block[idx].bias))}
         for dst, idx in (("bn1", 1), ("bn2", 4)):
             if isinstance(block[idx], nn.BatchNorm2d):
                 bn = block[idx]
-                params[name][dst] = {"scale": _np(bn.weight), "bias": _np(bn.bias)}
+                params[name][dst] = {"scale": _np(v(bn.weight)),
+                                     "bias": _np(v(bn.bias))}
                 stats[name][dst] = {"mean": _np(bn.running_mean),
                                     "var": _np(bn.running_var)}
     return params, stats
+
+
+def jax_adam_state(model: nn.Module, optimizer: torch.optim.Adam) -> Dict[str, Any]:
+    """``torch.optim.Adam``'s state over a model's trained subset as the
+    JAX package's checkpoints hold ``optax.adam``'s (a ``(ScaleByAdamState,
+    EmptyState)`` tuple, as flax serializes it): ``{"0": {"count": int32,
+    "mu": ..., "nu": ...}, "1": {}}`` with ``mu`` / ``nu`` (Adam's
+    ``exp_avg`` / ``exp_avg_sq``) in ``jax_trainable_params``'s layout.
+    The two updates are the same (bias correction, eps outside the square
+    root); a parameter Adam has not stepped yet has zero moments."""
+    state = optimizer.state
+
+    def moment(key: str):
+        return lambda p: state[p][key] if p in state else torch.zeros_like(p)
+
+    steps = {int(s["step"]) for s in state.values()}
+    if len(steps) > 1:
+        raise ValueError(f"Adam's parameters are at different steps {steps}")
+    mu, _ = jax_trainable_params(model, moment("exp_avg"))
+    nu, _ = jax_trainable_params(model, moment("exp_avg_sq"))
+    count = np.asarray(steps.pop() if steps else 0, np.int32)
+    return {"0": {"count": count, "mu": mu, "nu": nu}, "1": {}}
+
+
+def load_backbone_params(backbone: nn.Module, kind: str, params: Mapping[str, Any]):
+    """A tower's weights into ``backbone``, strictly: a JAX-layout param
+    tree (nested, as ``srsem convert`` writes and ``msgpack_restore`` reads
+    it) or a torchvision ``resnet50`` / OpenAI-CLIP state dict (flat, of
+    tensors).  Returns ``backbone``."""
+    if any(isinstance(v, Mapping) for v in params.values()):
+        backbone.load_state_dict(jax_backbone_state_dict(params), strict=True)
+        return backbone
+    if kind == "resnet50_clip":
+        return load_clip_resnet50(backbone, params)
+    return load_torch_resnet50(backbone, params)
 
 
 def _strip(state_dict: Mapping[str, Any]) -> Dict[str, Any]:

@@ -16,6 +16,7 @@ into a fresh port model through ``load_jax_local_params``.
   path at 2e-3 (tests/test_fused_decoder.py:111).
 """
 
+import copy
 import csv
 import subprocess
 import sys
@@ -264,7 +265,8 @@ def test_cli_score_maps_groups_writes_csv(tmp_path):
 def test_module_options_agree(small):
     """``split_tower`` (two tower passes) equals the one 2N pass; the
     fused decode honours ``sigmoid=False`` (the unet_global copy) and a
-    bf16 ``output_dtype`` as the module does."""
+    bf16 ``output_dtype`` as the module does; ``train=True`` runs the
+    decoder's BatchNorms on batch statistics (training, ROADMAP A6)."""
     port, _, diffs, img_sq, _ = small
     rng = np.random.default_rng(10)
     a, b = (torch.tensor(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
@@ -285,7 +287,17 @@ def test_module_options_agree(small):
         assert got.dtype == want.dtype == out_dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-4,
                                    atol=2e-4 if sigmoid is False else 1e-2)
-    with pytest.raises(NotImplementedError, match="A6"):
-        port(a, b, train=True)
+    # train=True reaches the decoder: batch statistics in the map, and
+    # the running statistics move (on copies: the fixture is shared).
+    trained, twin = copy.deepcopy(port), copy.deepcopy(port)
+    got = trained(a, b, train=True)
+    _, taps = twin.backbone(torch.cat([a, b]))
+    want = twin.decode_from_taps({k: v[:2] for k, v in taps.items()},
+                                 {k: v[2:] for k, v in taps.items()}, a, b,
+                                 train=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert not torch.allclose(got, one, rtol=1e-3, atol=1e-3)
+    bn = trained.decoder[1][1]
+    assert not torch.equal(bn.running_mean, port.decoder[1][1].running_mean)
     with pytest.raises(NotImplementedError, match="A7"):
         CluUnet(lora_rank=4)

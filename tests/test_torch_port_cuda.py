@@ -474,3 +474,58 @@ def test_dual_scorer_matches_pair_scorers(cuda_device):
     ps, pm = dual.score_both(np.repeat(a[:2], 2, axis=0), b)
     _close(gs.reshape(-1).cpu().numpy(), ps.cpu().numpy())
     _close(gmaps.reshape(4, 64, 64).cpu().numpy(), pm.cpu().numpy())
+
+
+def _train_pair(model, is_map, fused):
+    """The training loop's step functions over ``model`` on the card (Adam
+    over everything outside the tower), through the fused or the module
+    tower."""
+    from srsem_torch.train.loop import build_training
+    from srsem_torch.train.partition import trainable_predicate
+
+    return build_training(model, is_map, trainable_predicate(), 1e-4,
+                          torch.device("cuda"), fused)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_map", [False, True], ids=["global", "clu"])
+def test_train_step_fused_tower_matches_module_tower(cuda_device, is_map):
+    """One float32 train step (TF32 off) through the folded kernel tower
+    against the module tower, from the same weights on the same batch:
+    losses within rtol 1e-5; the stepped head within 1e-6 (each element
+    moved by lr from the same signs), the decoder within 2·lr (a decoder
+    gradient's sign can flip with the towers' rounding) and its BatchNorm
+    running statistics within rtol 1e-4 (atol 1e-5 of each leaf's
+    largest value: float32 rounding of means up to ~70); 12 bottleneck
+    calls (one tower pass over the 2N images)."""
+    import copy
+
+    from srsem_torch.train.partition import flatten_dict
+    from srsem_torch.utils.convert import jax_trainable_params
+
+    _, gm, _, lm = _serving_models(64)
+    model = lm if is_map else gm
+    twin = copy.deepcopy(model)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    a = torch.randn(3, 64, 64, 3, device=cuda_device, generator=g)
+    b = a + torch.randn(a.shape, device=cuda_device, generator=g)
+    y = torch.rand((3, 64, 64) if is_map else (3,), device=cuda_device,
+                   generator=g)
+    mask = torch.ones(3, device=cuda_device)
+    calls = tfb.fused_bottleneck.launches + tfb.fused_bottleneck_tiled.launches
+    loss_f = float(_train_pair(model, is_map, True).train_step(a, b, y, mask))
+    assert (tfb.fused_bottleneck.launches + tfb.fused_bottleneck_tiled.launches
+            - calls) == 12
+    loss_m = float(_train_pair(twin, is_map, False).train_step(a, b, y, mask))
+    assert abs(loss_f - loss_m) <= 1e-5 * abs(loss_m)
+    (pf, sf), (pm, sm) = jax_trainable_params(model), jax_trainable_params(twin)
+    pf, pm = flatten_dict(pf), flatten_dict(pm)
+    for key in pm:
+        np.testing.assert_allclose(pf[key], pm[key], rtol=0,
+                                   atol=2e-4 if is_map else 1e-6,
+                                   err_msg=str(key))
+    sf, sm = flatten_dict(sf), flatten_dict(sm)
+    for key in sm:
+        np.testing.assert_allclose(
+            sf[key], sm[key], rtol=1e-4,
+            atol=1e-5 * float(np.abs(sm[key]).max()), err_msg=str(key))

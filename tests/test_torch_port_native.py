@@ -3,9 +3,18 @@
 ``build/srsem_torch/``, gives the same bytes on JPEG (full and DCT-scaled)
 and PNG (RGB and grayscale); failed files give zero rows with ok False;
 ``Preprocess`` and ``PairScorer(decode_backend="native")`` keep the JAX
-package's contracts.  Skips cleanly where g++, jpeglib.h or png.h is
-missing, as tests/test_native_decoder.py does.
+package's contracts.
+
+The reference library is built here, into a temp dir, with the JAX
+package's own ``_build`` and flags, then renamed into place: several test
+workers importing srsem.native at once may race on its first build
+straight onto ``srsem/native/libsrsem_decode.so`` and load a half-written
+file.  The module skips only where g++, jpeglib.h or png.h is missing.
 """
+
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -23,15 +32,42 @@ CFG = GlobalModelConfig(backbone=BackboneConfig(
     kind="resnet50", image_size=32, compute_dtype="float32"), depth=1)
 
 
+def _missing_toolchain():
+    """What the decoder's build lacks here (g++, jpeglib.h, png.h), or
+    None."""
+    if shutil.which("g++") is None:
+        return "g++ not found"
+    for header in ("jpeglib.h", "png.h"):
+        proc = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                              input=f"#include <{header}>\n",
+                              capture_output=True, text=True, timeout=60)
+        if proc.returncode != 0:
+            return f"{header} not found"
+    return None
+
+
 @pytest.fixture(scope="module")
-def built():
-    """Both libraries, or a skip saying why one is missing."""
-    if not native.available():
-        pytest.skip(f"native decoder unavailable: {native.build_error()}")
-    if not jax_native.available():
-        pytest.skip(f"JAX native decoder unavailable: "
-                    f"{jax_native.build_error()}")
-    return native
+def built(tmp_path_factory):
+    """Both libraries: the port's, and the JAX package's built into a temp
+    dir and pointed at for this module; a skip only without the
+    toolchain."""
+    missing = _missing_toolchain()
+    if missing:
+        pytest.skip(f"native decoder cannot be built here: {missing}")
+    so = tmp_path_factory.mktemp("jax_native") / "libsrsem_decode.so"
+    tmp = so.with_name(so.name + ".tmp")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO", str(tmp))
+        error = jax_native._build()  # the JAX package's flags
+        if error is not None:
+            pytest.fail(f"JAX native decoder build failed: {error}")
+        os.replace(tmp, so)
+        mp.setattr(jax_native, "_SO", str(so))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_build_error", None)
+        assert jax_native.available(), jax_native.build_error()
+        assert native.available(), native.build_error()
+        yield native
 
 
 @pytest.fixture(scope="module")
