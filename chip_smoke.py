@@ -110,14 +110,40 @@ Phases (each prints one JSON line; any failure exits non-zero):
              peak memory, losses and a profile of three steps; one
              float32 train step through the fused tower against the module
              tower (loss rtol 1e-5, head atol 1e-6).
-10. result — a ``timing`` line (seconds of each phase), the card line,
+10. finetune — tower training at full width from the train phase's
+             tower: the CLU at batch 80 with LoRA (rank 32) on every tower
+             conv and with the whole tower trained under activation
+             checkpointing ("full"), the global ``enc_ft`` step at batch
+             5 and 64: ms a step, maps or pairs/s, memory, profiles.  A
+             trained tower runs as the module: no bottleneck kernel may
+             launch.  Card checks: a LoRA step moves only the factors and
+             the decoder, a "full" step the tower's BN running means and
+             variances; float32 (TF32 off): the first LoRA forward (A =
+             0) equals the frozen module tower's (1e-6), the checkpointed
+             tower's gradients an un-checkpointed pass's (1e-4 of each
+             tensor's max); ``fused_tower=True`` on a LoRA model raises.
+11. sweeps — the frozen-tower amortizations: the global depth grid (1-3)
+             at batch 5 over a 300-pair user study (240 train pairs,
+             decoded once, in bulk): the shared tower (one epoch), the
+             diff cache and the stat cache (4 epochs; build seconds,
+             bytes, epochs/s from the cache), the closed form (each
+             solve's ms); ``train-clu --cached-diffs`` and ``--thresholds
+             none 0.4 0.9`` at batch 80 in process; the sweeps path is
+             those timed runs, the launch counts reset just before each
+             and read just after: 10 + 2 bottleneck calls a tower pass,
+             one pass a batch.  Card checks: a cached step's loss and
+             head gradients equal an uncached one's (1e-6), a stat-cache
+             step's a diff-cache step's (1e-5), the closed form's train
+             MSE at most the Adam heads'.
+12. result — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
              the paths that use it, worst bf16 error, and times summed
              over one scored batch's launches of each path at that
              path's shapes; under ``paths``, each path's own launches
              and times: global, clu, wperlay, serve (one score and one
              maps batch), dual, train (one global and one CLU train
-             step); the head's entry, ``fused_stage_score``
+             step), sweeps (the train path's tower passes at 10 and 160
+             images, times ``SWEEP_PASSES``); the head's entry, ``fused_stage_score``
              after the TPU kernel it replaces, counts the whole-head
              launches of ``fused_global_score`` and, on the serve path,
              ``fused_grouped_score``), the device line.
@@ -128,6 +154,7 @@ tensor cores, 67 TFLOP/s float32 outside them.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -582,6 +609,9 @@ def check_kernels(torch):
              tflops=flops / ms / 1e9, **line)
         add(name, path, errs[str(torch.bfloat16)], ms, plain, lib, bms, by,
             count)
+        if path == "train":  # the sweeps path's passes run these shapes
+            add(name, "sweeps", errs[str(torch.bfloat16)], ms, plain, lib,
+                bms, by, count * SWEEP_PASSES[shape[0]])
 
     # -- decoder level (CUDA C++) -----------------------------------------
     from srsem_torch.ops import fused_decoder as fd
@@ -2054,7 +2084,9 @@ def run_native(torch, np, card: str, pairs, global_model) -> None:
 # for train-global, train-clu's 80) and the global scorer's batch of 64;
 # a train step runs the frozen tower once over its 2N images.
 TRAIN_BATCH, TRAIN_BIG_BATCH, CLU_TRAIN_BATCH = 5, BATCH, 80
-N_STUDY, N_CLU_ROWS = 48, 240
+# The pairs CSV: 100 rows split 80 / 20, one batch of 80 each (every
+# train-clu run makes one train step and one validation batch).
+N_STUDY, N_CLU_ROWS = 48, 100
 TRAIN_DEVICE = "cuda"
 
 
@@ -2129,13 +2161,15 @@ def host_batch(np, n: int, is_map: bool, seed: int):
     return ((a, b), y.astype(np.float32)), np.ones((n,), np.float32)
 
 
-def train_rate(torch, np, steps, batch, n: int, reps: int) -> dict:
+def train_rate(torch, np, steps, batch, n: int, reps: int,
+               prof_reps: int = 3) -> dict:
     """Train steps/s and items/s over ``reps`` steps of ``batch`` (host to
     card through pinned memory each step, as the loop does; one sync at
     the end), the device memory (resident before the steps: every model
     the phase holds; the peak; their difference, the step's own), the
-    losses, and a profile of three steps (busy share, device ms by group
-    and by kernel, the top host operations)."""
+    losses, and a profile of ``prof_reps`` steps (busy share, device ms by
+    group and by kernel, the top host operations; reading a profile of a
+    step that trains a 224 px tower takes the host seconds a step)."""
     from srsem_torch.train.loop import batch_to_device
 
     dev = torch.device(TRAIN_DEVICE)
@@ -2151,13 +2185,60 @@ def train_rate(torch, np, steps, batch, n: int, reps: int) -> dict:
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     prof = profile_scoring(torch, types.SimpleNamespace(
-        score_arrays=lambda *_: step()), None, None, host_top=10)
+        score_arrays=lambda *_: step()), None, None, reps=prof_reps,
+        host_top=10)
     return {"batch": n, "steps": reps, "steps_per_s": reps / dt,
             "items_per_s": n * reps / dt, "ms_per_step": dt / reps * 1e3,
             "peak_memory_bytes": peak,
             "resident_bytes_before": resident,
             "step_memory_bytes": peak - resident,
             "losses": [float(v) for v in losses], "profile": prof}
+
+
+BOTTLENECK = ("fused_bottleneck", "fused_bottleneck_tiled")
+
+
+def zero_launches(fb) -> None:
+    """Set the bottleneck wrappers' launch counts to 0."""
+    for name in BOTTLENECK:
+        getattr(fb, name).launches = 0
+
+
+def read_launches(torch, fb) -> dict:
+    """The bottleneck wrappers' launch counts, after a sync."""
+    torch.cuda.synchronize()
+    return {name: getattr(fb, name).launches for name in BOTTLENECK}
+
+
+class Laps:
+    """Seconds between successive ``lap(what)`` calls, by ``what``."""
+
+    def __init__(self):
+        self.seconds, self._t = {}, time.perf_counter()
+
+    def __call__(self, what: str) -> None:
+        now = time.perf_counter()
+        self.seconds[what] = now - self._t
+        self._t = now
+
+
+_TOWER: dict = {}
+
+
+def clip_tower(torch, np) -> dict:
+    """The train, finetune and sweeps phases' tower, built once: a
+    full-width CLIP tower's state dict (OpenAI-CLIP layout) with seeded
+    random weights and random BN statistics."""
+    from srsem_torch.backbones.resnet import make_backbone, reset_tower
+    from srsem_torch.config import BackboneConfig
+
+    if not _TOWER:
+        tower = make_backbone(BackboneConfig(kind="resnet50_clip",
+                                             image_size=IMAGE))
+        reset_tower(tower, torch.Generator().manual_seed(7))
+        randomize_bn(torch, np, tower, np.random.default_rng(7))
+        _TOWER.update(tower.state_dict())
+    return _TOWER
 
 
 def run_train(torch, np, card: str):
@@ -2192,10 +2273,7 @@ def run_train(torch, np, card: str):
     dev = torch.device(TRAIN_DEVICE)
 
     gcfg = GlobalModelConfig(backbone=bb(), head="stages_cnn", depth=3)
-    tower_model = make_global_model(gcfg, torch.Generator().manual_seed(7))
-    randomize_bn(torch, np, tower_model.backbone, np.random.default_rng(7))
-    tower = {k: v.clone() for k, v in tower_model.backbone.state_dict().items()}
-    del tower_model
+    tower = clip_tower(torch, np)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2301,14 +2379,10 @@ def run_train(torch, np, card: str):
     lsteps = train_setup(torch, np, lmodel, True)
     g5 = host_batch(np, TRAIN_BATCH, False, 10)
     c80 = host_batch(np, CLU_TRAIN_BATCH, True, 11)
-    wrappers = {"fused_bottleneck": fb.fused_bottleneck,
-                "fused_bottleneck_tiled": fb.fused_bottleneck_tiled}
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_launches(fb)
     losses = [gsteps.train_step(*batch_to_device(g5, dev)),
               lsteps.train_step(*batch_to_device(c80, dev))]
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_launches(torch, fb)
     want = {k: 2 * v for k, v in PASS_CALLS.items()}
     if launches != want or not all(torch.isfinite(v) for v in losses):
         raise AssertionError(f"train path launched {launches}, want {want}; "
@@ -2322,7 +2396,8 @@ def run_train(torch, np, card: str):
         "global_batch64": train_rate(
             torch, np, gsteps, host_batch(np, TRAIN_BIG_BATCH, False, 12),
             TRAIN_BIG_BATCH, 10),
-        "clu_batch80": train_rate(torch, np, lsteps, c80, CLU_TRAIN_BATCH, 5),
+        "clu_batch80": train_rate(torch, np, lsteps, c80, CLU_TRAIN_BATCH, 5,
+                                  prof_reps=1),
     }
     for key, rate in rates.items():
         if not all(np.isfinite(rate["losses"])):
@@ -2354,6 +2429,465 @@ def run_train(torch, np, card: str):
          losses={"fused": lf, "module": lm}, loss_rel_err=rel,
          head_param_max_abs_err=perr,
          tolerance="loss rtol 1e-5, head params atol 1e-6")
+    return launches
+
+
+# The finetune phase: the reference's LoRA rank on every tower conv, at
+# the train phase's batches (80 for the CLU, 5 and 64 for the global
+# regressor).
+LORA_RANK = 32
+
+
+def moved_keys(torch, before: dict, model) -> list:
+    """State-dict keys whose values changed since ``before``."""
+    return sorted(k for k, v in model.state_dict().items()
+                  if not torch.equal(v, before[k]))
+
+
+def run_finetune(torch, np, card: str) -> dict:
+    """Phase 10 (finetune): tower training at full width — the CLU at batch
+    80 with LoRA (rank 32) on every tower conv and with the whole tower
+    trained under activation checkpointing ("full"), and the global
+    regressor's ``enc_ft`` step at batch 5 and 64: ms a step, maps or
+    pairs/s, peak and step memory, a profile.  The tower trains, so it
+    runs as the module: the bottleneck kernels must launch no time.  Card
+    checks: a LoRA step moves only the factors and the decoder; a "full"
+    step moves the tower's BN running means and variances; in float32
+    (TF32 off) the first LoRA forward (A = 0) equals the frozen module
+    tower's, and the checkpointed tower's gradients equal an
+    un-checkpointed pass's; ``fused_tower=True`` on a LoRA model raises.
+    Returns the bottleneck launches of its steps (all zero)."""
+    from srsem_torch.backbones.resnet import make_backbone
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        LocalModelConfig,
+    )
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.models.global_models import make_global_model
+    from srsem_torch.models.local_models import make_local_model
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.train.loop import batch_to_device, build_training
+    from srsem_torch.train.partition import trainable_predicate
+    from srsem_torch.train.steps import masked_mse
+    from srsem_torch.utils.convert import load_backbone_params
+
+    dev = torch.device(TRAIN_DEVICE)
+    tower = clip_tower(torch, np)
+    lap = Laps()
+
+    def bb(dtype="bfloat16"):
+        return BackboneConfig(kind="resnet50_clip", image_size=IMAGE,
+                              compute_dtype=dtype)
+
+    def clu(rank, dtype="bfloat16", width=1.0):
+        model = make_local_model(
+            LocalModelConfig(backbone=bb(dtype), lora_rank=rank),
+            width_mult=width, generator=torch.Generator().manual_seed(2))
+        load_backbone_params(model.backbone, "resnet50_clip", tower)
+        return model
+
+    zero_launches(fb)
+    c80 = host_batch(np, CLU_TRAIN_BATCH, True, 11)
+    rates, checks = {}, {}
+    for key, rank, pred in (
+            ("clu_lora32_batch80", LORA_RANK, trainable_predicate(lora=True)),
+            ("clu_full_batch80", "full",
+             trainable_predicate(full_finetune=True))):
+        model = clu(rank)
+        steps, _ = build_training(model, True, pred, 1e-4, dev)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        loss = float(steps.train_step(*batch_to_device(c80, dev)))
+        moved = moved_keys(torch, before, model)
+        tower_moved = [k for k in moved if k.startswith("backbone.")]
+        if rank == "full":
+            stats = [k for k in tower_moved
+                     if k.endswith(("running_mean", "running_var"))]
+            if not stats or not np.isfinite(loss):
+                raise AssertionError(f"a full step moved no BN statistics: "
+                                     f"{tower_moved[:5]}, loss {loss}")
+            checks["full_step"] = {"tower_leaves_moved": len(tower_moved),
+                                   "bn_statistics_moved": len(stats),
+                                   "loss": loss}
+        else:
+            bad = [k for k in moved if not k.startswith("decoder.")
+                   and not k.endswith(("lora_a", "lora_b"))]
+            if bad or not tower_moved or not np.isfinite(loss):
+                raise AssertionError(f"a LoRA step moved {bad[:5]} (tower "
+                                     f"{len(tower_moved)} leaves), loss {loss}")
+            checks["lora_step"] = {"factors_moved": len(tower_moved),
+                                   "decoder_leaves_moved":
+                                   len(moved) - len(tower_moved),
+                                   "other_leaves_moved": 0, "loss": loss}
+        lap(f"{key}_build_and_checked_step")
+        rates[key] = train_rate(torch, np, steps, c80, CLU_TRAIN_BATCH, 3,
+                                prof_reps=1)
+        del model, steps, before
+        torch.cuda.empty_cache()
+        lap(f"{key}_rate")
+    gmodel = make_global_model(GlobalModelConfig(
+        backbone=bb(), head="stages_cnn", depth=3, enc_ft=True),
+        torch.Generator().manual_seed(1))
+    load_backbone_params(gmodel.backbone, "resnet50_clip", tower)
+    gsteps, _ = build_training(gmodel, False, trainable_predicate(enc_ft=True),
+                               1e-4, dev)
+    rates["global_enc_ft_batch5"] = train_rate(
+        torch, np, gsteps, host_batch(np, TRAIN_BATCH, False, 10),
+        TRAIN_BATCH, 8, prof_reps=1)
+    rates["global_enc_ft_batch64"] = train_rate(
+        torch, np, gsteps, host_batch(np, TRAIN_BIG_BATCH, False, 12),
+        TRAIN_BIG_BATCH, 4, prof_reps=1)
+    del gmodel, gsteps
+    torch.cuda.empty_cache()
+    lap("global_enc_ft_rates")
+    launches = read_launches(torch, fb)
+    if any(launches.values()):
+        raise AssertionError(f"a trained tower launched the folded tower's "
+                             f"kernels: {launches}")
+    for key, rate in rates.items():
+        if not all(np.isfinite(rate["losses"])):
+            raise AssertionError(f"{key} losses {rate['losses']}")
+        emit("finetune", step="throughput", path=key, card=card,
+             unit="maps/s" if key.startswith("clu") else "pairs/s", **rate)
+
+    # float32, TF32 off, batch 4: the LoRA tower (A = 0) against the
+    # frozen module tower, tap by tap.  These checks are of the tower: the
+    # decoder is at width 1/8.
+    small = host_batch(np, 4, True, 13)
+    a, b, y, mask = batch_to_device(small, dev)
+    frozen = make_backbone(bb("float32"))
+    load_backbone_params(frozen, "resnet50_clip", tower)
+    lora = clu(LORA_RANK, "float32", 0.125).to(dev)
+    with torch.no_grad():
+        _, got = lora.backbone(torch.cat([a, b]))
+        _, want = frozen.to(dev)(torch.cat([a, b]))
+    first = max(float((got[k] - want[k]).abs().max()) for k in want)
+    del frozen, got, want
+    if first > 1e-6:
+        raise AssertionError(f"first LoRA forward vs frozen tower: {first}")
+    full = clu("full", "float32", 0.125).to(dev).requires_grad_(True)
+    grads = {}
+    for name, tower_fn in (("checkpointed", full.tower),
+                           ("plain", full.backbone)):
+        full.zero_grad(set_to_none=True)
+        _, taps = tower_fn(torch.cat([a, b]))
+        n = a.shape[0]
+        pred = full.decode_from_taps({k: v[:n] for k, v in taps.items()},
+                                     {k: v[n:] for k, v in taps.items()},
+                                     a, b, train=True)
+        masked_mse(pred, y, mask).backward()
+        grads[name] = {k: p.grad.clone() for k, p in full.named_parameters()
+                       if p.grad is not None and k.startswith("backbone.")}
+    worst = 0.0
+    for k, g in grads["plain"].items():
+        err = float((grads["checkpointed"][k] - g).abs().max())
+        scale = float(g.abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+    if set(grads["plain"]) != set(grads["checkpointed"]) or worst > 1e-4:
+        raise AssertionError(f"checkpointed tower gradients vs plain: worst "
+                             f"relative error {worst}")
+    del full, grads
+    refused = []
+    lcfg = LocalModelConfig(backbone=bb("float32"), lora_rank=LORA_RANK)
+    for what, call in (
+            ("build_training", lambda: build_training(
+                lora, True, trainable_predicate(lora=True), 1e-4, dev,
+                fused_tower=True)),
+            ("PairScorer", lambda: PairScorer(lcfg, lora, model_kind="local",
+                                              fused_tower=True, device=dev))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append({"where": what, "error": str(e)})
+        else:
+            raise AssertionError(f"{what}: fused_tower=True on a LoRA model "
+                                 "did not raise")
+    del lora
+    torch.cuda.empty_cache()
+    lap("float32_checks")
+    emit("finetune", step="checks", card=card, **checks, seconds=lap.seconds,
+         first_lora_forward_vs_frozen_max_abs_err=first,
+         checkpointed_vs_plain_grad_worst_rel_err=worst,
+         fused_tower_refused=refused, bottleneck_launches=launches,
+         tolerance="first forward 1e-6 abs (A = 0); tower gradients 1e-4 "
+                   "of each tensor's max; float32, TF32 off, batch 4")
+    return launches
+
+
+# The sweeps phase: the global sweep's reference sizes — batch 5, depths
+# 1-3 — over 300 pairs, whose 240-pair train split is the one
+# srsem/train/diffcache.py:24 sizes its cache for (~6 MB a pair); 4 of
+# the reference's 30 epochs (epochs/s from the cache does not depend on
+# the count).
+N_SWEEP_PAIRS = 300
+SWEEP_EPOCHS = 4
+# The sweeps path, counted in every timed run: eight global runs (the
+# shared-tower epoch, three diff-cache and three stat-cache runs, the
+# closed form), each one tower pass a 5-pair batch of the 300 pairs; two
+# train-clu CLI runs (--cached-diffs, --thresholds; one epoch), each one
+# pass a batch of 80 over the pairs CSV's train and validation splits.
+# By images a pass; check_kernels times the train path's passes so many
+# times for it.
+SWEEP_GLOBAL_RUNS = 8
+CLU_CLI_PASSES = (-(-(N_CLU_ROWS - round(N_CLU_ROWS * 0.2)) // CLU_TRAIN_BATCH)
+                  + -(-round(N_CLU_ROWS * 0.2) // CLU_TRAIN_BATCH))
+SWEEP_PASSES = {2 * TRAIN_BATCH: SWEEP_GLOBAL_RUNS * N_SWEEP_PAIRS // TRAIN_BATCH,
+                2 * CLU_TRAIN_BATCH: 2 * CLU_CLI_PASSES}
+
+
+def sweep_batches(np, n: int, seed: int) -> list:
+    """``n`` distinct user-study pairs made in bulk, as the loader yields
+    them at 224 px (CLIP-normalized float32, batches of 5, all rows
+    valid): SR = the GT blended with a permuted copy at strength alpha,
+    labelled alpha (write_study's signal)."""
+    from srsem_torch.ops.image import CLIP_MEAN, CLIP_STD
+
+    rng = np.random.default_rng(seed)
+    gt = rng.integers(0, 256, (n, IMAGE, IMAGE, 3)).astype(np.float32)
+    alpha = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    perm = np.stack([rng.permutation(g.reshape(-1, 3)).reshape(g.shape)
+                     for g in gt])
+    sr = (1 - alpha[:, None, None, None]) * gt + alpha[:, None, None, None] * perm
+    norm = lambda x: ((np.floor(x) / 255.0 - np.float32(CLIP_MEAN))  # noqa: E731
+                      / np.float32(CLIP_STD)).astype(np.float32)
+    a, b = norm(sr), norm(gt)
+    ones = np.ones((TRAIN_BATCH,), np.float32)
+    return [(((a[i:i + TRAIN_BATCH], b[i:i + TRAIN_BATCH]),
+              alpha[i:i + TRAIN_BATCH]), ones)
+            for i in range(0, n, TRAIN_BATCH)]
+
+
+def run_sweeps(torch, np, card: str) -> dict:
+    """Phase 11 (sweeps): the frozen-tower amortizations at full width.
+    The global depth grid at batch 5 over 240 train and 60 validation
+    pairs (made in bulk, ``sweep_batches``): the shared tower (one
+    epoch), the diff cache and the stat cache (4 epochs each; build time
+    and bytes, epochs/s from the cache), the closed form (the solve's
+    ms); ``train-clu --cached-diffs`` and ``--thresholds none 0.4 0.9``
+    at batch 80 through the CLI.  The sweeps path is those runs: the
+    launch counts are set to 0 just before each and read just after, and
+    must be one tower pass a batch (``SWEEP_PASSES``).  Card checks: one
+    cached step's loss and head gradients equal one uncached step's, and
+    one stat-cache step's equal one diff-cache step's; the closed form's
+    train MSE is at most the Adam heads'.  Returns the sweeps path's
+    launches."""
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        TrainConfig,
+    )
+    from srsem_torch.models.global_models import (
+        conv_head_from_stats,
+        squared_diffs,
+    )
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.train import diffcache, multisweep, statcache
+    from srsem_torch.train.loop import batch_to_device
+    from srsem_torch.train.steps import masked_mse
+    from srsem_torch.utils.convert import conv_head_from_params
+
+    dev = torch.device(TRAIN_DEVICE)
+    tower = clip_tower(torch, np)
+    lap = Laps()
+    launches = dict.fromkeys(BOTTLENECK, 0)
+
+    def counted(call, passes: int):
+        """``call()``, its launches added to the path's; they must be
+        ``passes`` tower passes."""
+        zero_launches(fb)
+        out = call()
+        got = read_launches(torch, fb)
+        want = {k: passes * v for k, v in PASS_CALLS.items()}
+        if got != want:
+            raise AssertionError(f"sweeps path launched {got}, want {want} "
+                                 f"({passes} tower passes)")
+        for k, v in got.items():
+            launches[k] += v
+        return out
+
+    bb = BackboneConfig(kind="resnet50_clip", image_size=IMAGE)
+    cfg = GlobalModelConfig(backbone=bb, head="stages_cnn", depth=3)
+    points = multisweep.depth_grid()
+    kind = "resnet50_clip"
+    union = sorted({n for p in points for n in p.tap_names(kind)})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_study(np, tmp)
+        torch.save(tower, tmp / "tower.pt")
+        t0 = time.perf_counter()
+        batches = sweep_batches(np, N_SWEEP_PAIRS, 5)
+        made_s = time.perf_counter() - t0
+        n_train = N_SWEEP_PAIRS * 4 // 5
+        train = batches[:n_train // TRAIN_BATCH]
+        val = batches[n_train // TRAIN_BATCH:]
+
+        # One cached step == one uncached step; one stat-cache step == one
+        # diff-cache step (depth 3, the same init): the loss and the head's
+        # gradients.
+        tower_fn = multisweep.sweep_tower(cfg, tower, None, dev)
+        head0 = multisweep.point_heads(points[2:], kind,
+                                       torch.Generator().manual_seed(0))[0]
+        names = points[2].tap_names(kind)
+        one = diffcache.build_diff_cache(tower_fn, union, train[:1], dev)
+        stats = statcache.build_stat_cache(tower_fn, names, train[:1], dev)
+        a, b, y, mask = batch_to_device(train[0], dev)
+        taps_a, taps_b = multisweep.pair_taps(tower_fn, a, b, names)
+        inputs = {
+            "uncached": lambda h: h(squared_diffs(taps_a, taps_b, names)),
+            "cached": lambda h: h([one.diffs[n][0] for n in names]),
+            "stats": lambda h: conv_head_from_stats(
+                h, [stats.stats[n][0] for n in names])}
+        stepped = {}
+        for key, fwd in inputs.items():
+            head = copy.deepcopy(head0).to(dev)
+            loss = masked_mse(fwd(head), y, mask)
+            loss.backward()
+            stepped[key] = (float(loss.detach()), torch.cat([
+                p.grad.reshape(-1) for p in head.parameters()]))
+        step_errs = {
+            key: {"loss_rel": abs(stepped[key][0] - stepped[ref][0])
+                  / abs(stepped[ref][0]),
+                  "grad_max_rel": float((stepped[key][1] - stepped[ref][1])
+                                        .abs().max()
+                                        / stepped[ref][1].abs().max())}
+            for key, ref in (("cached", "uncached"), ("stats", "cached"))}
+        if (step_errs["cached"]["loss_rel"] > 1e-6
+                or step_errs["cached"]["grad_max_rel"] > 1e-6
+                or step_errs["stats"]["loss_rel"] > 1e-5
+                or step_errs["stats"]["grad_max_rel"] > 1e-5):
+            raise AssertionError(f"cached steps: {step_errs}")
+        del one, stats, taps_a, taps_b, stepped, tower_fn
+        torch.cuda.empty_cache()
+        lap("one_step_checks")
+
+        # The four global paths over the whole split.
+        def run(fn, epochs, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            out = counted(lambda: fn(points, cfg, TrainConfig(epochs=epochs),
+                                     train, val, backbone_params=tower,
+                                     device=dev, **kw),
+                          len(train) + len(val))
+            return out, time.perf_counter() - t, (
+                torch.cuda.max_memory_allocated() - base)
+
+        lines = {}
+        shared, sec, _ = run(multisweep.train_global_sweep_shared_tower, 1)
+        lines["shared_tower"] = {
+            "epochs": 1, "seconds": sec,
+            "train_pairs_per_s_all_points": n_train / sec,
+            "results": [{k: r[k] for k in ("name", "train_loss", "val_srcc",
+                                            "val_mse")} for r in shared]}
+        tap_shapes = {n: (IMAGE >> (2 + i), IMAGE >> (2 + i), c)
+                      for i, (n, c) in enumerate(zip(union, (256, 512, 1024,
+                                                             2048)))}
+        adam_train_mse = {}
+        for key, fn in (("cached_diffs",
+                         diffcache.train_global_sweep_cached_diffs),
+                        ("cached_stats",
+                         statcache.train_global_sweep_cached_stats)):
+            run(fn, 0)  # warm: the first call's one-time costs
+            _, built, _ = run(fn, 0)
+            out, sec, peak = run(fn, SWEEP_EPOCHS)
+            lines[key] = {
+                "epochs": SWEEP_EPOCHS,
+                "build_and_validation_seconds": built,
+                "seconds": sec,
+                # The epochs alone: the total less a warm run of none.
+                "epochs_per_s_from_cache": SWEEP_EPOCHS / (sec - built),
+                "peak_memory_over_resident_bytes": peak,
+                "results": [{k: r[k] for k in ("name", "train_loss",
+                                                "val_srcc", "val_mse")}
+                            for r in out]}
+            if key == "cached_diffs":
+                lines[key]["cache_bytes_train_and_val"] = (
+                    diffcache.estimate_cache_bytes(
+                        tap_shapes, n_train + len(val) * TRAIN_BATCH,
+                        torch.float32))
+            else:
+                heads = out
+        # The Adam heads' train MSE (through the ReLU, on the stat cache)
+        # against the closed form's.
+        gen = torch.Generator().manual_seed(0)
+        stat_tower = multisweep.sweep_tower(cfg, tower, gen, dev)
+        train_stats = statcache.build_stat_cache(stat_tower, union, train,
+                                                 dev)
+        keep = train_stats.mask > 0
+        for p, r in zip(points, heads):
+            head = conv_head_from_params(r["head_params"]).to(dev)
+            with torch.no_grad():
+                pred = conv_head_from_stats(head, [
+                    train_stats.stats[n] for n in p.tap_names(kind)])
+            adam_train_mse[p.name] = float(
+                ((pred - train_stats.y)[keep] ** 2).mean())
+        solve_ms = {}
+        for p in points:
+            statcache.fit_conv_head_closed_form(train_stats,
+                                                p.tap_names(kind))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            statcache.fit_conv_head_closed_form(train_stats,
+                                                p.tap_names(kind))
+            torch.cuda.synchronize()
+            solve_ms[p.name] = (time.perf_counter() - t) * 1e3
+        closed, sec, _ = run(statcache.solve_global_sweep_closed_form, 0)
+        lines["closed_form"] = {
+            "seconds": sec, "solve_ms": solve_ms,
+            "stat_cache_bytes_train_and_val": 4 * 3840 * (
+                n_train + len(val) * TRAIN_BATCH),
+            "results": [{k: r[k] for k in ("name", "train_loss", "val_srcc",
+                                            "val_mse")} for r in closed]}
+        worse = {r["name"]: (r["train_loss"], adam_train_mse[r["name"]])
+                 for r in closed
+                 if r["train_loss"] > adam_train_mse[r["name"]]}
+        if worse:
+            raise AssertionError(f"closed-form train MSE above Adam's: "
+                                 f"{worse}")
+        for key, line in lines.items():
+            emit("sweeps", step=key, batch=TRAIN_BATCH, card=card,
+                 train_pairs=n_train, val_pairs=N_SWEEP_PAIRS - n_train,
+                 **line)
+        del train_stats, stat_tower
+        torch.cuda.empty_cache()
+        lap("global_sweeps")
+
+        # train-clu's fast paths at batch 80 (the CLI, host decode
+        # included).
+        common = [str(tmp / "pairs.csv"), "--backbone-checkpoint",
+                  str(tmp / "tower.pt")]
+        cli = {}
+        for key, extra in (("cached_diffs", ["--cached-diffs", "--train-set",
+                                             "epochs=1"]),
+                           ("thresholds", ["--thresholds", "none", "0.4",
+                                           "0.9", "--train-set",
+                                           "epochs=1"])):
+            t = time.perf_counter()
+            out = counted(lambda: cli_json([
+                "train-clu", *common, *extra, "--checkpoint-dir",
+                str(tmp / f"ck_{key}")]), CLU_CLI_PASSES)
+            cli[key] = {"seconds": time.perf_counter() - t, "result": out}
+        rows = cli["thresholds"]["result"]
+        if ([r["name"] for r in rows] != ["threshold-None", "threshold-0.4",
+                                          "threshold-0.9"]
+                or not all(np.isfinite(r["val_mse"]) for r in rows)
+                or not np.isfinite(cli["cached_diffs"]["result"]["train_loss"])
+                or not all((tmp / "ck_thresholds" / r["name"]).is_dir()
+                           for r in rows)):
+            raise AssertionError(f"train-clu fast paths: {cli}")
+        emit("sweeps", step="train_clu_cli", batch=CLU_TRAIN_BATCH, card=card,
+             pairs=N_CLU_ROWS, **cli)
+        lap("train_clu_cli")
+    emit("sweeps", step="checks", card=card, launches=launches,
+         seconds=lap.seconds,
+         cached_vs_uncached_and_stats_vs_diffs_one_step=step_errs,
+         closed_form_vs_adam_train_mse={
+             r["name"]: {"closed_form": r["train_loss"],
+                         "adam": adam_train_mse[r["name"]]} for r in closed},
+         seconds_to_make_the_300_pairs=made_s,
+         tolerance="cached vs uncached 1e-6, stats vs diffs 1e-5 (loss "
+                   "relative; head gradients relative to their max)")
     return launches
 
 
@@ -2439,15 +2973,20 @@ def main() -> int:
     runs = {}
     for path, fn in (("global", run_slice), ("clu", run_clu_slice),
                      ("wperlay", run_heads), ("serve", run_serve),
-                     ("dual", run_dual), ("train", run_train)):
+                     ("dual", run_dual), ("train", run_train),
+                     ("finetune", run_finetune), ("sweeps", run_sweeps)):
         t0 = time.perf_counter()
         runs[path] = fn(torch, np, card)
         seconds[path] = time.perf_counter() - t0
     emit("timing", seconds=seconds)
     # The wperlay path's towers run the global path's bottleneck shapes
     # (the CLIP tower's stride-1 blocks are the ImageNet ones, batch 64).
-    for name in ("fused_bottleneck", "fused_bottleneck_tiled"):
+    # The sweeps path's passes run the train path's tower shapes, timed
+    # for it in check_kernels; the finetune path trains the tower as the
+    # module and runs no kernel (its run checks that).
+    for name in BOTTLENECK:
         summary[(name, "wperlay")] = summary[(name, "global")]
+    del runs["finetune"]
     for path, launches in runs.items():
         missing = [k for k, v in launches.items() if v <= 0]
         if missing:

@@ -55,6 +55,25 @@ DEFAULT_FUSE_STAGES = (0, 1, 2, 3)
 TILED_STAGE_ROWS = {0: 8}
 
 
+#: JAX's message (srsem/eval/scorer.py:58-63) for a fused tower asked of a
+#: tower it cannot serve.
+FROZEN_BASE_ONLY = ("fused_tower serves the frozen base tower only — it "
+                    "folds BN into conv weights and carries no LoRA deltas")
+
+
+def resolve_fused_tower(requested: Optional[bool], frozen_base: bool) -> bool:
+    """Whether to run the fused tower: ``requested``, or when None exactly
+    when the tower is the frozen base tower (no LoRA factors, no
+    gradients).  ``True`` for any other tower raises JAX's
+    ``ValueError``: the folded weights carry no LoRA delta and would go
+    stale under training."""
+    if requested is None:
+        return frozen_base
+    if requested and not frozen_base:
+        raise ValueError(FROZEN_BASE_ONLY)
+    return bool(requested)
+
+
 def _fold_conv(conv, bn, dtype: torch.dtype):
     """conv + frozen BN folded into one conv and a bias, cast to ``dtype``."""
     w, b = fold_bn_into_conv(conv.weight, bn)

@@ -24,8 +24,18 @@ torchvision layout (``conv1``, ``bn1``,
 ``visual`` layout (``conv1..3``/``bn1..3``, the same block keys,
 ``attnpool.{positional_embedding,q_proj,k_proj,v_proj,c_proj}``), so
 srsem/utils/convert.py::convert_torch_resnet50 and ::convert_clip_resnet50
-read the port's own ``state_dict()``.  LoRA and tap offsets wait (ROADMAP
-A7, A12).
+read the port's own ``state_dict()``.  Tap offsets wait (ROADMAP A12).
+
+``lora_rank`` puts LoRA factors (srsem_torch/ops/lora.py) on every conv of
+the tower, the downsample convs included, and on no attention-pool
+projection, as the Flax towers do: state-dict keys ``<conv>.lora_a`` and
+``<conv>.lora_b`` beside ``<conv>.weight``.  The kernel is float32 plus the
+float32 delta, then cast to the compute dtype (resnet.py:98-110).
+
+The four FrozenBatchNorm statistics are parameters that do not require
+gradients, under the state-dict names of torch's BatchNorm: they train
+only where a caller asks for it (the full fine-tune, ``enc_ft``), as the
+Flax module keeps them as params that ``trainable_predicate`` selects.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from srsem_torch.ops.image import interpolate_pos_embed
+from srsem_torch.ops.lora import init_lora_, lora_delta
 
 #: Stage depths of ResNet-50.
 STAGE_BLOCKS = (3, 4, 6, 3)
@@ -62,17 +73,19 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm locked to its running statistics — a buffer-only affine
-    (the reference keeps backbones in eval mode).  Statistics are float32;
-    the affine is applied in the input's dtype, as the Flax module does."""
+    """BatchNorm locked to its running statistics — an affine (the
+    reference keeps backbones in eval mode).  Statistics are float32
+    parameters, frozen unless a caller turns their gradients on; the
+    affine is applied in the input's dtype, as the Flax module does."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        for name, value in (("weight", torch.ones(features)),
+                            ("bias", torch.zeros(features)),
+                            ("running_mean", torch.zeros(features)),
+                            ("running_var", torch.ones(features))):
+            setattr(self, name, nn.Parameter(value, requires_grad=False))
 
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """float32 (scale, shift) with ``bn(x) == x * scale + shift``."""
@@ -85,29 +98,57 @@ class FrozenBatchNorm(nn.Module):
         return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride, k // 2, bias=False)
+class LoraConv2d(nn.Conv2d):
+    """A bias-free tower conv (padding k // 2, as torch's) whose kernel
+    carries a LoRA delta when ``rank`` is set (the Flax ``LoraConv``)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 rank: Optional[int] = None):
+        super().__init__(cin, cout, k, stride, k // 2, bias=False)
+        self.rank = rank
+        if rank:
+            self.lora_a = nn.Parameter(torch.zeros(k * k * cin, rank),
+                                       requires_grad=False)
+            self.lora_b = nn.Parameter(torch.zeros(rank, cout),
+                                       requires_grad=False)
+
+    def kernel(self) -> torch.Tensor:
+        """The float32 OIHW kernel with its LoRA delta."""
+        if not self.rank:
+            return self.weight
+        cout, cin, kh, kw = self.weight.shape
+        return self.weight + lora_delta(self.lora_a, self.lora_b,
+                                        (kh, kw, cin, cout))
 
 
-def conv_nchw(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` applied in the input's dtype (weights cast per call)."""
-    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+def _conv(cin: int, cout: int, k: int, stride: int = 1,
+          rank: Optional[int] = None) -> LoraConv2d:
+    return LoraConv2d(cin, cout, k, stride, rank)
+
+
+def conv_nchw(x: torch.Tensor, conv: LoraConv2d) -> torch.Tensor:
+    """``conv`` applied in the input's dtype: the float32 kernel (with its
+    LoRA delta) cast per call."""
+    return F.conv2d(x, conv.kernel().to(x.dtype), None, conv.stride,
                     conv.padding)
 
 
 class ImageNetBottleneck(nn.Module):
     """torchvision-v1.5 bottleneck: stride on the 3x3 conv."""
 
-    def __init__(self, cin: int, width: int, stride: int = 1):
+    def __init__(self, cin: int, width: int, stride: int = 1,
+                 lora_rank: Optional[int] = None):
         super().__init__()
-        out_ch = width * 4
-        self.conv1, self.bn1 = _conv(cin, width, 1), FrozenBatchNorm(width)
-        self.conv2 = _conv(width, width, 3, stride)
+        out_ch, r = width * 4, lora_rank
+        self.conv1 = _conv(cin, width, 1, rank=r)
+        self.bn1 = FrozenBatchNorm(width)
+        self.conv2 = _conv(width, width, 3, stride, r)
         self.bn2 = FrozenBatchNorm(width)
-        self.conv3, self.bn3 = _conv(width, out_ch, 1), FrozenBatchNorm(out_ch)
+        self.conv3 = _conv(width, out_ch, 1, rank=r)
+        self.bn3 = FrozenBatchNorm(out_ch)
         self.downsample: Optional[nn.Sequential] = None
         if stride != 1 or cin != out_ch:
-            self.downsample = nn.Sequential(_conv(cin, out_ch, 1, stride),
+            self.downsample = nn.Sequential(_conv(cin, out_ch, 1, stride, r),
                                             FrozenBatchNorm(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -124,17 +165,18 @@ class ImageNetResNet50(nn.Module):
 
     ``dtype`` is the compute dtype of the tower (bf16 for serving)."""
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 lora_rank: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = _conv(3, 64, 7, 2)
+        self.conv1 = _conv(3, 64, 7, 2, lora_rank)
         self.bn1 = FrozenBatchNorm(64)
         cin = 64
         for s, (blocks, width) in enumerate(zip(STAGE_BLOCKS, STAGE_WIDTHS)):
             layer = []
             for b in range(blocks):
                 layer.append(ImageNetBottleneck(
-                    cin, width, 2 if (b == 0 and s > 0) else 1))
+                    cin, width, 2 if (b == 0 and s > 0) else 1, lora_rank))
                 cin = width * 4
             self.add_module(f"layer{s + 1}", nn.Sequential(*layer))
 
@@ -164,17 +206,22 @@ class ClipBottleneck(nn.Module):
     (CLIP's anti-aliased downsampling).  The shortcut keeps CLIP's keys
     ``downsample.{-1 (pool), 0 (conv), 1 (bn)}``."""
 
-    def __init__(self, cin: int, width: int, stride: int = 1):
+    def __init__(self, cin: int, width: int, stride: int = 1,
+                 lora_rank: Optional[int] = None):
         super().__init__()
-        out_ch = width * 4
+        out_ch, r = width * 4, lora_rank
         self.stride = stride
-        self.conv1, self.bn1 = _conv(cin, width, 1), FrozenBatchNorm(width)
-        self.conv2, self.bn2 = _conv(width, width, 3), FrozenBatchNorm(width)
-        self.conv3, self.bn3 = _conv(width, out_ch, 1), FrozenBatchNorm(out_ch)
+        self.conv1 = _conv(cin, width, 1, rank=r)
+        self.bn1 = FrozenBatchNorm(width)
+        self.conv2 = _conv(width, width, 3, rank=r)
+        self.bn2 = FrozenBatchNorm(width)
+        self.conv3 = _conv(width, out_ch, 1, rank=r)
+        self.bn3 = FrozenBatchNorm(out_ch)
         self.downsample: Optional[nn.Sequential] = None
         if stride > 1 or cin != out_ch:
             self.downsample = nn.Sequential(OrderedDict([
-                ("-1", nn.AvgPool2d(stride)), ("0", _conv(cin, out_ch, 1)),
+                ("-1", nn.AvgPool2d(stride)),
+                ("0", _conv(cin, out_ch, 1, rank=r)),
                 ("1", FrozenBatchNorm(out_ch))]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -232,18 +279,20 @@ class ClipResNet50(nn.Module):
     images, in the OpenAI-CLIP ``visual`` state-dict layout."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
-                 image_size: int = 224, embed_dim: int = 1024):
+                 image_size: int = 224, embed_dim: int = 1024,
+                 lora_rank: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
-        self.conv1, self.bn1 = _conv(3, 32, 3, 2), FrozenBatchNorm(32)
-        self.conv2, self.bn2 = _conv(32, 32, 3), FrozenBatchNorm(32)
-        self.conv3, self.bn3 = _conv(32, 64, 3), FrozenBatchNorm(64)
+        r = lora_rank
+        self.conv1, self.bn1 = _conv(3, 32, 3, 2, r), FrozenBatchNorm(32)
+        self.conv2, self.bn2 = _conv(32, 32, 3, rank=r), FrozenBatchNorm(32)
+        self.conv3, self.bn3 = _conv(32, 64, 3, rank=r), FrozenBatchNorm(64)
         cin = 64
         for s, (blocks, width) in enumerate(zip(STAGE_BLOCKS, STAGE_WIDTHS)):
             layer = []
             for b in range(blocks):
                 layer.append(ClipBottleneck(
-                    cin, width, 2 if (b == 0 and s > 0) else 1))
+                    cin, width, 2 if (b == 0 and s > 0) else 1, r))
                 cin = width * 4
             self.add_module(f"layer{s + 1}", nn.Sequential(*layer))
         self.attnpool = AttentionPool2d(image_size // 32, cin, 32, embed_dim)
@@ -275,15 +324,18 @@ class ClipResNet50(nn.Module):
 
 def reset_tower(tower: nn.Module, generator: Optional[torch.Generator] = None):
     """Fresh tower weights from ``generator``, as the Flax init draws them:
-    Kaiming-normal (fan_in) convs, identity frozen BN, and in CLIP's
-    attention pool a normal(0, C^-1/2) positional table, LeCun-normal
-    projections and zero biases."""
+    Kaiming-normal (fan_in) convs and LoRA's zero ``a`` and Kaiming-normal
+    ``b``, identity frozen BN, and in CLIP's attention pool a
+    normal(0, C^-1/2) positional table, LeCun-normal projections and zero
+    biases."""
     with torch.no_grad():
         for m in tower.modules():
             if isinstance(m, nn.Conv2d):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_in),
                                  generator=generator)
+                if getattr(m, "rank", None):
+                    init_lora_(m.lora_a, m.lora_b, generator)
             elif isinstance(m, FrozenBatchNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
@@ -299,13 +351,15 @@ def reset_tower(tower: nn.Module, generator: Optional[torch.Generator] = None):
                                                generator=generator)
 
 
-def make_backbone(cfg) -> nn.Module:
-    """Instantiate a backbone from a BackboneConfig (the ResNet kinds)."""
+def make_backbone(cfg, lora_rank: Optional[int] = None) -> nn.Module:
+    """Instantiate a backbone from a BackboneConfig (the ResNet kinds),
+    with LoRA factors of ``lora_rank`` on every conv when it is set."""
     dtype = getattr(torch, cfg.compute_dtype)
     if cfg.kind == "resnet50":
-        return ImageNetResNet50(dtype=dtype)
+        return ImageNetResNet50(dtype=dtype, lora_rank=lora_rank)
     if cfg.kind == "resnet50_clip":
-        return ClipResNet50(dtype=dtype, image_size=cfg.image_size)
+        return ClipResNet50(dtype=dtype, image_size=cfg.image_size,
+                            lora_rank=lora_rank)
     if cfg.is_vit:
         raise NotImplementedError(
             "the CLIP ViT tower is not ported yet (ROADMAP A10)")

@@ -14,8 +14,11 @@ the global ``--profile DIR``).
     python -m srsem_torch train-global study.csv ROOT [--device cpu] \
         [--checkpoint-dir DIR] [--train-set epochs=1]
     python -m srsem_torch eval-global study.csv ROOT --checkpoint DIR
-    python -m srsem_torch train-clu pairs.csv [--checkpoint-dir DIR]
-    python -m srsem_torch sweep-clu pairs.csv --limit-axis lora_rank=None
+    python -m srsem_torch train-clu pairs.csv [--checkpoint-dir DIR] \
+        [--set lora_rank=32 | --cached-diffs | --thresholds none 0.4 0.9]
+    python -m srsem_torch sweep-global study.csv ROOT [--shared-tower | \
+        --cached-diffs | --cached-stats | --closed-form [--l2 1e-6]]
+    python -m srsem_torch sweep-clu pairs.csv [--shared-thresholds]
     python -m srsem_torch info [--native] [--devices]
     python -m srsem_torch --profile DIR score-groups GT_DIR SR_DIR...
 
@@ -23,7 +26,9 @@ Flags follow srsem/cli/main.py (:957-1072, :1119-1205, :1206-1246 and
 :1297-1328), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path) and
 ``--no-fused-tower`` / ``--no-fused-decoder`` (the port runs its Hopper
-kernels by default).  ``--checkpoint DIR`` reads the JAX package's
+kernels by default; the fused tower serves the frozen base tower only, so
+by default a LoRA or trained tower runs as the module, and
+``--fused-tower`` with one raises).  ``--checkpoint DIR`` reads the JAX package's
 checkpoint directories (``latest.json`` + ``step_N.msgpack``, through
 srsem_torch/train/checkpoint.py) and loads their ``trainable`` subset, and
 for CLU maps their ``batch_stats``, over the model, as the JAX CLI's
@@ -31,11 +36,15 @@ for CLU maps their ``batch_stats``, over the model, as the JAX CLI's
 param tree (``.msgpack``, the JAX CLI's ``srsem convert`` output) or a
 torchvision ``resnet50`` / OpenAI-CLIP state dict (``.pt``).  Without
 either, the weights are seeded random ones.  The training commands train
-the head or decoder on the frozen tower (srsem_torch/train/loop.py) and
-write the JAX package's checkpoint layout; their fast paths
-(``--cached-diffs``, ``--thresholds``, ``--shared-tower``,
-``--cached-stats``, ``--closed-form``, ``--shared-thresholds``) raise
-until ROADMAP A8, and tower training (``enc_ft``, LoRA) until A7.
+the head or decoder, and with ``--set enc_ft=True`` (global) or ``--set
+lora_rank=R`` / ``lora_rank='full'`` (CLU) the tower
+(srsem_torch/train/loop.py), and write the JAX package's checkpoint
+layout.  Their fast paths amortize the frozen tower: ``train-clu
+--cached-diffs`` (srsem_torch/train/diffcache.py) and ``--thresholds``
+(srsem_torch/train/multisweep.py, one checkpoint directory a threshold),
+``sweep-global --shared-tower`` / ``--cached-diffs`` / ``--cached-stats``
+/ ``--closed-form`` (srsem_torch/train/statcache.py) and ``sweep-clu
+--shared-thresholds``.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import argparse
 import ast
 import csv
 import json
+import os
 import sys
 from typing import Any, Dict, List
 
@@ -259,12 +269,6 @@ def cmd_sweep_dataset(args) -> int:
     return 0
 
 
-def _a8(flag: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} needs the sweep amortizations (diffcache, statcache, "
-        "multisweep), which are not ported yet (ROADMAP A8)")
-
-
 def _train_kw(args) -> Dict[str, Any]:
     """run_training's keywords from the flags; a missing card fails here,
     before any data or weights load."""
@@ -284,8 +288,7 @@ def cmd_train_global(args) -> int:
         TrainConfig,
         override,
     )
-    from srsem_torch.data.datasets import Subset, UserStudyScores, seeded_split
-    from srsem_torch.data.loader import Loader
+    from srsem_torch.data.datasets import UserStudyScores, split_loaders
     from srsem_torch.data.preprocess import Preprocess
     from srsem_torch.train.loop import train_global
 
@@ -296,11 +299,7 @@ def cmd_train_global(args) -> int:
                     _parse_sets(args.train_set))
     pre = Preprocess.for_backbone(cfg.backbone.kind, cfg.backbone.image_size)
     ds = UserStudyScores(args.csv, args.root, pre)
-    train_idx, val_idx = seeded_split(len(ds), tcfg.val_fraction, tcfg.seed)
-    train_loader = Loader(Subset(ds, train_idx), tcfg.batch_size, shuffle=True,
-                          seed=tcfg.seed)
-    val_loader = Loader(Subset(ds, val_idx), tcfg.batch_size)
-    result = train_global(cfg, tcfg, train_loader, val_loader,
+    result = train_global(cfg, tcfg, *split_loaders(ds, tcfg),
                           **_train_kw(args))
     print(json.dumps({"val_metrics": result.val_metrics, "steps": result.step}))
     return 0
@@ -348,25 +347,19 @@ def cmd_eval_global(args) -> int:
 
 
 def cmd_train_clu(args) -> int:
-    """Train a CLU map model's decoder on the frozen tower
-    (srsem_torch/train/loop.py::train_local)."""
-    if args.cached_diffs:
-        raise _a8("train-clu --cached-diffs")
-    if args.thresholds:
-        raise _a8("train-clu --thresholds")
+    """Train a CLU map model's decoder, and with ``lora_rank`` the tower
+    (srsem_torch/train/loop.py::train_local); ``--thresholds`` trains one
+    decoder a threshold over one tower stream, ``--cached-diffs`` the
+    decoder on a diff cache built in one tower pass."""
     from srsem_torch.config import (
         BackboneConfig,
         LocalModelConfig,
         TrainConfig,
         override,
     )
-    from srsem_torch.data.datasets import (
-        KoniqPairsMapsDataset,
-        Subset,
-        seeded_split,
-    )
-    from srsem_torch.data.loader import Loader
+    from srsem_torch.data.datasets import KoniqPairsMapsDataset, split_loaders
     from srsem_torch.data.preprocess import Preprocess
+    from srsem_torch.train.checkpoint import save_checkpoint
     from srsem_torch.train.loop import train_local
 
     cfg = override(
@@ -376,31 +369,71 @@ def cmd_train_clu(args) -> int:
         TrainConfig(batch_size=80, epochs=60, checkpoint_dir=args.checkpoint_dir),
         _parse_sets(args.train_set))
     pre = Preprocess.for_backbone(cfg.backbone.kind, cfg.backbone.image_size)
+    thresholds = None
+    if args.thresholds:
+        thresholds = [None if t.lower() in ("none", "null") else float(t)
+                      for t in args.thresholds]
+        if args.cached_diffs:
+            raise SystemExit("--thresholds and --cached-diffs are separate "
+                             "fast paths; pick one")
+    kw = _train_kw(args)
     ds = KoniqPairsMapsDataset(args.csv, pre, only_hq=args.only_hq,
                                imgamincaps=args.min_caps,
-                               threshold=tcfg.map_threshold)
-    train_idx, val_idx = seeded_split(len(ds), tcfg.val_fraction, tcfg.seed)
-    train_loader = Loader(Subset(ds, train_idx), tcfg.batch_size, shuffle=True,
-                          seed=tcfg.seed)
-    val_loader = Loader(Subset(ds, val_idx), tcfg.batch_size)
-    result = train_local(cfg, tcfg, train_loader, val_loader,
-                         **_train_kw(args))
+                               threshold=tcfg.map_threshold,
+                               thresholds=thresholds)
+    train_loader, val_loader = split_loaders(ds, tcfg)
+    if thresholds is not None:
+        from srsem_torch.train.multisweep import train_local_sweep_shared_tower
+
+        results = train_local_sweep_shared_tower(
+            thresholds, cfg, tcfg, train_loader, val_loader, **kw)
+        if tcfg.checkpoint_dir:
+            for r in results:
+                save_checkpoint(os.path.join(tcfg.checkpoint_dir, r["name"]),
+                                tcfg.epochs, {"trainable": r["trainable"],
+                                              "batch_stats": r["batch_stats"]})
+        print(json.dumps([{k: r[k] for k in ("name", "train_loss", "val_mse")}
+                          for r in results]))
+        return 0
+    if args.cached_diffs:
+        from srsem_torch.train.diffcache import train_local_cached_diffs
+
+        result = train_local_cached_diffs(cfg, tcfg, train_loader, val_loader,
+                                          **kw)
+        if tcfg.checkpoint_dir:
+            save_checkpoint(tcfg.checkpoint_dir, tcfg.epochs, {
+                "trainable": result["trainable"],
+                "batch_stats": result["batch_stats"]})
+        print(json.dumps({"val_metrics": {"mse": result["val_mse"]},
+                          "train_loss": result["train_loss"]}))
+        return 0
+    result = train_local(cfg, tcfg, train_loader, val_loader, **kw)
     print(json.dumps({"val_metrics": result.val_metrics, "steps": result.step}))
     return 0
 
 
 def cmd_sweep_global(args) -> int:
-    """The reference's global depth grid, one training run a point."""
-    for flag in ("shared_tower", "cached_diffs", "cached_stats",
-                 "closed_form"):
-        if getattr(args, flag):
-            raise _a8("sweep-global --" + flag.replace("_", "-"))
+    """The reference's global depth grid: one training run a point, or
+    with a fast path every point over one tower stream (the shared tower,
+    the diff cache, the stat cache, the closed form)."""
     from srsem_torch.train.sweep import (
+        AMORTIZED_MODES,
         GLOBAL_SWEEP,
         make_global_train_fn,
+        run_global_sweep_amortized,
         run_sweep,
     )
 
+    # The first flag set, in JAX's order of precedence.
+    mode = next((m for m in reversed(AMORTIZED_MODES) if getattr(args, m)),
+                None)
+    if mode:
+        results = run_global_sweep_amortized(
+            args.csv, args.root, mode, backbone=args.backbone, l2=args.l2,
+            **_train_kw(args))
+        print(json.dumps([{"name": r["name"], "val_srcc": r["val_srcc"],
+                           "val_mse": r["val_mse"]} for r in results]))
+        return 0
     results = run_sweep(
         make_global_train_fn(args.csv, args.root, backbone=args.backbone,
                              **_train_kw(args)),
@@ -487,9 +520,11 @@ def main(argv=None) -> int:
 
     def add_training_flags(p):
         p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
-                       default=True,
-                       help="the frozen tower through the Hopper bottleneck "
-                            "kernel (default); --no-fused-tower runs the "
+                       default=None,
+                       help="the frozen base tower through the Hopper "
+                            "bottleneck kernel (the default for a frozen "
+                            "tower without LoRA; a trained or LoRA tower runs "
+                            "as the module); --no-fused-tower runs the "
                             "module's F.conv2d chain")
         p.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu (plain PyTorch path)")
@@ -508,7 +543,7 @@ def main(argv=None) -> int:
                         "whose trained head is loaded over the model")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
-                   default=True,
+                   default=None,
                    help="tower interiors through the Hopper bottleneck "
                         "kernel (default); --no-fused-tower runs the plain "
                         "F.conv2d chain")
@@ -538,7 +573,7 @@ def main(argv=None) -> int:
                         "float32 for reproducibility (squared tap-diffs of "
                         "near-identical pairs amplify bf16 rounding)")
     p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
-                   default=True,
+                   default=None,
                    help="tower interiors through the Hopper bottleneck "
                         "kernel (default); --no-fused-tower runs the plain "
                         "F.conv2d chain")
@@ -575,9 +610,10 @@ def main(argv=None) -> int:
                    choices=["bfloat16", "float32"],
                    help="tower compute dtype")
     p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
-                   default=True,
+                   default=None,
                    help="tower interiors through the Hopper bottleneck "
-                        "kernel (default)")
+                        "kernel (default, unless --set lora_rank=...: a "
+                        "LoRA or fine-tuned tower runs as the module)")
     p.add_argument("--fused-decoder", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="decoder levels 0-2 through the Hopper decoder "
@@ -662,7 +698,7 @@ def main(argv=None) -> int:
     p.add_argument("--backbone", default="resnet50_clip")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--fused-tower", action=argparse.BooleanOptionalAction,
-                   default=True,
+                   default=None,
                    help="tower interiors through the Hopper bottleneck "
                         "kernel (default)")
     p.add_argument("--fused-decoder", action=argparse.BooleanOptionalAction,
@@ -722,10 +758,13 @@ def main(argv=None) -> int:
     p.add_argument("--set", action="append", default=[])
     p.add_argument("--train-set", action="append", default=[])
     p.add_argument("--cached-diffs", action="store_true",
-                   help="decoder-only fast path (not ported yet: ROADMAP A8)")
+                   help="decoder-only fast path: the frozen tower runs once "
+                        "over the dataset, epochs train the decoder on the "
+                        "diff cache on the device")
     p.add_argument("--thresholds", nargs="+", metavar="T",
-                   help="the threshold axis in one run (not ported yet: "
-                        "ROADMAP A8)")
+                   help="train one decoder per map threshold (e.g. none 0.4 "
+                        "0.9) over ONE tower stream; checkpoints go to "
+                        "CHECKPOINT_DIR/threshold-T")
     add_training_flags(p)
     p.set_defaults(fn=cmd_train_clu)
 
@@ -737,12 +776,20 @@ def main(argv=None) -> int:
     p.add_argument("--backbone-checkpoint", default=None,
                    help="tower (.msgpack or .pt) shared by every grid point")
     p.add_argument("--summary", default="sweep_global.jsonl")
-    for flag in ("--shared-tower", "--cached-diffs", "--cached-stats",
-                 "--closed-form"):
-        p.add_argument(flag, action="store_true",
-                       help="not ported yet (ROADMAP A8)")
+    p.add_argument("--shared-tower", action="store_true",
+                   help="train all depth points on one frozen-tower stream")
+    p.add_argument("--cached-diffs", action="store_true",
+                   help="run the tower once; train every epoch on the "
+                        "diff cache on the device")
+    p.add_argument("--cached-stats", action="store_true",
+                   help="run the tower once; train on per-layer "
+                        "spatial-mean diffs (~15 KB a pair, exact for "
+                        "conv heads)")
+    p.add_argument("--closed-form", action="store_true",
+                   help="solve each point's conv head exactly (ridge "
+                        "least squares) from the stat cache: no epochs")
     p.add_argument("--l2", type=float, default=1e-6,
-                   help="ridge penalty for --closed-form (ROADMAP A8)")
+                   help="ridge penalty for --closed-form")
     add_training_flags(p)
     p.set_defaults(fn=cmd_sweep_global)
 
@@ -753,8 +800,9 @@ def main(argv=None) -> int:
     p.add_argument("--summary", default="sweep_clu.jsonl")
     p.add_argument("--limit-axis", action="append", default=[])
     p.add_argument("--shared-thresholds", action="store_true",
-                   help="one run a cell's threshold axis (not ported yet: "
-                        "ROADMAP A8)")
+                   help="train each frozen-tower cell's whole threshold "
+                        "axis in one run (one tower stream, one decoder a "
+                        "threshold)")
     add_training_flags(p)
     p.set_defaults(fn=cmd_sweep_clu)
 

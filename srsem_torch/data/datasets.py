@@ -1,6 +1,6 @@
 """Index readers and sample builders for the training datasets — the port
 of srsem/data/datasets.py (``UserStudyScores``, ``KoniqPairsMapsDataset``,
-``seeded_split``, ``Subset``).
+``ImpaintMapsDataset``, ``seeded_split``, ``Subset``).
 
 Samples are numpy, shaped ``((img_a, img_b), label)`` with HWC float32
 images normalized on the host (``Preprocess.__call__``), as in the JAX
@@ -15,10 +15,12 @@ from __future__ import annotations
 import csv
 import os
 import pickle
+from itertools import combinations
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from srsem_torch.data.loader import Loader
 from srsem_torch.data.preprocess import Preprocess
 from srsem_torch.ops.npimage import resize_bilinear_np
 
@@ -117,6 +119,53 @@ class KoniqPairsMapsDataset:
         return ((img_a, img_b), label)
 
 
+class ImpaintMapsDataset:
+    """COCO-inpainting map dataset (reference: datasets/local_eval_torch_ds.py:
+    44-108, ``ImpaintDS_maps``): CSV rows ``(gt_image_path, impainted_pth,
+    segmentation_map_path)`` plus every pair (``itertools.combinations``)
+    of same-image positives under ``positive_pairs/`` beside the CSV; the
+    label map is the inverted normalized segmentation mask, by the
+    reference's exact recipe — the mask through the image preprocessor,
+    channel 0, divided by its max, inverted (a missing mask is a black
+    image of the GT's size)."""
+
+    def __init__(self, csv_path: str, preprocess: Preprocess):
+        _, rows = _read_csv(csv_path)
+        pos_dir = os.path.join(os.path.dirname(csv_path) or ".",
+                               "positive_pairs")
+        if os.path.isdir(pos_dir):
+            groups: dict = {}
+            for im in sorted(os.listdir(pos_dir)):
+                key = im.split(".")[0].split("_")[0]
+                groups.setdefault(key, []).append(os.path.join(pos_dir, im))
+            for ims in groups.values():
+                rows += [{"gt_image_path": a, "impainted_pth": b}
+                         for a, b in combinations(ims, 2)]
+        self.rows = rows
+        self.preprocess = preprocess
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, idx: int):
+        from PIL import Image
+
+        row = self.rows[idx]
+        img_a = self.preprocess(row["gt_image_path"])
+        img_b = self.preprocess(row["impainted_pth"])
+        seg = row.get("segmentation_map_path")
+        if not seg:
+            with Image.open(row["gt_image_path"]) as ref_im:
+                mask_img = Image.new("RGB", ref_im.size, color=(0, 0, 0))
+            mask = self.preprocess(mask_img)
+        else:
+            mask = self.preprocess(seg)
+        mask = mask[..., 0]
+        mask = mask / mask.max()
+        cosmap = 1.0 - mask
+        return ((img_a, img_b), cosmap.astype(np.float32))
+
+
 def seeded_split(n: int, val_fraction: float, seed: int) -> Tuple[np.ndarray, np.ndarray]:
     """(train, val) indices from a numpy permutation with a fixed seed —
     the reference splits with ``torch.random_split`` seeded 42
@@ -138,3 +187,13 @@ class Subset:
 
     def __getitem__(self, i: int):
         return self.base[self.indices[i]]
+
+
+def split_loaders(ds, tcfg) -> Tuple[Loader, Loader]:
+    """``ds`` split by ``seeded_split`` at ``tcfg``'s validation fraction
+    and seed: a shuffled train Loader and a validation Loader, both of
+    ``tcfg.batch_size``."""
+    tr, va = seeded_split(len(ds), tcfg.val_fraction, tcfg.seed)
+    return (Loader(Subset(ds, tr), tcfg.batch_size, shuffle=True,
+                   seed=tcfg.seed),
+            Loader(Subset(ds, va), tcfg.batch_size))

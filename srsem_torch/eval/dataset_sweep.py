@@ -55,7 +55,8 @@ class DualScorer:
 
     def __init__(self, global_cfg, local_cfg, global_model, local_model,
                  batch_size: int = 32, num_workers: int = 16,
-                 decode_backend: str = "pil", fused_tower: bool = True,
+                 decode_backend: str = "pil",
+                 fused_tower: Optional[bool] = None,
                  fused_decoder: bool = True, fast_jpeg: bool = False,
                  device: DeviceLike = None):
         gb, lb = global_cfg.backbone, local_cfg.backbone

@@ -143,7 +143,7 @@ class GroupedPairScorer:
     share one copy of the folded tower and the packed head on the card."""
 
     def __init__(self, cfg, model, k: int, batch_size: int = 32,
-                 num_workers: int = 16, fused_tower: bool = True,
+                 num_workers: int = 16, fused_tower: Optional[bool] = None,
                  fast_jpeg: bool = False, device: DeviceLike = None,
                  pairs: Optional[PairScorer] = None):
         check_grouped_head(cfg.head)
@@ -202,7 +202,8 @@ class GroupedMapScorer:
     one (``model_kind="local"``) as GroupedPairScorer's does."""
 
     def __init__(self, cfg, model, k: int, batch_size: int = 8,
-                 fused_tower: bool = True, fused_decoder: bool = True,
+                 fused_tower: Optional[bool] = None,
+                 fused_decoder: bool = True,
                  fast_jpeg: bool = False, device: DeviceLike = None,
                  pairs: Optional[PairScorer] = None):
         self.k = k

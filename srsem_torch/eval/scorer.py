@@ -11,10 +11,14 @@ fidelity map.
 * failed decodes give NaN rows (reference:
   datasets/SRdatasetPseudolabelGen/1_compute_image_metrics.py:119-134).
 
-``fused_tower=True`` (the default) runs the tower's interior blocks through
-the Hopper bottleneck kernel (srsem_torch/backbones/fused_resnet.py);
-``False`` runs the module's plain ``F.conv2d`` chain, the counterpart of
-the JAX package's dense XLA tower.  Both towers run as two passes (a, then
+``fused_tower`` on runs the tower's interior blocks through the Hopper
+bottleneck kernel (srsem_torch/backbones/fused_resnet.py); ``False`` runs
+the module's plain ``F.conv2d`` chain, the counterpart of the JAX
+package's dense XLA tower.  The default, None, turns it on for the frozen
+base tower, that is unless the configuration sets ``lora_rank`` (a LoRA
+or fully fine-tuned CLU tower scores through the module, as in JAX); an
+explicit ``True`` there raises JAX's ``ValueError``
+(srsem/eval/scorer.py:58-63).  Both towers run as two passes (a, then
 b).  After the tower, by model:
 
 * the conv heads (stages_cnn, wperlay_cnn) go through
@@ -39,7 +43,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from srsem_torch.backbones.fused_resnet import fold_tower, fused_apply
+from srsem_torch.backbones.fused_resnet import (
+    fold_tower,
+    fused_apply,
+    resolve_fused_tower,
+)
 from srsem_torch.data.preprocess import Preprocess
 from srsem_torch.device import DeviceLike, resolve_device
 from srsem_torch.models.global_models import CONV_HEADS
@@ -70,7 +78,7 @@ class PairScorer:
         model_kind: str = "global",
         num_workers: int = 16,
         decode_backend: str = "pil",
-        fused_tower: bool = True,
+        fused_tower: Optional[bool] = None,
         fused_decoder: Optional[bool] = None,
         fast_jpeg: bool = False,
         device: DeviceLike = None,
@@ -105,7 +113,8 @@ class PairScorer:
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.decode_backend = decode_backend
-        self.fused_tower = fused_tower
+        self.fused_tower = resolve_fused_tower(
+            fused_tower, getattr(cfg, "lora_rank", None) is None)
         self.is_clu = isinstance(model, CluUnet)
         if model_kind == "local" and not self.is_clu:
             raise ValueError(f"model_kind='local' scores a CluUnet, got "
@@ -121,7 +130,7 @@ class PairScorer:
         # The model is frozen: fold BN into the kernel weights once.
         with torch.no_grad():
             self._tower_folded = (fold_tower(self.model.backbone, self.dtype)
-                                  if fused_tower else None)
+                                  if self.fused_tower else None)
             self._decoder_folded = (fold_decoder(self.model)
                                     if self.fused_decoder else None)
             self.head = (pack_head(self.model.aggregator)

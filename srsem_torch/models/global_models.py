@@ -28,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -83,6 +84,14 @@ def wperlay_taps(depth: int) -> Tuple[str, ...]:
     (reference: models/global_eval_models.py:832-833)."""
     names = [f"stages.{s}.{b}.act" for s in range(4) for b in range(3)]
     return tuple(names[11 - depth:])
+
+
+def tap_channels(name: str) -> int:
+    """Channels of a stage or block tap of either ResNet tower
+    (``stages.{s}.{b}.act``, ``layer{s+1}.2.act3``)."""
+    stage = (int(name.split(".")[1]) if name.startswith("stages.")
+             else int(name.split(".")[0][len("layer"):]) - 1)
+    return _STAGE_CHANNELS[stage]
 
 
 def squared_diffs(taps_a: Dict[str, Tensor], taps_b: Dict[str, Tensor],
@@ -147,6 +156,36 @@ def conv_head_from_stats(head: ConvHeadAggregator,
     scores = [s.float() @ layer.weight.reshape(-1).float() + layer.bias.float()[0]
               for layer, s in zip(head.w_layers, stats)]
     return F.relu(torch.stack(scores).mean(dim=0))
+
+
+def conv_head_params(weights: Sequence, biases: Sequence[float]
+                     ) -> Dict[str, Dict[str, np.ndarray]]:
+    """A :class:`ConvHeadAggregator`'s parameters in the JAX layout
+    (``w_layers.{j}``: Dense ``kernel`` (C_j, 1), ``bias`` (1,), float32
+    numpy) from per-layer weight vectors and scalar biases — what the
+    closed-form solver (srsem_torch/train/statcache.py) emits, as
+    srsem/models/global_models.py:287-300 does."""
+    return {
+        f"w_layers.{j}": {
+            "kernel": np.asarray(w, np.float32).reshape(-1, 1),
+            "bias": np.asarray([b], np.float32),
+        }
+        for j, (w, b) in enumerate(zip(weights, biases))
+    }
+
+
+def token_head_params(weights: Sequence, biases: Sequence[float],
+                      shared: bool = False) -> Dict[str, Dict[str, np.ndarray]]:
+    """The ViT token head's parameters in the JAX layout: the conv heads'
+    Dense layout (``conv_head_params``), or with ``shared`` the singleLin
+    ``w_layer`` from one weight and bias (srsem/models/global_models.py:
+    305-317; reference: models/global_eval_models.py:29-31)."""
+    params = conv_head_params(weights, biases)
+    if not shared:
+        return params
+    if len(weights) != 1:
+        raise ValueError("shared head takes exactly one weight vector")
+    return {"w_layer": params["w_layers.0"]}
 
 
 def _truncated_normal_(t: Tensor, std: float,
@@ -242,9 +281,17 @@ class GlobalPairScorer(nn.Module):
         reset_tower(self.backbone, generator)
         self.aggregator.reset_parameters(generator)
 
+    @property
+    def tower_trains(self) -> bool:
+        """``enc_ft``: gradients reach the tower (no checkpointing, as in
+        JAX)."""
+        return self.cfg.enc_ft
+
     def forward(self, a: Tensor, b: Tensor) -> Tensor:
         n = a.shape[0]
         emb, taps = self.backbone(torch.cat([a, b], dim=0))
+        if not self.tower_trains:
+            emb, taps = emb.detach(), {k: v.detach() for k, v in taps.items()}
         taps_a = {k: v[:n] for k, v in taps.items()}
         taps_b = {k: v[n:] for k, v in taps.items()}
         return self.score_from_taps(emb[:n], emb[n:], taps_a, taps_b)

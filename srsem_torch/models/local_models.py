@@ -28,7 +28,14 @@ train=True)`` run the decoder's BatchNorms on batch statistics and update
 their running statistics, as the JAX package's ``TorchBatchNorm``
 (srsem/ops/batchnorm.py) does: torch momentum 0.1 (flax's 0.9), the
 biased batch variance to normalize, the Bessel-corrected one into
-``running_var``.  LoRA and the full fine-tune wait (ROADMAP A7).
+``running_var``.
+
+Tower training (``lora_rank``): an int puts LoRA factors of that rank on
+every tower conv (srsem_torch/ops/lora.py), and ``"full"`` trains the
+whole tower, run under activation checkpointing (``torch.utils.checkpoint``
+over the tower call, the Flax module's ``nn.remat``).  The taps carry
+gradients in both modes and are detached otherwise, as the Flax module's
+``stop_gradient`` (local_models.py:214-232).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from srsem_torch.backbones.resnet import (
     CLIP_STAGE_TAPS,
@@ -136,10 +144,6 @@ class CluUnet(nn.Module):
                  output_dtype: torch.dtype = torch.float32,
                  width_mult: float = 1.0, split_tower: bool = False):
         super().__init__()
-        if lora_rank is not None:
-            raise NotImplementedError(
-                "LoRA and the full fine-tune of the tower are not ported yet "
-                "(ROADMAP A7)")
         if backbone_kind == "resnet50_clip":
             self.tap_names = (CLIP_STEM_TAP,) + CLIP_STAGE_TAPS
         elif backbone_kind == "resnet50":
@@ -147,6 +151,7 @@ class CluUnet(nn.Module):
         else:
             raise ValueError(f"unsupported CLU backbone {backbone_kind!r}")
         self.backbone_kind = backbone_kind
+        self.lora_rank = lora_rank
         self.v2 = v2
         self.sigmoid = sigmoid
         self.decoder_dtype = decoder_dtype
@@ -155,7 +160,8 @@ class CluUnet(nn.Module):
         self.split_tower = split_tower
         self.backbone = make_backbone(BackboneConfig(
             kind=backbone_kind, image_size=image_size,
-            compute_dtype=str(compute_dtype).replace("torch.", "")))
+            compute_dtype=str(compute_dtype).replace("torch.", "")),
+            lora_rank=lora_rank if isinstance(lora_rank, int) else None)
 
         def scaled(ch: int) -> int:
             return ch if width_mult == 1.0 else max(8, int(ch * width_mult))
@@ -190,15 +196,31 @@ class CluUnet(nn.Module):
                 elif isinstance(m, nn.BatchNorm2d):
                     m.reset_parameters()
 
+    @property
+    def tower_trains(self) -> bool:
+        """LoRA (an int rank) or the full fine-tune: the taps carry
+        gradients."""
+        return self.lora_rank == "full" or isinstance(self.lora_rank, int)
+
+    def tower(self, x: Tensor):
+        """``(embedding, taps)`` of the module tower: checkpointed under the
+        full fine-tune, detached unless the tower trains."""
+        if self.lora_rank == "full":
+            return checkpoint(self.backbone, x, use_reentrant=False)
+        emb, taps = self.backbone(x)
+        if self.tower_trains:
+            return emb, taps
+        return emb.detach(), {k: v.detach() for k, v in taps.items()}
+
     def forward(self, a: Tensor, b: Tensor, train: bool = False) -> Tensor:
         if not self.split_tower:
             n = a.shape[0]
-            _, taps = self.backbone(torch.cat([a, b], dim=0))
+            _, taps = self.tower(torch.cat([a, b], dim=0))
             taps_a = {k: v[:n] for k, v in taps.items()}
             taps_b = {k: v[n:] for k, v in taps.items()}
         else:
-            _, taps_a = self.backbone(a)
-            _, taps_b = self.backbone(b)
+            _, taps_a = self.tower(a)
+            _, taps_b = self.tower(b)
         return self.decode_from_taps(taps_a, taps_b, a, b, train)
 
     def decode_from_taps(self, taps_a: Dict[str, Tensor],

@@ -7,16 +7,20 @@ scores), a checkpoint every epoch in the JAX package's layout
 (``{"trainable", "opt_state", "batch_stats"}``, so either package's CLI
 reads the other's), on one card.
 
-The tower is frozen in every run this module makes (``enc_ft``, LoRA and
-the full fine-tune wait for ROADMAP A7).  With ``fused_tower`` (the
-default, as for the scorers) it is folded once a run
-(``fold_tower``) and runs through ``fused_apply``: the Hopper bottleneck
-kernels (``fused_bottleneck``, ``fused_bottleneck_tiled``) in every train
-and validation step on the card, their plain versions on the CPU.  The
-JAX package trains through its module tower; the two agree to float32
-rounding (tests/test_torch_port_train.py).  The head or decoder runs as a
-module, in training and in validation (as JAX's ``eval_step``): the
-decoder kernel folds running statistics and cannot train BatchNorm.
+A frozen base tower (no LoRA factors, no gradients) is folded once a
+run (``fold_tower``) and runs through ``fused_apply`` when ``fused_tower``
+is on (None, the default, turns it on exactly for such a tower): the
+Hopper bottleneck kernels (``fused_bottleneck``,
+``fused_bottleneck_tiled``) in every train and validation step on the
+card, their plain versions on the CPU.  The JAX package trains through its
+module tower; the two agree to float32 rounding
+(tests/test_torch_port_train.py).  A tower that trains (``enc_ft``, LoRA,
+the full fine-tune) or carries LoRA factors runs as the module, under
+autograd, as in JAX: the folded weights would go stale after the first
+step, so an explicit ``fused_tower=True`` raises JAX's ``ValueError``
+(srsem/eval/scorer.py:58-63).  The head or decoder runs as a module, in
+training and in validation (as JAX's ``eval_step``): the decoder kernel
+folds running statistics and cannot train BatchNorm.
 
 Batches arrive as numpy from the loader and go to the card through pinned
 memory with non-blocking copies.  The epoch loss accumulates on the card;
@@ -27,11 +31,16 @@ epoch's last step, so no step waits for the card.
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
-from srsem_torch.backbones.fused_resnet import fold_tower, fused_apply
+from srsem_torch.backbones.fused_resnet import (
+    fold_tower,
+    fused_apply,
+    resolve_fused_tower,
+)
 from srsem_torch.config import GlobalModelConfig, LocalModelConfig, TrainConfig
 from srsem_torch.device import DeviceLike, resolve_device
 from srsem_torch.models.global_models import make_global_model
@@ -60,13 +69,12 @@ def _backbone_kind(model) -> str:
     return getattr(model, "backbone_kind", None) or model.cfg.backbone.kind
 
 
-def frozen_tower(model, fused: bool = True):
-    """``x -> (embedding, taps)`` of the model's frozen tower: folded once
-    and run through the fused tower, or the module's backbone."""
-    backbone = model.backbone
+def frozen_tower(backbone, kind: str, fused: bool = True):
+    """``x -> (embedding, taps)`` of a frozen tower: folded once and run
+    through the fused tower, or the module itself."""
     if not fused:
         return backbone
-    kind, dtype = _backbone_kind(model), backbone.dtype
+    dtype = backbone.dtype
     with torch.no_grad():
         folded = fold_tower(backbone, dtype)
     return lambda x: fused_apply(kind, backbone, x, dtype, folded=folded)
@@ -88,26 +96,31 @@ def batch_to_device(batch, device: torch.device):
     return [to_device(v, device) for v in (a, b, y, mask)]
 
 
+def has_lora(model) -> bool:
+    return isinstance(getattr(model, "lora_rank", None), int)
+
+
 def build_training(model, is_map_model: bool, predicate, lr: float,
-                   device: torch.device, fused_tower: bool = True):
+                   device: torch.device, fused_tower: Optional[bool] = None):
     """``model`` on ``device`` with gradients on the ``predicate`` subset
-    only (the tower stays frozen), Adam over that subset, and the step
-    functions over the frozen tower; returns ``(steps, optimizer)``."""
+    only, Adam over that subset, and the step functions: over the folded
+    tower when the tower is the frozen base tower and ``fused_tower`` does
+    not turn it off, else over the module's own forward; returns
+    ``(steps, optimizer)``."""
     model.to(device)
-    trainable = []
+    trainable, tower_trains = [], False
     for name, p in model.named_parameters():
         on = bool(predicate(tuple(name.split("."))))
-        if on and name.startswith("backbone."):
-            raise NotImplementedError(
-                "training the tower (enc_ft, LoRA, the full fine-tune) is "
-                "not ported yet (ROADMAP A7)")
         p.requires_grad_(on)
         if on:
             trainable.append(p)
+            tower_trains |= name.startswith("backbone.")
+    frozen = not (tower_trains or has_lora(model))
+    fused = resolve_fused_tower(fused_tower, frozen)
     optimizer = torch.optim.Adam(trainable, lr=lr)
-    steps = build_step_fns(model, optimizer, is_map_model,
-                           frozen_tower(model, fused_tower))
-    return steps, optimizer
+    tower = (frozen_tower(model.backbone, _backbone_kind(model), fused)
+             if frozen else None)
+    return build_step_fns(model, optimizer, is_map_model, tower), optimizer
 
 
 def run_training(
@@ -121,7 +134,7 @@ def run_training(
     variables=None,
     backbone_params=None,
     device: DeviceLike = None,
-    fused_tower: bool = True,
+    fused_tower: Optional[bool] = None,
 ) -> TrainResult:
     """Masked-MSE Adam training of ``model``'s ``predicate`` subset;
     returns the final metrics and the trained state (``trainable``,
@@ -208,13 +221,10 @@ def evaluate(steps, loader, device: torch.device, is_map_model: bool) -> dict:
 
 def train_global(cfg: GlobalModelConfig, tcfg: TrainConfig,
                  train_loader, val_loader, **kw) -> TrainResult:
-    """Train a global pair-scoring regressor's head on the frozen tower
-    (reference: sweep_train, CLIPLPIPS_REG_training_sweep_example.py:
-    118-206), from weights seeded with ``tcfg.seed``."""
-    if cfg.enc_ft:
-        raise NotImplementedError(
-            "enc_ft=True fine-tunes the tower, which is not ported yet "
-            "(ROADMAP A7)")
+    """Train a global pair-scoring regressor's head, and with ``enc_ft``
+    the tower too (reference: sweep_train,
+    CLIPLPIPS_REG_training_sweep_example.py:118-206), from weights seeded
+    with ``tcfg.seed``."""
     model = make_global_model(cfg, torch.Generator().manual_seed(tcfg.seed))
     return run_training(model, False, train_loader, val_loader, tcfg,
                         trainable_predicate(enc_ft=cfg.enc_ft), **kw)
@@ -222,9 +232,10 @@ def train_global(cfg: GlobalModelConfig, tcfg: TrainConfig,
 
 def train_local(cfg: LocalModelConfig, tcfg: TrainConfig,
                 train_loader, val_loader, **kw) -> TrainResult:
-    """Train a CLU map model's decoder on the frozen tower (reference:
-    sweep_train, CLU_training_sweep_example.py:78-180), from weights
-    seeded with ``tcfg.seed``; LoRA and the full fine-tune raise (A7)."""
+    """Train a CLU map model's decoder, and with ``lora_rank`` LoRA factors
+    or the whole tower (reference: sweep_train,
+    CLU_training_sweep_example.py:78-180), from weights seeded with
+    ``tcfg.seed``."""
     model = make_local_model(
         cfg, generator=torch.Generator().manual_seed(tcfg.seed))
     predicate = trainable_predicate(

@@ -1,11 +1,13 @@
 """Train and eval steps — the port of srsem/train/steps.py.
 
-One card, no mesh (multi-GPU waits for ROADMAP A9b).  The tower is frozen
-in every step this module builds: it runs under ``torch.no_grad`` through
-``tower`` (the fused tower of srsem_torch/backbones/fused_resnet.py, or the
-module's backbone), one pass over the 2N images of a pair batch, and only
-the head or decoder sees autograd, as the JAX package's
-``stop_gradient`` on the taps has it.  The loss is masked MSE, so the
+One card, no mesh (multi-GPU waits for ROADMAP A9b).  A frozen tower runs
+under ``torch.no_grad`` through ``tower`` (the fused tower of
+srsem_torch/backbones/fused_resnet.py, or the module's backbone), one pass
+over the 2N images of a pair batch, and only the head or decoder sees
+autograd, as the JAX package's ``stop_gradient`` on the taps has it.  A
+tower that trains (``enc_ft``, LoRA, the full fine-tune; ``tower=None``)
+runs inside the model's own forward under autograd, as JAX's
+``model.apply`` does.  The loss is masked MSE, so the
 loader's padded final batch keeps one shape: padded rows enter the
 decoder's BatchNorm batch statistics, as in JAX, and not the loss.
 
@@ -59,15 +61,18 @@ def build_step_fns(model, optimizer: torch.optim.Optimizer,
     """Train and eval steps over ``model`` (a GlobalPairScorer or a
     CluUnet) and ``optimizer`` (over the model's trainable parameters).
 
-    ``tower`` maps NHWC images to ``(embedding, taps)``; default the
-    module's backbone.  ``is_map_model`` trains a CluUnet's decoder with
-    batch statistics (``train=True``); a CluUnet trained as a global model
+    ``tower`` maps NHWC images to ``(embedding, taps)`` of the frozen
+    tower; None runs the model's forward, whose tower trains.
+    ``is_map_model`` trains a CluUnet's decoder with batch statistics
+    (``train=True``); a CluUnet trained as a global model
     (``head="unet_global"``) keeps its BatchNorms on running statistics,
     as the JAX package applies it without ``train``."""
-    tower = tower or model.backbone
     is_clu = isinstance(model, CluUnet)
 
     def apply(a: Tensor, b: Tensor, train: bool) -> Tensor:
+        if tower is None:
+            return (model(a, b, train=train and is_map_model) if is_clu
+                    else model(a, b))
         n = a.shape[0]
         with torch.no_grad():
             emb, taps = tower(torch.cat([a, b], dim=0))

@@ -17,8 +17,13 @@
 * ``jax_trainable_params`` — the reverse for the trained subset: a
   model's heads or decoder (and BN statistics) in the JAX layout, what a
   checkpoint's ``trainable`` / ``batch_stats`` hold, to write with
-  srsem_torch/train/checkpoint.py::save_checkpoint; ``jax_adam_state``
-  writes a ``torch.optim.Adam``'s state as the checkpoint's ``opt_state``.
+  srsem_torch/train/checkpoint.py::save_checkpoint, with the tower's
+  trained leaves under ``backbone``: LoRA's ``lora_a`` / ``lora_b`` of
+  every conv, or under the full fine-tune and ``enc_ft`` every tower leaf
+  (the FrozenBatchNorm statistics included), as
+  srsem/train/partition.py::trainable_predicate selects them;
+  ``jax_adam_state`` writes a ``torch.optim.Adam``'s state as the
+  checkpoint's ``opt_state``.
 * ``load_backbone_params`` — a JAX tower param tree or a torchvision /
   OpenAI-CLIP state dict into a tower.
 * ``load_torch_resnet50`` — a torchvision/timm ``resnet50`` state dict
@@ -41,6 +46,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from srsem_torch.ops.lora import LORA_LEAVES
+from srsem_torch.train.partition import flatten_dict, unflatten_dict
+
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
 
@@ -57,45 +65,103 @@ def _oihw(kernel) -> torch.Tensor:
     return _tensor(kernel).permute(3, 2, 0, 1).contiguous()
 
 
+_BN_JAX = {v: k for k, v in _BN.items()}
+_SHORTCUT = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+_SHORTCUT_JAX = {v: k for k, v in _SHORTCUT.items()}
+_PROJ = {"out_proj": "c_proj"}
+_PROJ_JAX = {"c_proj": "out_proj"}
+
+
+def _tower_key(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """``(state-dict key, layout)`` of a JAX tower leaf path; layout
+    ``"conv"`` (HWIO kernel), ``"dense"`` ((in, out) kernel) or ``""``."""
+    *mod, leaf = path
+    if mod[0] == "attnpool":
+        if len(mod) == 1:  # positional_embedding
+            return f"attnpool.{leaf}", ""
+        proj = f"attnpool.{_PROJ.get(mod[1], mod[1])}"
+        return (f"{proj}.weight", "dense") if leaf == "kernel" else (
+            f"{proj}.{leaf}", "")
+    if mod[0].startswith("stages."):  # CLIP block
+        _, s, b = mod[0].split(".")
+        prefix, name = f"layer{int(s) + 1}.{b}.", mod[1]
+    elif len(mod) == 2:  # ImageNet block
+        prefix, name = f"{mod[0]}.", mod[1]
+    else:  # a stem conv or BN
+        prefix, name = "", mod[0].replace("stem.", "")
+    key = prefix + _SHORTCUT.get(name, name)
+    if "conv" in name:
+        return (f"{key}.weight", "conv") if leaf == "kernel" else (
+            f"{key}.{leaf}", "")
+    return f"{key}.{_BN[leaf]}", ""
+
+
+def _jax_tower_path(key: str, clip: bool) -> Tuple[Tuple[str, ...], str]:
+    """The reverse of ``_tower_key``: a tower state-dict key's JAX path and
+    layout (``clip``: the CLIP tower's ``stem.`` and ``stages.`` names)."""
+    *mod, leaf = key.split(".")
+    if mod[0] == "attnpool":
+        if len(mod) == 1:
+            return ("attnpool", leaf), ""
+        proj = ("attnpool", _PROJ_JAX.get(mod[1], mod[1]))
+        return (proj + ("kernel",), "dense") if leaf == "weight" else (
+            proj + (leaf,), "")
+    if mod[0].startswith("layer"):
+        s, b = int(mod[0][len("layer"):]), mod[1]
+        name = ".".join(mod[2:])
+        top = (f"stages.{s - 1}.{b}" if clip else f"{mod[0]}.{b}",
+               _SHORTCUT_JAX.get(name, name))
+    else:
+        top = (f"stem.{mod[0]}" if clip else mod[0],)
+    if "conv" in top[-1]:
+        return (top + ("kernel",), "conv") if leaf == "weight" else (
+            top + (leaf,), "")
+    return top + (_BN_JAX[leaf],), ""
+
+
 def jax_backbone_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ImageNetResNet50 or ClipResNet50 params → torchvision- or
-    OpenAI-CLIP-layout state dict (CLIP: ``stem.conv{i}`` → ``conv{i}``,
-    ``stages.{s}.{b}`` → ``layer{s+1}.{b}``, ``attnpool.out_proj`` →
-    ``attnpool.c_proj``)."""
+    """JAX ImageNetResNet50 or ClipResNet50 params, whole or a
+    checkpoint's subset (LoRA's ``lora_a`` / ``lora_b`` leaves), →
+    torchvision- or OpenAI-CLIP-layout state dict (CLIP: ``stem.conv{i}``
+    → ``conv{i}``, ``stages.{s}.{b}`` → ``layer{s+1}.{b}``,
+    ``attnpool.out_proj`` → ``attnpool.c_proj``)."""
     sd: Dict[str, torch.Tensor] = {}
-
-    def conv(dst: str, p):
-        sd[f"{dst}.weight"] = _oihw(p["kernel"])
-
-    def bn(dst: str, p):
-        for src, name in _BN.items():
-            sd[f"{dst}.{name}"] = _tensor(p[src])
-
-    for i in ("1", "2", "3"):
-        for src in (f"conv{i}", f"stem.conv{i}"):
-            if src in params:
-                conv(f"conv{i}", params[src])
-                bn(f"bn{i}", params[src.replace("conv", "bn")])
-    for key, block in params.items():
-        if key.startswith("stages."):
-            _, s, b = key.split(".")
-            key = f"layer{int(s) + 1}.{b}"
-        elif not key.startswith("layer"):
-            continue
-        for c in (1, 2, 3):
-            conv(f"{key}.conv{c}", block[f"conv{c}"])
-            bn(f"{key}.bn{c}", block[f"bn{c}"])
-        if "downsample_conv" in block:
-            conv(f"{key}.downsample.0", block["downsample_conv"])
-            bn(f"{key}.downsample.1", block["downsample_bn"])
-    if "attnpool" in params:
-        pool = params["attnpool"]
-        sd["attnpool.positional_embedding"] = _tensor(pool["positional_embedding"])
-        for src, dst in (("q_proj", "q_proj"), ("k_proj", "k_proj"),
-                         ("v_proj", "v_proj"), ("out_proj", "c_proj")):
-            sd[f"attnpool.{dst}.weight"] = _tensor(pool[src]["kernel"]).t().contiguous()
-            sd[f"attnpool.{dst}.bias"] = _tensor(pool[src]["bias"])
+    for path, value in flatten_dict(params).items():
+        key, layout = _tower_key(path)
+        sd[key] = (_oihw(value) if layout == "conv" else
+                   _tensor(value).t().contiguous() if layout == "dense"
+                   else _tensor(value))
     return sd
+
+
+def jax_tower_params(backbone: nn.Module, keys,
+                     value: Callable[[torch.Tensor], torch.Tensor]
+                     ) -> Dict[str, Any]:
+    """The tower parameters named by ``keys`` (state-dict keys of
+    ``backbone``) as a nested JAX-layout tree of float32 numpy, each
+    parameter mapped through ``value`` first."""
+    clip = isinstance(getattr(backbone, "attnpool", None), nn.Module)
+    own = dict(backbone.named_parameters())
+    flat = {}
+    for key in keys:
+        path, layout = _jax_tower_path(key, clip)
+        t = value(own[key])
+        flat[path] = _np(t.permute(2, 3, 1, 0) if layout == "conv" else
+                         t.t() if layout == "dense" else t)
+    return unflatten_dict(flat)
+
+
+def trained_tower_keys(model: nn.Module):
+    """The tower parameters a model trains, as srsem/train/partition.py
+    selects them: every one under the full fine-tune (a CluUnet's
+    ``lora_rank="full"``) and ``enc_ft``, the LoRA factors under an int
+    ``lora_rank``, none for a frozen tower."""
+    if not getattr(model, "tower_trains", False):
+        return []
+    keys = [k for k, _ in model.backbone.named_parameters()]
+    if getattr(model, "lora_rank", None) not in (None, "full"):
+        keys = [k for k in keys if k.split(".")[-1] in LORA_LEAVES]
+    return keys
 
 
 def _load(model: nn.Module, sd: Dict[str, torch.Tensor], partial: bool):
@@ -184,24 +250,59 @@ def jax_trainable_params(model: nn.Module,
     layout, float32 numpy: a GlobalPairScorer's ``{"aggregator": ...}``
     (``w_layers.{j}`` Dense (C, 1) or ``fin_lin.{j}`` Dense (in, out)) and
     no statistics, or a CluUnet's ``{"decoder.{lvl}": {conv1, bn1, conv2
-    [, bn2]}}`` (HWIO kernels) and its BN running statistics.  The
+    [, bn2]}}`` (HWIO kernels) and its BN running statistics; the tower's
+    trained leaves (``trained_tower_keys``) under ``"backbone"``.  The
     loaders' ``partial`` mode reads both back.  ``value`` maps each
     parameter to the tensor written in its place, in the parameter's own
     layout (``jax_adam_state`` writes Adam's moments so)."""
     v = value or (lambda p: p)
+    params, stats = _head_params(model, v)
+    tower = trained_tower_keys(model)
+    if tower:
+        params = {"backbone": jax_tower_params(model.backbone, tower, v),
+                  **params}
+    return params, stats
+
+
+def jax_head_params(aggregator: nn.Module,
+                    value: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                    ) -> Dict[str, Any]:
+    """A global head's parameters in the JAX layout: ``w_layers.{j}``
+    Dense (C, 1) of a ConvHeadAggregator or ``fin_lin.{j}`` Dense
+    (in, out) of an MlpHead."""
+    v = value or (lambda p: p)
+    head: Dict[str, Any] = {}
+    if hasattr(aggregator, "fin_lin"):
+        linears = [m for m in aggregator.fin_lin if isinstance(m, nn.Linear)]
+        for j, m in enumerate(linears):
+            head[f"fin_lin.{j}"] = {"kernel": _np(v(m.weight).t()),
+                                    "bias": _np(v(m.bias))}
+    else:
+        for j, m in enumerate(aggregator.w_layers):
+            head[f"w_layers.{j}"] = {"kernel": _np(v(m.weight).reshape(-1, 1)),
+                                     "bias": _np(v(m.bias))}
+    return head
+
+
+def conv_head_from_params(params: Mapping[str, Any], bias_init: str = "live"):
+    """A ConvHeadAggregator holding JAX-layout ``w_layers.{j}`` parameters
+    (``conv_head_params``, a checkpoint's ``aggregator``)."""
+    from srsem_torch.models.global_models import ConvHeadAggregator
+
+    n = len(params)
+    kernels = [_tensor(params[f"w_layers.{j}"]["kernel"]) for j in range(n)]
+    head = ConvHeadAggregator([k.shape[0] for k in kernels], bias_init)
+    with torch.no_grad():
+        for j, (layer, k) in enumerate(zip(head.w_layers, kernels)):
+            layer.weight.copy_(k.t().reshape(layer.weight.shape))
+            layer.bias.copy_(_tensor(params[f"w_layers.{j}"]["bias"])
+                             .reshape(1))
+    return head
+
+
+def _head_params(model: nn.Module, v: Callable[[torch.Tensor], torch.Tensor]):
     if hasattr(model, "aggregator"):
-        head: Dict[str, Any] = {}
-        if hasattr(model.aggregator, "fin_lin"):
-            linears = [m for m in model.aggregator.fin_lin
-                       if isinstance(m, nn.Linear)]
-            for j, m in enumerate(linears):
-                head[f"fin_lin.{j}"] = {"kernel": _np(v(m.weight).t()),
-                                        "bias": _np(v(m.bias))}
-        else:
-            for j, m in enumerate(model.aggregator.w_layers):
-                head[f"w_layers.{j}"] = {"kernel": _np(v(m.weight).reshape(-1, 1)),
-                                         "bias": _np(v(m.bias))}
-        return {"aggregator": head}, {}
+        return {"aggregator": jax_head_params(model.aggregator, v)}, {}
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for lvl, block in enumerate(model.decoder):
@@ -248,11 +349,20 @@ def load_backbone_params(backbone: nn.Module, kind: str, params: Mapping[str, An
     it) or a torchvision ``resnet50`` / OpenAI-CLIP state dict (flat, of
     tensors).  Returns ``backbone``."""
     if any(isinstance(v, Mapping) for v in params.values()):
-        backbone.load_state_dict(jax_backbone_state_dict(params), strict=True)
-        return backbone
+        return _load_tower(backbone, jax_backbone_state_dict(params))
     if kind == "resnet50_clip":
         return load_clip_resnet50(backbone, params)
     return load_torch_resnet50(backbone, params)
+
+
+def _load_tower(backbone: nn.Module, sd: Mapping[str, Any]):
+    """Load a tower's weights strictly, except LoRA factors the file does
+    not hold: the tower keeps its own (a tower file is the base tower; a
+    LoRA checkpoint then loads the factors over it)."""
+    own = {k: v for k, v in backbone.state_dict().items()
+           if k.split(".")[-1] in LORA_LEAVES and k not in sd}
+    backbone.load_state_dict({**own, **sd}, strict=True)
+    return backbone
 
 
 def _strip(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
@@ -270,8 +380,7 @@ def load_clip_resnet50(backbone: nn.Module, state_dict: Mapping[str, Any]):
     if any(k.startswith("visual.") for k in sd):
         sd = {k[len("visual."):]: v for k, v in sd.items()
               if k.startswith("visual.")}
-    backbone.load_state_dict(sd, strict=True)
-    return backbone
+    return _load_tower(backbone, sd)
 
 
 def load_torch_resnet50(backbone: nn.Module, state_dict: Mapping[str, Any]):
@@ -280,5 +389,4 @@ def load_torch_resnet50(backbone: nn.Module, state_dict: Mapping[str, Any]):
     ``num_batches_tracked`` counters, strips a ``module.`` prefix, then
     loads strictly.  Returns ``backbone``."""
     sd = {k: v for k, v in _strip(state_dict).items() if not k.startswith("fc.")}
-    backbone.load_state_dict(sd, strict=True)
-    return backbone
+    return _load_tower(backbone, sd)

@@ -299,5 +299,12 @@ def test_module_options_agree(small):
     assert not torch.allclose(got, one, rtol=1e-3, atol=1e-3)
     bn = trained.decoder[1][1]
     assert not torch.equal(bn.running_mean, port.decoder[1][1].running_mean)
-    with pytest.raises(NotImplementedError, match="A7"):
-        CluUnet(lora_rank=4)
+    # LoRA on every tower conv (the stems and downsample convs included),
+    # the decoder untouched; taps carry gradients only when the tower
+    # trains.
+    lora = CluUnet(lora_rank=4, image_size=64)
+    factors = [k for k in lora.state_dict() if k.endswith("lora_a")]
+    assert len(factors) == 55 and lora.tower_trains
+    assert not any(k.startswith(("decoder", "backbone.attnpool"))
+                   for k in factors)
+    assert not port.tower_trains and CluUnet(lora_rank="full").tower_trains

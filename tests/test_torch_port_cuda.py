@@ -529,3 +529,75 @@ def test_train_step_fused_tower_matches_module_tower(cuda_device, is_map):
         np.testing.assert_allclose(
             sf[key], sm[key], rtol=1e-4,
             atol=1e-5 * float(np.abs(sm[key]).max()), err_msg=str(key))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [8, "full"], ids=["lora", "full"])
+def test_tower_training_step_on_card_matches_cpu(cuda_device, rank):
+    """One float32 CLU train step (TF32 off) that trains the tower — LoRA
+    factors on every conv, or the whole tower under activation
+    checkpointing — on the card against the same step on the CPU, from
+    the same weights on the same batch: the loss within rtol 1e-4 (cuDNN's
+    and the CPU's float32 convolutions sum in other orders), every trained
+    leaf, the tower's included, within 2·lr, and Adam's moments leaf by
+    leaf (a first step moves a leaf by at most lr whatever its gradient:
+    ``mu`` = 0.1·g and ``nu`` = 0.001·g² hold the gradient), within 1e-3
+    relative plus 1e-2 of the leaf's scale, floored at 1e-4 of the tree's
+    (the CPU's oneDNN convolutions off, as in the CPU parity tests); the
+    tower runs as the module, so no bottleneck kernel launches."""
+    import copy
+
+    from srsem_torch.config import BackboneConfig, LocalModelConfig
+    from srsem_torch.models.local_models import make_local_model
+    from srsem_torch.train.loop import build_training
+    from srsem_torch.train.partition import flatten_dict, trainable_predicate
+    from srsem_torch.utils.convert import jax_adam_state, jax_trainable_params
+
+    lr = 1e-4
+    model = make_local_model(
+        LocalModelConfig(backbone=BackboneConfig(
+            kind="resnet50_clip", image_size=64, compute_dtype="float32"),
+            lora_rank=rank),
+        width_mult=0.125, generator=torch.Generator().manual_seed(9))
+    if rank != "full":
+        with torch.no_grad():  # live factors: a zero init hides the delta
+            for name, p in model.named_parameters():
+                if name.endswith("lora_a"):
+                    p.normal_(0.0, 0.05, generator=torch.Generator()
+                              .manual_seed(len(name)))
+    twin = copy.deepcopy(model)
+    rng = np.random.default_rng(9)
+    batch = [torch.tensor(v) for v in (
+        rng.standard_normal((2, 64, 64, 3)).astype(np.float32),
+        rng.standard_normal((2, 64, 64, 3)).astype(np.float32),
+        rng.uniform(0, 1, (2, 64, 64)).astype(np.float32),
+        np.ones(2, np.float32))]
+    pred = trainable_predicate(lora=rank != "full",
+                               full_finetune=rank == "full")
+    out = {}
+    for name, m, dev in (("card", model, cuda_device),
+                         ("cpu", twin, torch.device("cpu"))):
+        calls = (tfb.fused_bottleneck.launches
+                 + tfb.fused_bottleneck_tiled.launches)
+        steps, opt = build_training(m, True, pred, lr, dev)
+        with torch.backends.mkldnn.flags(enabled=False):
+            loss = float(steps.train_step(*(t.to(dev) for t in batch)))
+        assert (tfb.fused_bottleneck.launches
+                + tfb.fused_bottleneck_tiled.launches) == calls
+        state = jax_adam_state(m, opt)["0"]
+        out[name] = (loss, flatten_dict(jax_trainable_params(m)[0]),
+                     {k: flatten_dict(state[k]) for k in ("mu", "nu")})
+    (lc, pc, mc), (lh, ph, mh) = out["card"], out["cpu"]
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    assert any(k[0] == "backbone" for k in ph)
+    for key in ph:
+        np.testing.assert_allclose(pc[key], ph[key], rtol=0, atol=2 * lr,
+                                   err_msg=str(key))
+    for moment, want in mh.items():
+        tree_scale = max(float(np.abs(w).max()) for w in want.values())
+        assert set(mc[moment]) == set(want)
+        for key, w in want.items():
+            np.testing.assert_allclose(
+                mc[moment][key], w, rtol=1e-3,
+                atol=max(1e-2 * float(np.abs(w).max()), 1e-4 * tree_scale),
+                err_msg=f"{moment} {key}")

@@ -18,6 +18,7 @@ import srsem.core.config as jax_config
 import srsem_torch.train.sweep as port_sweep
 from srsem.cli.main import main as jax_main
 from srsem_torch.cli.main import main as port_main
+from test_torch_port_train import _two_threads  # noqa: F401 — fixture
 from test_torch_port_train_cli import (  # noqa: F401 — fixtures
     SIZE,
     _reference_cpu_convs,

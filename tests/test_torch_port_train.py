@@ -39,12 +39,23 @@ from srsem_torch.data.loader import collate, pad_batch
 from srsem_torch.models.global_models import make_global_model
 from srsem_torch.models.local_models import make_local_model
 from srsem_torch.train.checkpoint import restore_checkpoint
-from srsem_torch.train.loop import run_training, train_global, train_local
+from srsem_torch.train.loop import run_training, train_global
 from srsem_torch.train.partition import flatten_dict, trainable_predicate
 from srsem_torch.train.steps import masked_mse
 from srsem_torch.utils.convert import jax_trainable_params, load_jax_local_params
 
 SIZE, LR = 64, 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads a process: test workers share the host's
+    cores, and torch's default of one thread a core then oversubscribes
+    them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -335,21 +346,3 @@ def test_unet_global_training_raises_as_jax():
                                        head="unet_global"),
                      TrainConfig(batch_size=2, epochs=1), train, train,
                      device="cpu", writer=Capture())
-
-
-def test_tower_training_raises_citing_a7():
-    """enc_ft, LoRA and a predicate that trains the tower wait for A7, and
-    raise before any step."""
-    bb = BackboneConfig(kind="resnet50", image_size=SIZE,
-                        compute_dtype="float32")
-    train = _batches(9, [2])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        train_global(GlobalModelConfig(backbone=bb, depth=1, enc_ft=True),
-                     TrainConfig(batch_size=2), train, train, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        train_local(LocalModelConfig(backbone=bb, lora_rank=8),
-                    TrainConfig(batch_size=2), train, train, device="cpu")
-    model = make_global_model(GlobalModelConfig(backbone=bb, depth=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        run_training(model, False, train, train, TrainConfig(batch_size=2),
-                     trainable_predicate(enc_ft=True), device="cpu")

@@ -43,6 +43,7 @@ from srsem_torch.models.global_models import make_global_model
 from srsem_torch.train.checkpoint import restore_checkpoint
 from srsem_torch.train.partition import flatten_dict
 from srsem_torch.utils.convert import load_jax_global_params, load_jax_local_params
+from test_torch_port_train import _two_threads  # noqa: F401 — fixture
 
 SIZE, LR = 64, 1e-4
 SETS = ["--set", f"backbone.image_size={SIZE}",
@@ -225,41 +226,6 @@ def test_train_clu_matches_jax(files, tmp_path, capsys, jax_init):
            2 * LR, "decoder")
     _close(ckpt["port"]["batch_stats"], ckpt["jax"]["batch_stats"], 1e-3,
            1e-4, "batch_stats")
-
-
-@pytest.mark.parametrize("argv", [
-    ["train-clu", "{pairs}", "--cached-diffs"],
-    ["train-clu", "{pairs}", "--thresholds", "none", "0.4"],
-    ["sweep-global", "{scores}", "{root}", "--shared-tower"],
-    ["sweep-global", "{scores}", "{root}", "--cached-diffs"],
-    ["sweep-global", "{scores}", "{root}", "--cached-stats"],
-    ["sweep-global", "{scores}", "{root}", "--closed-form"],
-    ["sweep-clu", "{pairs}", "--limit-axis", "lora_rank=None",
-     "--shared-thresholds"],
-], ids=["cached-diffs", "thresholds", "shared-tower", "sweep-cached-diffs",
-        "cached-stats", "closed-form", "shared-thresholds"])
-def test_fast_paths_raise_citing_a8(files, argv):
-    names = {"pairs": files / "pairs.csv", "scores": files / "scores.csv",
-             "root": files}
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        port_main([a.format(**names) for a in argv] + ["--device", "cpu"])
-
-
-@pytest.mark.parametrize("argv", [
-    ["train-global", "{scores}", "{root}", "--set", "enc_ft=True"],
-    ["train-clu", "{pairs}", "--set", "lora_rank=8"],
-    ["sweep-clu", "{pairs}"],
-], ids=["enc_ft", "lora", "sweep-lora-axis"])
-def test_tower_training_raises_citing_a7(files, tmp_path, argv):
-    """Before any point trains: the default CLU grid has LoRA points."""
-    names = {"pairs": files / "pairs.csv", "scores": files / "scores.csv",
-             "root": files}
-    summary = tmp_path / "sweep.jsonl"
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        port_main([a.format(**names) for a in argv] + (
-            ["--summary", str(summary)] if argv[0] == "sweep-clu"
-            else SETS[:2]) + ["--device", "cpu"])
-    assert not summary.exists()
 
 
 def test_training_needs_the_card_unless_asked(files):

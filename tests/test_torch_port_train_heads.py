@@ -24,6 +24,7 @@ from test_torch_port_train import (  # noqa: F401 — a fixture
     _close,
     _moments_close,
     _reference_cpu_convs,
+    _two_threads,
     _train_both,
     _variables,
 )
