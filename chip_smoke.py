@@ -25,7 +25,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
              head in one launch at batch 64 (the path) and in its grouped
              form at G = 16, K = 4, each also for identical bits from two
              launches, with its device time; and so is wperlay_cnn's head
-             at 12 taps (depth 11) and at 4 (depth 3).
+             at 12 taps (depth 11) and at 4 (depth 3), and the ViT token
+             head on float32 (64, 197, 768) taps: stages_vit's 4 (the vit
+             path; also timed on the general path, the W = 768 plan before
+             the 1536-element step), wperlay_vit's and single_lin_vit's
+             (shared head) 12 at depth 11, and stages_vit grouped at G =
+             16, K = 4 and at G = 8, K = 8 (the instance streaming the
+             most SR images), each line with the plan's vec flags and
+             steps.
 4. slice   — the full-width flagship scorer GlobalModelConfig(resnet50,
              224, bfloat16, stages_cnn, depth 3) with seeded random
              weights: PairScorer.score_paths over synthetic JPEG/PNG pairs
@@ -135,7 +142,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
              head gradients equal an uncached one's (1e-6), a stat-cache
              step's a diff-cache step's (1e-5), the closed form's train
              MSE at most the Adam heads'.
-12. result — a ``timing`` line (seconds of each phase), the card line,
+12. vit    — stages_vit (depth 3) on the full-width CLIP ViT-B/16 (224
+             px, bf16 tower, float32 taps), seeded weights: the tower as a
+             timm state dict through ``convert --kind clip_vit`` (bits
+             equal after the round trip); score_paths with the counts reset
+             just before and read just after (one head launch a batch, no
+             bottleneck launch; NaN on exactly the corrupt row); float32
+             kernel path against the module (TF32 off, 1e-3); pairs/s at
+             batch 64 and a profile (busy share; device ms for GEMMs,
+             attention, copies and casts, other elementwise, the head);
+             GroupedPairScorer at G = 16, K = 4 (pairs/s, float32 against
+             pairwise, 1e-4); ``score-groups --set head=wperlay_vit --set
+             depth=11`` and ``score --backbone-checkpoint`` (subprocesses,
+             one corrupt file each); a frozen and an enc_ft train step at
+             batch 5 (ms a step); the plain attention against
+             ``F.scaled_dot_product_attention`` on the same q, k, v.
+13. result — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
              the paths that use it, worst bf16 error, and times summed
              over one scored batch's launches of each path at that
@@ -143,7 +165,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
              and times: global, clu, wperlay, serve (one score and one
              maps batch), dual, train (one global and one CLU train
              step), sweeps (the train path's tower passes at 10 and 160
-             images, times ``SWEEP_PASSES``); the head's entry, ``fused_stage_score``
+             images, times ``SWEEP_PASSES``), vit (one scored batch); the
+             head's entry, ``fused_stage_score``
              after the TPU kernel it replaces, counts the whole-head
              launches of ``fused_global_score`` and, on the serve path,
              ``fused_grouped_score``), the device line.
@@ -245,6 +268,9 @@ WPERLAY_TAPS = {11: [s for s in HEAD_TAPS for _ in range(3)]}
 WPERLAY_TAPS[3] = WPERLAY_TAPS[11][-4:]
 # The grouped scorer's batch: G GT images against K SR images each.
 GROUP_G, GROUP_K = 16, 4
+# A ViT-B/16 token tap at 224 px: the class token and 14x14 patches, width
+# 768 (float32: the residual stream's dtype).
+VIT_TOKENS = (197, 768)
 # The service's top bucket (serve --group-batch, the JAX default) and the
 # K its device batches are measured at: a score batch runs the ImageNet
 # tower over G GT and G·K SR images, a maps batch the CLIP tower over the
@@ -530,6 +556,93 @@ def check_kernels(torch):
                 *((ms, plain, lib, bms) if on_path else (0, 0, 0, 0)), by,
                 int(on_path))
             del tg, ts
+
+    # The ViT token heads (B7): (N, 197, 768) float32 taps, the vit path's
+    # dtype, on the 1536-element fixed-channel path.  stages_vit pairwise
+    # at batch 64 is the vit path's launch; wperlay_vit's and
+    # single_lin_vit's 12 taps at depth 11 and the grouped form are checked
+    # and timed beside it.
+    from srsem_torch.models.global_models import (
+        TokenHeadAggregator,
+        grouped_token_head,
+    )
+
+    def token_head(n_layers, shared):
+        head = TokenHeadAggregator(VIT_TOKENS[1], n_layers, shared=shared)
+        head.reset_parameters(torch.Generator().manual_seed(n_layers))
+        with torch.no_grad():
+            for layer in dict.fromkeys(head.linears()):
+                layer.weight.abs_().mul_(0.05)
+                layer.bias.fill_(0.25)
+        return head.to(dev).requires_grad_(False)
+
+    def token_bound(images, k, n_layers, shared):
+        """float32 token taps of ``images`` images read once, the packed
+        head once, one score a pair written: bytes; 4 operations an
+        element of each pair."""
+        elems = n_layers * VIT_TOKENS[0] * VIT_TOKENS[1]
+        pairs = images // (1 + k) * k
+        weights = (1 if shared else n_layers) * (VIT_TOKENS[1] + 1)
+        return bound(images * elems * 4 + 4 * weights + 4 * pairs,
+                     4 * elems * pairs, F32_FLOPS)
+
+    for label, n_layers, shared, g, k, on_path in (
+            ("stages_vit", 4, False, BATCH, 1, True),
+            ("wperlay_vit depth 11", 12, False, BATCH, 1, False),
+            ("single_lin_vit depth 11", 12, True, BATCH, 1, False),
+            ("stages_vit grouped", 4, False, GROUP_G, GROUP_K, False),
+            # K = 8: the instance that streams the most SR images an item.
+            ("stages_vit grouped K = 8", 4, False, 8, 8, False)):
+        thead = token_head(n_layers, shared)
+        tpacked = fh.pack_head(thead)
+        tnames = [f"blocks.{j}.ls2" for j in range(n_layers)]
+
+        def ttaps(n, dtype):
+            return {nm: randn(n, *VIT_TOKENS).to(dtype) for nm in tnames}
+
+        wrapper = fh.fused_global_score if k == 1 else fh.fused_grouped_score
+        plain_fn = fh.plain_global_score if k == 1 else fh.plain_grouped_score
+        errs, _ = check_head(
+            f"token head {label}", lambda dt: (ttaps(g, dt), ttaps(g * k, dt)),
+            lambda a, b: wrapper(a, b, tpacked, tnames),
+            lambda a, b: plain_fn(a, b, tpacked, tnames))
+        tg, ts = ttaps(g, torch.float32), ttaps(g * k, torch.float32)
+        plan = fh.kernel_plan([(tg[n], ts[n]) for n in tnames],
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+        call = lambda: wrapper(tg, ts, tpacked, tnames)  # noqa: E731
+        ms = cuda_ms(torch, call, 20)
+        dev_ms = launch_ms(torch, call, "fused_head", 1)
+        plain = cuda_ms(torch, lambda: plain_fn(tg, ts, tpacked, tnames), 3)
+        # Yardstick: the module's eager head over the squared diffs.
+        lib = cuda_ms(torch, lambda: thead(squared_diffs(tg, ts, tnames))
+                      if k == 1 else grouped_token_head(thead, tg, ts, tnames),
+                      3)
+        bms, by = token_bound(g * (1 + k), k, n_layers, shared)
+        line = dict(name="fused_stage_score", path="vit", on_main_path=on_path,
+                    wrapper=wrapper.__name__, head=label, shared=shared, g=g,
+                    k=k, taps=[[g, *VIT_TOKENS]] * n_layers, dtype="float32",
+                    vec=list(plan.vec), step=list(plan.step),
+                    max_abs_err=errs, tolerance=head_tol, ms=ms,
+                    launch_ms=dev_ms and dev_ms[0], plain_ms=plain,
+                    library_ms=lib, bound_ms=bms, bound_by=by)
+        if on_path:
+            # The W = 768 plan before this kernel's narrow step: one element
+            # a thread, its channel by a modulo (the general path).
+            fh._VEC_STEPS, steps = (fh._STEP,), fh._VEC_STEPS
+            fh._plan.cache_clear()
+            fh._descriptor.cache_clear()
+            try:
+                line["general_path_ms"] = cuda_ms(torch, call, 20)
+            finally:
+                fh._VEC_STEPS = steps
+                fh._plan.cache_clear()
+                fh._descriptor.cache_clear()
+        emit("kernel", **line)
+        add("fused_stage_score", "vit", errs[str(torch.bfloat16)],
+            *((ms, plain, lib, bms) if on_path else (0, 0, 0, 0)), by,
+            int(on_path))
+        del tg, ts
 
     # -- bottleneck (CUDA C++) -------------------------------------------
     def weights(c, wd):
@@ -2891,13 +3004,333 @@ def run_sweeps(torch, np, card: str) -> dict:
     return launches
 
 
+def vit_model(torch, np, cfg, seed: int = 0):
+    """Full-width ViT GlobalPairScorer with seeded weights (the Flax-like
+    init: LeCun-normal kernels, normal(0, 0.02) tokens) and a live head:
+    nonnegative weights, biases +1."""
+    from srsem_torch.models.global_models import make_global_model
+
+    model = make_global_model(cfg, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for layer in dict.fromkeys(model.aggregator.linears()):
+            layer.weight.abs_()
+            layer.bias.add_(1.0)
+    return model
+
+
+# The profile's groups: the aten operations whose kernels each holds.
+VIT_GEMMS = ("aten::addmm", "aten::mm", "aten::cudnn_convolution",
+             "aten::convolution", "aten::_convolution")
+VIT_ATTENTION = ("aten::bmm", "aten::_softmax", "aten::softmax")
+
+
+def profile_vit(torch, fn, reps: int = 3) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn``: the device's busy
+    share of the host wall time (the union of the device events) and
+    device ms a call by group: the GEMMs (the Linears and the patch conv),
+    attention (its batched matrix products and softmax), copies and casts
+    (``aten::copy_``: the host-to-device copy and the dtype casts), other
+    elementwise operations, and the head kernel (no aten operation: it is
+    launched through ctypes, so its time comes from its own events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, head_us = [], 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            if "fused_head" in e.name:
+                head_us += e.time_range.end - e.time_range.start
+    if not spans:
+        return {"busy_share": None, "note": "the profiler saw no device "
+                "events: device time not measured"}
+    busy, last = 0.0, None
+    for start, end in sorted(spans):
+        if last is None or start > last:
+            busy, last = busy + end - start, end
+        elif end > last:
+            busy, last = busy + end - last, end
+    groups = {"GEMMs": 0.0, "attention": 0.0, "copies and casts": 0.0,
+              "other elementwise": 0.0, "head kernel": head_us / reps / 1e3}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us or not e.key.startswith("aten::"):
+            continue
+        g = ("GEMMs" if e.key in VIT_GEMMS else
+             "attention" if e.key in VIT_ATTENTION else
+             "copies and casts" if e.key == "aten::copy_" else
+             "other elementwise")
+        groups[g] += us / reps / 1e3
+    return {"batches": reps, "wall_ms_per_batch": wall_us / reps / 1e3,
+            "device_busy_ms_per_batch": busy / reps / 1e3,
+            "busy_share": busy / wall_us, "idle_share": 1 - busy / wall_us,
+            "device_ms_per_batch_by_group": groups}
+
+
+def run_vit(torch, np, card: str):
+    """Phase 12 (vit): stages_vit on the full-width CLIP ViT-B/16 (224 px,
+    bf16 tower, float32 taps), seeded weights: the tower written as a timm
+    state dict, converted by ``convert --kind clip_vit`` and read back by
+    ``score --backbone-checkpoint`` (subprocesses); score_paths with the
+    launch counts reset just before and read just after (one head launch
+    a batch, no bottleneck launch); float32 kernel path against the plain
+    module; score_arrays pairs/s at batch 64 and a profile; the grouped
+    scorer at G = 16, K = 4 (pairs/s, float32 against pairwise) and
+    ``score-groups --set head=wperlay_vit --set depth=11``; one frozen and
+    one enc_ft train step at batch 5; the plain attention against
+    ``F.scaled_dot_product_attention`` (a yardstick the port never
+    calls).  Returns {kernel: launches in the score_paths run}."""
+    import dataclasses
+    import shutil
+
+    import torch.nn.functional as F
+
+    from srsem_torch.config import BackboneConfig, GlobalModelConfig
+    from srsem_torch.eval.grouped import GroupedPairScorer
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.ops import fused_head as fh
+    from srsem_torch.train.loop import batch_to_device, build_training
+    from srsem_torch.train.partition import trainable_predicate
+
+    cfg = GlobalModelConfig(backbone=BackboneConfig(
+        kind="vit_clip", image_size=224, compute_dtype="bfloat16"),
+        head="stages_vit", depth=3)
+    cfg32 = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, compute_dtype="float32"))
+    model = vit_model(torch, np, cfg)
+    scorer = PairScorer(cfg, model, batch_size=BATCH)
+    if scorer.fused_tower or len(model.tap_names) != 4:
+        raise AssertionError(f"vit scorer: fused tower {scorer.fused_tower},"
+                             f" taps {model.tap_names}")
+    zero_launches(fb)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # The tower as a timm-layout state dict, through convert, read back
+        # by the score CLI; the converted file holds the same bits.
+        sd = {k: v.detach().cpu() for k, v in model.backbone.state_dict().items()}
+        sd["head.weight"] = torch.zeros(512, 768)  # timm's, dropped
+        torch.save(sd, tmp / "vit.pt")
+        proc = subprocess.run(
+            [sys.executable, "-m", "srsem_torch", "convert", str(tmp / "vit.pt"),
+             "--kind", "clip_vit", "--out", str(tmp / "vit.msgpack")],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"convert exit {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        from srsem_torch.backbones.vit import ClipViT
+        from srsem_torch.cli.main import _load_backbone
+
+        back = ClipViT(dtype=torch.bfloat16)
+        _load_backbone(back, "vit_clip", tmp / "vit.msgpack")
+        for k, v in back.state_dict().items():
+            if not torch.equal(v, sd[k]):
+                raise AssertionError(f"converted tower differs at {k}")
+        emit("vit", step="convert", result=json.loads(
+            proc.stdout.strip().splitlines()[-1]))
+
+        pairs = write_pairs(np, tmp, 8)
+        fh.fused_global_score.launches = 0
+        zero_launches(fb)
+        t0 = time.perf_counter()
+        scores = scorer.score_paths(pairs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"fused_stage_score": fh.fused_global_score.launches}
+        bottleneck = read_launches(torch, fb)
+        batches = -(-len(pairs) // BATCH)
+        nan = np.isnan(scores)
+        if not (nan[-1] and not nan[:-1].any() and (scores[:-1] > 0).all()):
+            raise AssertionError(f"vit score_paths: want NaN on exactly the "
+                                 f"corrupt last row, got {scores.tolist()}")
+        if launches["fused_stage_score"] != batches or any(bottleneck.values()):
+            raise AssertionError(f"vit path launched {launches} and "
+                                 f"{bottleneck} in {batches} batches")
+        emit("vit", step="score_paths", pairs=len(pairs), seconds=seconds,
+             scores=[float(x) for x in scores], launches=launches,
+             bottleneck_launches=bottleneck, batches=batches)
+
+        # float32 kernel path (module tower, head kernel) vs the module.
+        decode = scorer.preprocess.decode_uint8
+        a = np.stack([decode(p[0]) for p in pairs[:-1]])
+        b = np.stack([decode(p[1]) for p in pairs[:-1]])
+        model32 = vit_model(torch, np, cfg32)
+        got = PairScorer(cfg32, model32, batch_size=BATCH).score_arrays(a, b)
+        pre = scorer.preprocess
+        with torch.inference_mode():
+            want = model32.cuda()(pre.device_normalize(torch.tensor(a).cuda()),
+                                  pre.device_normalize(torch.tensor(b).cuda()))
+        rel = float(((got - want).abs() / want.abs()).max())
+        if not torch.allclose(got, want, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"vit f32 kernel path vs module: max rel "
+                                 f"err {rel} beyond 1e-3")
+        emit("vit", step="f32_kernel_path_vs_plain_module", max_rel_err=rel,
+             tolerance="rtol=atol=1e-3", scores=got.tolist())
+
+        # Throughput of score_arrays at batch 64, bf16, and a profile.
+        rng = np.random.default_rng(2)
+        a64 = rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
+        b64 = np.clip(a64.astype(int) + rng.integers(-20, 21, a64.shape), 0,
+                      255).astype(np.uint8)
+        for _ in range(2):
+            scorer.score_arrays(a64, b64)
+        torch.cuda.synchronize()
+        reps = 5
+        fh.fused_global_score.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = scorer.score_arrays(a64, b64)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        if not torch.isfinite(out).all() or \
+                fh.fused_global_score.launches != reps:
+            raise AssertionError("vit score_arrays at batch 64: not finite, "
+                                 "or not one head launch a batch")
+        emit("vit", step="score_arrays_throughput", batch=BATCH,
+             dtype="bfloat16", image=224, ms_per_batch=dt * 1e3,
+             pairs_per_s=BATCH / dt, head_launches_per_batch=1, card=card)
+        emit("vit", step="profile", card=card, **profile_vit(
+            torch, lambda: scorer.score_arrays(a64, b64)))
+
+        # The grouped scorer: one head launch a batch, 80 tower images for
+        # 64 pairs; float32 grouped against pairwise.
+        gt = a64[:GROUP_G]
+        sr = np.clip(gt[:, None].astype(int) + rng.integers(
+            -20, 21, (GROUP_G, GROUP_K, 224, 224, 3)), 0, 255).astype(np.uint8)
+        grouped = GroupedPairScorer(cfg, model, k=GROUP_K, batch_size=GROUP_G,
+                                    pairs=scorer)
+        for _ in range(2):
+            grouped.score_arrays(gt, sr)
+        torch.cuda.synchronize()
+        fh.fused_grouped_score.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            gout = grouped.score_arrays(gt, sr)
+        torch.cuda.synchronize()
+        gdt = (time.perf_counter() - t0) / reps
+        if fh.fused_grouped_score.launches != reps or \
+                not torch.isfinite(gout).all():
+            raise AssertionError("vit grouped: not one head launch a batch, "
+                                 "or not finite")
+        got = GroupedPairScorer(cfg32, model32, k=GROUP_K,
+                                batch_size=GROUP_G).score_arrays(gt, sr)
+        want = PairScorer(cfg32, model32, batch_size=GROUP_G * GROUP_K
+                          ).score_arrays(np.repeat(gt, GROUP_K, axis=0),
+                                         sr.reshape(-1, 224, 224, 3))
+        err = float((got.reshape(-1) - want).abs().max())
+        if not torch.allclose(got.reshape(-1), want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"vit f32 grouped vs pairwise: max |err| "
+                                 f"{err} beyond rtol=atol=1e-4")
+        emit("vit", step="grouped", g=GROUP_G, k=GROUP_K, dtype="bfloat16",
+             ms_per_batch=gdt * 1e3, pairs_per_s=GROUP_G * GROUP_K / gdt,
+             head_launches_per_batch=1, f32_vs_pairwise_max_abs_err=err,
+             tolerance="rtol=atol=1e-4", card=card)
+        del model32
+
+        # score-groups with wperlay_vit at depth 11 (12 taps, one launch),
+        # K = 2 SR folders, one corrupt SR file.
+        root = tmp / "groups"
+        dirs = [root / n for n in ("gt", "esrgan", "swinir")]
+        for d in dirs:
+            d.mkdir(parents=True)
+        for i, (pa, pb) in enumerate(pairs[:3]):
+            shutil.copy(pa, dirs[0] / f"im{i}.png")
+            shutil.copy(pb, dirs[1] / f"im{i}.jpg")
+            shutil.copy(pb, dirs[2] / f"im{i}.jpg")
+        shutil.copy(pairs[-1][1], dirs[2] / "im1.jpg")
+        for cmd, extra, key, want_nan in (
+                ("score-groups", [*map(str, dirs), "--set", "head=wperlay_vit",
+                                  "--set", "depth=11"], "nan_groups", 1),
+                ("score", [str(tmp / "pairs.csv"), "--set", "head=stages_vit"],
+                 "nan", 1)):
+            if cmd == "score":
+                (tmp / "pairs.csv").write_text(
+                    "img_a_pth,img_b_pth\n"
+                    + "".join(f"{x},{y}\n" for x, y in pairs))
+            proc = subprocess.run(
+                [sys.executable, "-m", "srsem_torch", cmd, *extra,
+                 "--backbone", "vit_clip", "--backbone-checkpoint",
+                 str(tmp / "vit.msgpack"), "--batch-size", "8", "--out",
+                 str(tmp / f"{cmd}.csv")],
+                cwd=REPO, capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"{cmd} exit {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            result = json.loads(proc.stdout.strip().splitlines()[-1])
+            if result[key] != want_nan:
+                raise AssertionError(f"{cmd} result {result}")
+            emit("vit", step=f"cli_{cmd}", result=result)
+
+    # One frozen and one enc_ft train step at batch 5 (the tower as the
+    # module: under no_grad, or trained under autograd).
+    dev = torch.device("cuda")
+    batch = host_batch(np, TRAIN_BATCH, False, 11)
+    for enc_ft in (False, True):
+        tcfg = dataclasses.replace(cfg, enc_ft=enc_ft)
+        tmodel = vit_model(torch, np, tcfg, seed=3)
+        steps = build_training(tmodel, False, trainable_predicate(
+            enc_ft=enc_ft), 1e-4, dev)[0]
+        step = lambda: steps.train_step(*batch_to_device(batch, dev))  # noqa: E731
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [float(step()) for _ in range(3)]
+        torch.cuda.synchronize()
+        sdt = (time.perf_counter() - t0) / 3
+        if not all(np.isfinite(losses)) or any(read_launches(torch, fb).values()):
+            raise AssertionError(f"vit train step: losses {losses}, "
+                                 "or a bottleneck launch")
+        emit("vit", step="train_step", enc_ft=enc_ft, batch=TRAIN_BATCH,
+             ms_per_step=sdt * 1e3, pairs_per_s=TRAIN_BATCH / sdt,
+             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             losses=losses, card=card)
+        del tmodel, steps
+
+    # Yardstick: the port's plain attention against one fused PyTorch call
+    # on the same q, k, v (bf16, a batch's 128 images, 12 heads).
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(2 * BATCH, 12, VIT_TOKENS[0], 64, device=dev,
+                           generator=g, dtype=torch.bfloat16)
+               for _ in range(3))
+
+    def plain_attention():
+        s = (q @ k.transpose(-1, -2)) / 8.0
+        return torch.softmax(s.float(), dim=-1).to(q.dtype) @ v
+
+    err = float((plain_attention().float() - F.scaled_dot_product_attention(
+        q, k, v).float()).abs().max())
+    flops = 4 * q.shape[0] * 12 * VIT_TOKENS[0] ** 2 * 64
+    bms, by = bound(4 * q.numel() * 2, flops, BF16_TC_FLOPS)
+    emit("vit", step="attention_yardstick", shape=list(q.shape),
+         plain_ms=cuda_ms(torch, plain_attention, 10),
+         sdpa_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+             q, k, v), 10), bound_ms=bms, bound_by=by, max_abs_diff=err,
+         layers_per_pass=12, card=card)
+    return launches
+
+
 # Stack frame bytes of each head-kernel instance (dtype 0 f32, 1 bf16,
 # 2 f16; KT SR images an item) at four stages (ptxas -v, H100 build of
 # csrc/fused_head.cu before the limit went to 12).  Twelve stage
-# descriptors in the __grid_constant__ parameters must not add to them.
+# descriptors in the __grid_constant__ parameters must not add to them,
+# nor the fixed-channel step: each (dtype, KT) has an instance a step
+# (HEAD_STEPS elements, a template parameter), held to the same frame.
 HEAD_STACK_FRAMES = {(0, 1): 8, (0, 2): 0, (0, 4): 16, (0, 8): 8,
                      (1, 1): 0, (1, 2): 0, (1, 4): 16, (1, 8): 8,
                      (2, 1): 0, (2, 2): 0, (2, 4): 16, (2, 8): 8}
+HEAD_STEPS = (2048, 1536)
 
 
 def check_head_build(log: str) -> list:
@@ -2908,9 +3341,10 @@ def check_head_build(log: str) -> list:
 
     out, current = [], None
     for line in log.splitlines():
-        m = re.search(r"fused_head_kernelILi(\d)ELi(\d)E", line)
+        m = re.search(r"fused_head_kernelILi(\d)ELi(\d)ELi(\d+)E", line)
         if m and "entry function" in line:
-            current = {"dtype": int(m.group(1)), "kt": int(m.group(2))}
+            current = {"dtype": int(m.group(1)), "kt": int(m.group(2)),
+                       "step": int(m.group(3))}
             out.append(current)
         elif current is not None and "bytes stack frame" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
@@ -2919,7 +3353,8 @@ def check_head_build(log: str) -> list:
         elif current is not None and "Used" in line and "registers" in line:
             current["registers"] = int(re.search(r"Used (\d+) registers",
                                                  line).group(1))
-    if len(out) != len(HEAD_STACK_FRAMES):
+    if len(out) != len(HEAD_STACK_FRAMES) * len(HEAD_STEPS) or \
+            {i["step"] for i in out} != set(HEAD_STEPS):
         raise AssertionError(f"head kernel instances in the ptxas log: {out}")
     for inst in out:
         key = (inst["dtype"], inst["kt"])
@@ -2974,7 +3409,8 @@ def main() -> int:
     for path, fn in (("global", run_slice), ("clu", run_clu_slice),
                      ("wperlay", run_heads), ("serve", run_serve),
                      ("dual", run_dual), ("train", run_train),
-                     ("finetune", run_finetune), ("sweeps", run_sweeps)):
+                     ("finetune", run_finetune), ("sweeps", run_sweeps),
+                     ("vit", run_vit)):
         t0 = time.perf_counter()
         runs[path] = fn(torch, np, card)
         seconds[path] = time.perf_counter() - t0

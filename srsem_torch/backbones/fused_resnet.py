@@ -61,12 +61,22 @@ FROZEN_BASE_ONLY = ("fused_tower serves the frozen base tower only — it "
                     "folds BN into conv weights and carries no LoRA deltas")
 
 
-def resolve_fused_tower(requested: Optional[bool], frozen_base: bool) -> bool:
+#: The towers the fused tower serves.
+RESNET_KINDS = ("resnet50", "resnet50_clip")
+
+
+def resolve_fused_tower(requested: Optional[bool], frozen_base: bool,
+                        kind: str) -> bool:
     """Whether to run the fused tower: ``requested``, or when None exactly
     when the tower is the frozen base tower (no LoRA factors, no
-    gradients).  ``True`` for any other tower raises JAX's
-    ``ValueError``: the folded weights carry no LoRA delta and would go
-    stale under training."""
+    gradients) of a ResNet.  ``True`` for any other tower raises JAX's
+    ``ValueError``: the ViT has no bottleneck, and the folded weights
+    carry no LoRA delta and would go stale under training."""
+    if kind not in RESNET_KINDS:
+        if requested:
+            raise ValueError(f"fused_tower needs a ResNet backbone, got "
+                             f"{kind!r}")
+        return False
     if requested is None:
         return frozen_base
     if requested and not frozen_base:

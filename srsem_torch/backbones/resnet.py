@@ -327,7 +327,10 @@ def reset_tower(tower: nn.Module, generator: Optional[torch.Generator] = None):
     Kaiming-normal (fan_in) convs and LoRA's zero ``a`` and Kaiming-normal
     ``b``, identity frozen BN, and in CLIP's attention pool a
     normal(0, C^-1/2) positional table, LeCun-normal projections and zero
-    biases."""
+    biases; a ClipViT its own init (``ClipViT.reset_parameters``)."""
+    if hasattr(tower, "cls_token"):
+        tower.reset_parameters(generator)
+        return
     with torch.no_grad():
         for m in tower.modules():
             if isinstance(m, nn.Conv2d):
@@ -352,8 +355,9 @@ def reset_tower(tower: nn.Module, generator: Optional[torch.Generator] = None):
 
 
 def make_backbone(cfg, lora_rank: Optional[int] = None) -> nn.Module:
-    """Instantiate a backbone from a BackboneConfig (the ResNet kinds),
-    with LoRA factors of ``lora_rank`` on every conv when it is set."""
+    """Instantiate a backbone from a BackboneConfig: a ResNet, with LoRA
+    factors of ``lora_rank`` on every conv when it is set, or the CLIP
+    ViT."""
     dtype = getattr(torch, cfg.compute_dtype)
     if cfg.kind == "resnet50":
         return ImageNetResNet50(dtype=dtype, lora_rank=lora_rank)
@@ -361,6 +365,10 @@ def make_backbone(cfg, lora_rank: Optional[int] = None) -> nn.Module:
         return ClipResNet50(dtype=dtype, image_size=cfg.image_size,
                             lora_rank=lora_rank)
     if cfg.is_vit:
-        raise NotImplementedError(
-            "the CLIP ViT tower is not ported yet (ROADMAP A10)")
+        # No LoRA on the ViT, and no ``act``: exact GELU whatever the
+        # weights' origin (srsem/backbones/resnet.py::make_backbone).
+        from srsem_torch.backbones.vit import ClipViT
+
+        return ClipViT(patch=cfg.vit_patch, width=cfg.vit_width,
+                       depth=cfg.vit_depth, heads=cfg.vit_heads, dtype=dtype)
     raise ValueError(f"unknown backbone kind {cfg.kind!r}")

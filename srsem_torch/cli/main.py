@@ -1,13 +1,16 @@
 """``python -m srsem_torch`` — the port's command line (the ``score``,
 ``score-groups``, ``score-maps-groups``, ``serve``, ``sweep-dataset``,
 ``train-global``, ``eval-global``, ``train-clu``, ``sweep-global``,
-``sweep-clu`` and ``info`` subcommands of srsem/cli/main.py so far, and
-the global ``--profile DIR``).
+``sweep-clu``, ``convert`` and ``info`` subcommands of srsem/cli/main.py
+so far, and the global ``--profile DIR``).
 
     python -m srsem_torch score pairs.csv --backbone resnet50 [--device cpu]
     python -m srsem_torch score pairs.csv --backbone resnet50_clip \
         --set head=wperlay_cnn --set depth=11 --checkpoint CKPT_DIR
-    python -m srsem_torch score-groups GT_DIR SR_DIR... [--device cpu]
+    python -m srsem_torch score pairs.csv --backbone vit_clip \
+        --set head=stages_vit --backbone-checkpoint vit.msgpack
+    python -m srsem_torch score-groups GT_DIR SR_DIR... [--device cpu] \
+        [--backbone vit_clip --set head=wperlay_vit --set depth=11]
     python -m srsem_torch score-maps-groups GT_DIR SR_DIR... [--device cpu]
     python -m srsem_torch serve --warmup-k 1 4 --with-maps < requests.jsonl
     python -m srsem_torch sweep-dataset GT_DIR SR_DIR... [--device cpu]
@@ -19,6 +22,7 @@ the global ``--profile DIR``).
     python -m srsem_torch sweep-global study.csv ROOT [--shared-tower | \
         --cached-diffs | --cached-stats | --closed-form [--l2 1e-6]]
     python -m srsem_torch sweep-clu pairs.csv [--shared-thresholds]
+    python -m srsem_torch convert vit.pt --kind clip_vit --out vit.msgpack
     python -m srsem_torch info [--native] [--devices]
     python -m srsem_torch --profile DIR score-groups GT_DIR SR_DIR...
 
@@ -28,13 +32,17 @@ Flags follow srsem/cli/main.py (:957-1072, :1119-1205, :1206-1246 and
 ``--no-fused-tower`` / ``--no-fused-decoder`` (the port runs its Hopper
 kernels by default; the fused tower serves the frozen base tower only, so
 by default a LoRA or trained tower runs as the module, and
-``--fused-tower`` with one raises).  ``--checkpoint DIR`` reads the JAX package's
+``--fused-tower`` with one raises; the ViT always runs as its module).
+``--checkpoint DIR`` reads the JAX package's
 checkpoint directories (``latest.json`` + ``step_N.msgpack``, through
 srsem_torch/train/checkpoint.py) and loads their ``trainable`` subset, and
 for CLU maps their ``batch_stats``, over the model, as the JAX CLI's
 ``merge_params`` does.  ``--backbone-checkpoint`` takes a converted tower
-param tree (``.msgpack``, the JAX CLI's ``srsem convert`` output) or a
-torchvision ``resnet50`` / OpenAI-CLIP state dict (``.pt``).  Without
+param tree (``.msgpack``, ``convert``'s output, the port's or the JAX
+CLI's) or a torchvision ``resnet50`` / OpenAI-CLIP / timm or HF CLIP ViT
+state dict (``.pt``).  ``convert`` writes the bytes ``srsem convert``
+writes for the tower and head kinds (``resnet50``, ``resnet50_clip``,
+``clip_vit``, ``hf_clip_vit``, ``global_head``, ``clu_decoder``).  Without
 either, the weights are seeded random ones.  The training commands train
 the head or decoder, and with ``--set enc_ft=True`` (global) or ``--set
 lora_rank=R`` / ``lora_rank='full'`` (CLU) the tower
@@ -170,17 +178,19 @@ def _write_rows(path: str, rows: List[dict], key: str = "image_name") -> int:
 
 def cmd_score_groups(args) -> int:
     """Grouped GT-vs-K-SR scoring: one shared GT tower pass per group and
-    one head launch a batch (srsem_torch/eval/grouped.py::GroupedPairScorer)."""
+    one head launch a batch (srsem_torch/eval/grouped.py::GroupedPairScorer).
+    ``--set`` overrides the configuration (``head=wperlay_vit``), which the
+    JAX CLI fixes at stages_cnn."""
     import torch
 
-    from srsem_torch.config import BackboneConfig, GlobalModelConfig
+    from srsem_torch.config import BackboneConfig, GlobalModelConfig, override
     from srsem_torch.eval.grouped import GroupedPairScorer
     from srsem_torch.models.global_models import make_global_model
 
-    cfg = GlobalModelConfig(
+    cfg = override(GlobalModelConfig(
         backbone=BackboneConfig(kind=args.backbone, image_size=args.image_size,
                                 compute_dtype=args.dtype),
-        head="stages_cnn", depth=args.depth)
+        head="stages_cnn", depth=args.depth), _parse_sets(args.set))
     model = make_global_model(cfg, torch.Generator().manual_seed(0))
     _load_backbone(model.backbone, cfg.backbone.kind, args.backbone_checkpoint)
     _load_checkpoint(model, args.checkpoint)
@@ -460,6 +470,64 @@ def cmd_sweep_clu(args) -> int:
     return 0
 
 
+#: ``srsem convert``'s kinds not ported yet, with their ROADMAP items.
+UNPORTED_CONVERT_KINDS = {
+    "lpips": "A10b", "hf_clip_text": "A11", "clip_text": "A11",
+    "minilm": "A11", "slip": "A12", "albef": "A12", "albef_fusion": "A12",
+    "transalnet": "A12"}
+
+
+def cmd_convert(args) -> int:
+    """Convert torch pretrained or reference-trained checkpoints to the
+    JAX package's param trees, with the bytes ``srsem convert`` writes: a
+    flax-msgpack file for the towers (``--backbone-checkpoint``), a
+    checkpoint directory for ``global_head`` and ``clu_decoder``
+    (``--checkpoint``)."""
+    import torch
+
+    from srsem_torch.train.checkpoint import msgpack_serialize, save_checkpoint
+    from srsem_torch.train.partition import flatten_dict
+    from srsem_torch.utils import convert as cv
+
+    kind = args.kind
+    if kind in UNPORTED_CONVERT_KINDS:
+        raise NotImplementedError(
+            f"convert --kind {kind} needs a module that is not ported yet "
+            f"(ROADMAP {UNPORTED_CONVERT_KINDS[kind]})")
+    if args.image_size is not None and args.image_size <= 0:
+        raise SystemExit(f"--image-size must be positive, got {args.image_size}")
+    # As the JAX CLI: a reference checkpoint may be a pickled module or
+    # wrap its state dict.
+    sd = torch.load(args.input, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
+        sd = sd["model"]
+    if kind in ("global_head", "clu_decoder"):
+        if kind == "global_head":
+            ckpt = {"trainable": cv.convert_global_head(
+                sd, shared=args.shared_head)}
+        else:
+            dec = cv.convert_clu_decoder(sd)
+            ckpt = {"trainable": dec["params"],
+                    "batch_stats": dec["batch_stats"]}
+        path = save_checkpoint(args.out, 0, cv.jax_key_order(ckpt))
+        print(json.dumps({"kind": kind, "out": args.out, "ckpt": path,
+                          "n_arrays": len(flatten_dict(ckpt))}))
+        return 0
+    tree = {"resnet50": cv.convert_torch_resnet50,
+            "resnet50_clip": cv.convert_clip_resnet50,
+            "clip_vit": cv.convert_clip_vit,
+            "hf_clip_vit": cv.convert_hf_clip_vit}[kind](sd)
+    with open(args.out, "wb") as f:
+        f.write(msgpack_serialize(cv.jax_key_order(tree)))
+    print(json.dumps({"kind": kind, "out": args.out,
+                      "n_arrays": len(flatten_dict(tree))}))
+    return 0
+
+
 def cmd_info(args) -> int:
     """Deployment diagnostic: versions, host, nvcc, native decoder, env
     knobs.  Headless by default: without ``--devices`` nothing here
@@ -587,6 +655,10 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch path)")
     p.add_argument("--out", default="group_scores.csv")
+    p.add_argument("--set", action="append", default=[],
+                   help="config override, e.g. head=wperlay_vit (a "
+                        "grouped head: stages_cnn, wperlay_cnn or a ViT "
+                        "head with --backbone vit_clip)")
     p.set_defaults(fn=cmd_score_groups)
 
     p = sub.add_parser("score-maps-groups", help="CLU fidelity maps for "
@@ -641,8 +713,8 @@ def main(argv=None) -> int:
                    choices=["stages_cnn", "wperlay_cnn", "single_lin_vit",
                             "stages_vit", "wperlay_vit"],
                    help="a grouped-scorable head (wperlay_cnn needs "
-                        "--backbone resnet50_clip; the ViT heads wait for "
-                        "the ViT tower, ROADMAP A10)")
+                        "--backbone resnet50_clip, the ViT heads "
+                        "--backbone vit_clip)")
     p.add_argument("--depth", type=int, default=3)
     p.add_argument("--checkpoint",
                    help="checkpoint directory (latest.json + step_N.msgpack) "
@@ -805,6 +877,34 @@ def main(argv=None) -> int:
                         "threshold)")
     add_training_flags(p)
     p.set_defaults(fn=cmd_sweep_clu)
+
+    p = sub.add_parser("convert", help="convert torch pretrained or "
+                       "reference-trained checkpoints to srsem param trees "
+                       "(flax msgpack)")
+    p.add_argument("input", help="torch .pt/.pth state dict")
+    p.add_argument("--kind", required=True,
+                   choices=["resnet50", "resnet50_clip", "clip_vit",
+                            "hf_clip_text", "hf_clip_vit", "clip_text",
+                            "slip", "minilm", "lpips", "transalnet",
+                            "albef", "albef_fusion",
+                            "global_head", "clu_decoder"],
+                   help="resnet50, resnet50_clip, clip_vit, hf_clip_vit, "
+                        "global_head and clu_decoder are ported; the others "
+                        "raise, naming their ROADMAP item")
+    p.add_argument("--shared-head", action="store_true",
+                   help="for global_head: the checkpoint is the singleLin "
+                        "shared ViT head (w_layer Sequential) rather than "
+                        "a per-layer w_layers ModuleList")
+    p.add_argument("--image-size", type=int, default=None,
+                   help="checked positive, as the JAX CLI does (its "
+                        "resnet50_clip tree does not depend on it)")
+    p.add_argument("--patch", type=int, default=16,
+                   help="for albef (not ported)")
+    p.add_argument("--tower", default=None,
+                   help="for lpips (not ported)")
+    p.add_argument("--lpips-net", default="alex", choices=["alex", "vgg"])
+    p.add_argument("--out", default="converted.msgpack")
+    p.set_defaults(fn=cmd_convert)
 
     p = sub.add_parser(
         "info", help="environment diagnostic: versions, host, nvcc, native "

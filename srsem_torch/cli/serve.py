@@ -32,8 +32,9 @@ Serving mechanics:
   requests coalesce the same way through a dynamic batcher
   (:meth:`ScoreService.handle_concurrent`).
 * One card, no mesh.  Every (K, G) bucket's scorer shares ONE PairScorer
-  core a model, so the folded tower, the packed head and the folded
-  decoder exist once on the card whatever the number of buckets.
+  core a model, so the folded tower (or the ViT module), the packed head
+  and the folded decoder exist once on the card whatever the number of
+  buckets.
 * Device calls (and their ``.cpu()``) run under the service lock; host
   decode runs in a thread pool and through a decoded-image LRU.
 """
@@ -72,9 +73,9 @@ class ScoreService:
 
     Thread-safe for the HTTP handler (device calls serialized by a lock —
     one card, one batch at a time).  ``model`` is the global model
-    (a conv head: stages_cnn or wperlay_cnn); ``map_cfg``/``map_model`` a
-    CluUnet for maps requests.  Load weights before building the service:
-    the weights are folded here, once."""
+    (a linear head: stages_cnn, wperlay_cnn or a ViT token head);
+    ``map_cfg``/``map_model`` a CluUnet for maps requests.  Load weights
+    before building the service: the weights are folded here, once."""
 
     def __init__(self, cfg, model, group_batch: int = 8,
                  num_workers: int = 16, fast_jpeg: bool = False,

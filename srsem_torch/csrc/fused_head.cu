@@ -4,45 +4,61 @@
 // Replaces the Pallas TPU kernel srsem/ops/fused_head.py::fused_stage_score
 // (_make_kernel), with the composition fused_global_score puts around it
 // (bias, mean over stages, ReLU), and covers the grouped (G, K) head
-// srsem/models/global_models.py::fused_grouped_head, which the JAX package
+// srsem/models/global_models.py::fused_grouped_head and the ViT token head
+// (TokenHeadAggregator, fused_grouped_token_head), which the JAX package
 // leaves to XLA.  For S <= 12 tapped stages and P = G*K pairs:
 //     score[p] = relu(mean_s(sum_hwc((gt_s[p/K] - sr_s[p])^2 * w_s[c])
 //                           / (H_s*W_s) + b_s))
-// K = 1 is the pairwise head (GT = taps_a, SR = taps_b).  In the per-stage
-// mode (S = 1, no mean, no ReLU) it is sum / (H*W) + b: fused_stage_score.
+// over (N, H, W, C) maps, or over (N, T, W) token taps with T in place of
+// H*W (the token head's shared form, single_lin_vit, packs its one block
+// once a stage).  K = 1 is the pairwise head (GT = taps_a, SR = taps_b).
+// In the per-stage mode (S = 1, no mean, no ReLU) it is sum / (H*W) + b:
+// fused_stage_score.
 //
 // What bounds it: bytes.  About 3 FLOP an element, under 1 FLOP a byte in
 // bf16, where the card needs about 295 before its tensor cores matter; a
-// global batch at 224 px reads 385 MB of taps (0.115 ms at 3.35 TB/s).  So
+// global batch at 224 px reads 385 MB of taps (0.115 ms at 3.35 TB/s), a
+// stages_vit batch 310 MB of float32 token taps (0.0925 ms).  So
 // no tensor cores and no shared-memory staging (nothing is reused).  What
 // it needs is bytes in flight: about 3.35 TB/s x 0.7 us = 2.3 MB, 18 KB an
 // SM.  The design:
 //   * 16-byte loads, 8 elements a thread (two loads in float32), neighbour
 //     threads on neighbour addresses, read-only and not kept in L1 (each
 //     byte is read once); each thread keeps 4 loads a side in flight (4
-//     steps unrolled, 2 in float32), and four blocks of 256 threads share
-//     an SM (at most 64 registers).
+//     steps unrolled, 2 in float32), and four blocks share an SM (of 256
+//     threads: at most 64 registers).
 //   * A step is 256 threads x 8 elements = 2048 elements; a chunk is whole
 //     groups of 4 steps, so the unrolled loop covers all but a ragged last
 //     chunk (sweep_head_plan.py times the other plans).  Where C divides
-//     2048 (the main path's 256, 512, 1024, 2048) and the taps are 16-byte
+//     2048 (the conv taps' 256, 512, 1024, 2048) and the taps are 16-byte
 //     aligned, a thread's 8 channels stay fixed for a whole chunk: its 8
 //     weights are loaded once an item and there is no modulo an element.
-//     Any other C, an unaligned tap and the ragged end of a chunk take the
-//     general path: one element a thread, its channel by a modulo.
+//     The ViT's W = 768 does not divide 2048 (2048 = 2 x 768 + 512): there
+//     a step is 1536 = 2 x 768 elements, streamed by blocks of 192
+//     threads, so their channels stay fixed too and the tokens keep the
+//     16-byte loads (4 blocks x 192 threads x 4 loads x 16 B = 48 KB in
+//     flight an SM, above the 18 KB the card needs).  The step is a
+//     launch's, a template parameter with the block's threads: a step read
+//     at run time spills in the float16 K = 2 instance (its unrolled loads
+//     need an address register each, not an offset), and 192 of 256
+//     threads behind a branch spill in the float32 K = 4 one; 192-thread
+//     blocks have up to 80 registers.  Any other C, an unaligned tap and
+//     the ragged end of a chunk take the general path: one element a
+//     thread, its channel by a modulo.
 //   * Work items are (stage, group, k-block, chunk of one image's tap).  An
 //     item reads its GT chunk once and streams the k-block's SR chunks (at
 //     most 8) against it, the GT vector held in registers across them, with
 //     one partial sum an SR image: (1+K)/(2K) of the pairwise bytes.
 //   * One launch: every stage's descriptor goes to the kernel by value in
 //     its parameters (no descriptor table copied to the card): up to 12, so
-//     wperlay_cnn's 12 per-block taps are one launch too.  Twelve are under
-//     1 KB of the 4 KB of kernel parameters, and as the parameters are
-//     __grid_constant__ the walk's and the finish's reads of st[s] with a
-//     computed s read parameter space, with no copy to a stack frame (the
-//     ptxas -v lines say "0 bytes stack frame").  The grid is
-//     persistent: at most 4 blocks an SM, each walking the items by a fixed
-//     stride, largest stage first.  The plan (chunk size, items, grid) is
+//     wperlay_cnn's and wperlay_vit's 12 per-block taps are one launch
+//     too.  Twelve are under 1 KB of the 4 KB of kernel parameters, and as
+//     the parameters are __grid_constant__ the walk's and the finish's
+//     reads of st[s] with a computed s read parameter space, with no copy
+//     to a stack frame (the descriptors add no byte to any instance's
+//     frame in the ptxas -v lines).  The grid is persistent: at most 4
+//     blocks an SM, each walking the items by a fixed stride, largest
+//     stage first.  The plan (chunk size, items, grid) is
 //     made in one place, the Python wrapper
 //     (srsem_torch/ops/fused_head.py::kernel_plan), which keeps it per
 //     shape; a call passes it with the taps' pointers, and this file
@@ -57,7 +73,8 @@
 //     bits.
 //
 // Layouts (what srsem_torch/ops/fused_head.py passes):
-//   gt_s : (G, H, W, C) contiguous        sr_s : (G*K, H, W, C), same dtype
+//   gt_s : (G, H, W, C) or (G, T, W)      sr_s : (G*K, ...), same dtype,
+//          contiguous
 //   w    : packed float32 weights, stage s at w_off    b : packed biases
 //   part : float32 scratch, pair p's chunk i of stage s at part0 + p*chunks + i
 //   out  : (P,) float32
@@ -70,10 +87,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 8;                  // elements a thread a step
-constexpr int kStep = kThreads * kVec;   // 2048 elements a block a step
+constexpr int kStep = 2048;              // 256 threads a block
+constexpr int kNarrowStep = 1536;        // 192 threads: C = 768 divides it
 constexpr int kMinBlocks = 4;            // blocks an SM the grid counts on
 constexpr int kMaxStages = 12;
 constexpr int kMaxKt = 8;                // SR images an item streams
@@ -91,10 +107,11 @@ struct Stage {
   int c;
   int w_off;   // the stage's first weight in the packed weights
   int bias;    // its index in the packed biases
-  int chunk;   // elements a chunk, a multiple of kStep
+  int chunk;   // elements a chunk, a multiple of its step
   int chunks;  // chunks an image
-  int vec;     // 1: fixed channels a thread, 16-byte loads
-  float hw;    // H*W
+  int vstep;   // the launch's step: fixed channels a thread, 16-byte
+               // loads; 0: the general path, in steps of kStep
+  float hw;    // H*W, or T tokens
 };
 
 struct Params {
@@ -162,24 +179,24 @@ __device__ __forceinline__ float load1(const Elem<D>* p) {
   }
 }
 
-// U steps of the fixed-channel path: `gt` and `sr` point at this thread's
-// first element, SR image j at sr + j * stride.  The GT's U vectors stay
+// U steps of STEP elements on the fixed-channel path: `gt` and `sr` point
+// at this thread's first element, SR image j at sr + j * stride.  The GT's U vectors stay
 // in registers while the SR images' stream past them, one image's U
 // vectors at a time (all K at once would spill at 64 registers).
-template <int D, int KT, int U>
+template <int D, int KT, int U, int STEP>
 __device__ __forceinline__ void vec_steps(const Elem<D>* gt,
                                           const Elem<D>* sr, long long stride,
                                           int kn, const float (&wv)[kVec],
                                           float (&acc)[KT]) {
   Vec8<D> g[U];
 #pragma unroll
-  for (int u = 0; u < U; ++u) g[u].load(gt + u * kStep);
+  for (int u = 0; u < U; ++u) g[u].load(gt + u * STEP);
 #pragma unroll
   for (int j = 0; j < KT; ++j) {
     if (j < kn) {
       Vec8<D> s[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) s[u].load(sr + j * stride + u * kStep);
+      for (int u = 0; u < U; ++u) s[u].load(sr + j * stride + u * STEP);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
 #pragma unroll
@@ -192,9 +209,11 @@ __device__ __forceinline__ void vec_steps(const Elem<D>* gt,
   }
 }
 
-template <int D, int KT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// STEP / kVec threads a block: every thread streams a step.
+template <int D, int KT, int STEP>
+__global__ void __launch_bounds__(STEP / kVec, kMinBlocks)
     fused_head_kernel(const __grid_constant__ Params p) {
+  constexpr int kThreads = STEP / kVec, kWarps = kThreads / 32;
   using T = Elem<D>;
   constexpr int U = D == kF32 ? 2 : 4;  // 4 16-byte loads a side in flight
   __shared__ float red[kWarps][KT];
@@ -223,23 +242,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
     for (int j = 0; j < KT; ++j) acc[j] = 0.f;
     int done = 0;
-    if (st.vec) {
-      // begin and every step start at a multiple of 2048, so of C.
+    if (st.vstep) {
+      // begin and every step start at a multiple of STEP, so of C.
       const int c0 = tid * kVec % st.c;
       float wv[kVec];
 #pragma unroll
       for (int e = 0; e < kVec; ++e) wv[e] = __ldg(w + c0 + e);
-      const int steps = len / kStep;
+      const int steps = len / STEP;
       const T* g = gt + tid * kVec;
       const T* q = sr + tid * kVec;
       int i = 0;
       for (; i + U <= steps; i += U)
-        vec_steps<D, KT, U>(g + i * kStep, q + i * kStep, st.per_image, kn,
-                            wv, acc);
+        vec_steps<D, KT, U, STEP>(g + i * STEP, q + i * STEP, st.per_image,
+                                  kn, wv, acc);
       for (; i < steps; ++i)
-        vec_steps<D, KT, 1>(g + i * kStep, q + i * kStep, st.per_image, kn,
-                            wv, acc);
-      done = steps * kStep;
+        vec_steps<D, KT, 1, STEP>(g + i * STEP, q + i * STEP, st.per_image,
+                                  kn, wv, acc);
+      done = steps * STEP;
     }
     for (int e = done + tid; e < len; e += kThreads) {
       const float wc = __ldg(w + static_cast<int>((begin + e) % st.c));
@@ -305,18 +324,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 }
 
 template <int D, int KT>
-int launch(const Params& p, int grid, cudaStream_t stream) {
-  fused_head_kernel<D, KT><<<grid, kThreads, 0, stream>>>(p);
+int launch(const Params& p, int step, int grid, cudaStream_t stream) {
+  if (step == kNarrowStep)
+    fused_head_kernel<D, KT, kNarrowStep>
+        <<<grid, kNarrowStep / kVec, 0, stream>>>(p);
+  else
+    fused_head_kernel<D, KT, kStep><<<grid, kStep / kVec, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_kt(const Params& p, int kt, int grid, cudaStream_t stream) {
+int launch_kt(const Params& p, int kt, int step, int grid,
+              cudaStream_t stream) {
   switch (kt) {
-    case 1: return launch<D, 1>(p, grid, stream);
-    case 2: return launch<D, 2>(p, grid, stream);
-    case 4: return launch<D, 4>(p, grid, stream);
-    case 8: return launch<D, kMaxKt>(p, grid, stream);
+    case 1: return launch<D, 1>(p, step, grid, stream);
+    case 2: return launch<D, 2>(p, step, grid, stream);
+    case 4: return launch<D, 4>(p, step, grid, stream);
+    case 8: return launch<D, kMaxKt>(p, step, grid, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -335,9 +359,10 @@ extern "C" {
 // a stage in the kernel's stage order:
 //   stages, dtype (0 float32, 1 bf16, 2 float16), g, k, kb, kblocks, kt,
 //   items, grid, per_stage;
-//   per_image, item0, part0, c, w_off, bias, chunk, chunks, vec, hw
+//   per_image, item0, part0, c, w_off, bias, chunk, chunks, vstep, hw
 // (as Params and Stage above; kt is 1, 2, 4 or 8 and >= kb, the SR images
-// an item streams; kblocks = ceil(k / kb)).  `taps` holds each stage's GT
+// an item streams; kblocks = ceil(k / kb); every nonzero vstep is the
+// launch's one step, kStep or kNarrowStep).  `taps` holds each stage's GT
 // and SR pointers, in the same order.  `ticket` is one zeroed unsigned that
 // only this stream's launches use; the kernel leaves it zero.
 int srsem_fused_head(const long long* plan, const void* const* taps,
@@ -358,6 +383,7 @@ int srsem_fused_head(const long long* plan, const void* const* taps,
       !ticket || !out)
     return invalid;
   const int esize = dtype == kF32 ? 4 : 2;
+  int step = 0;
   Params p{};
   for (int s = 0; s < stages; ++s) {
     const long long* d = plan + kHeadFields + s * kStageFields;
@@ -372,16 +398,20 @@ int srsem_fused_head(const long long* plan, const void* const* taps,
     st.bias = static_cast<int>(d[5]);
     st.chunk = static_cast<int>(d[6]);
     st.chunks = static_cast<int>(d[7]);
-    st.vec = static_cast<int>(d[8]);
+    st.vstep = static_cast<int>(d[8]);
     st.hw = static_cast<float>(d[9]);
+    const int unit = st.vstep ? st.vstep : kStep;
     if (!st.gt || !st.sr || st.c < 1 || st.per_image < st.c ||
-        st.chunk < kStep || st.chunk % kStep || st.chunks < 1 ||
+        st.chunk < unit || st.chunk % unit || st.chunks < 1 ||
         static_cast<long long>(st.chunks) * st.chunk < st.per_image ||
         (s == 0 ? st.item0 != 0 : st.item0 <= p.st[s - 1].item0))
       return invalid;
-    if (st.vec && (st.c % kVec || kStep % st.c || !aligned16(st.gt) ||
-                   !aligned16(st.sr) || (st.per_image * esize) % 16))
+    if (st.vstep && ((st.vstep != kStep && st.vstep != kNarrowStep) ||
+                     (step && st.vstep != step) || st.c % kVec ||
+                     st.vstep % st.c || !aligned16(st.gt) ||
+                     !aligned16(st.sr) || (st.per_image * esize) % 16))
       return invalid;
+    if (st.vstep) step = st.vstep;
   }
   p.items = items;
   p.stages = stages;
@@ -398,9 +428,9 @@ int srsem_fused_head(const long long* plan, const void* const* taps,
   p.out = out;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch_kt<kF32>(p, kt, grid, s);
-    case kBf16: return launch_kt<kBf16>(p, kt, grid, s);
-    case kF16: return launch_kt<kF16>(p, kt, grid, s);
+    case kF32: return launch_kt<kF32>(p, kt, step, grid, s);
+    case kBf16: return launch_kt<kBf16>(p, kt, step, grid, s);
+    case kF16: return launch_kt<kF16>(p, kt, step, grid, s);
     default: return invalid;
   }
 }

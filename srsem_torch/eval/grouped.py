@@ -8,8 +8,8 @@ pass: 1 + K passes instead of 2K.
 * ``GroupedPairScorer`` scores the (G, K) pairs with one launch of the head
   kernel (``fused_grouped_score``), which reads each GT tap once against
   its K SR taps: the conv heads, stages_cnn on the ResNet towers and
-  wperlay_cnn (up to 12 taps) on the CLIP tower.  The ViT heads wait for
-  ROADMAP A10.
+  wperlay_cnn (up to 12 taps) on the CLIP tower, and the token heads on
+  the CLIP ViT (fused_grouped_token_head's numerics).
 * ``GroupedMapScorer``'s decoder still runs once per pair on its own diff
   pyramid, built by broadcasting the shared GT taps against the K SR taps
   (``grouped_diff_pyramid``), so the maps equal the pairwise scorer's.
@@ -31,12 +31,11 @@ import torch
 from srsem_torch.data.preprocess import IMG_EXTENSIONS
 from srsem_torch.device import DeviceLike
 from srsem_torch.eval.scorer import PairScorer
-from srsem_torch.models.global_models import CONV_HEADS, grouped_diff_pyramid
+from srsem_torch.models.global_models import KERNEL_HEADS, grouped_diff_pyramid
 from srsem_torch.ops.fused_head import fused_grouped_score
 
 # The heads srsem/eval/grouped.py scores in grouped form (its GROUPED_HEADS).
-GROUPED_HEADS = ("stages_cnn", "wperlay_cnn", "single_lin_vit", "stages_vit",
-                 "wperlay_vit")
+GROUPED_HEADS = KERNEL_HEADS
 
 
 def _sr_model_names(sr_folders: Sequence[str]) -> List[str]:
@@ -114,15 +113,11 @@ def _decoded_group_chunks(preprocess, stems: Sequence[str],
 
 
 def check_grouped_head(head: str) -> None:
-    """Raise unless ``head`` has a grouped form in the port."""
+    """Raise unless ``head`` has a grouped form."""
     if head not in GROUPED_HEADS:
         raise ValueError(
             f"grouped scoring supports the linear-to-scalar heads "
             f"{GROUPED_HEADS}, got {head!r} — use PairScorer")
-    if head not in CONV_HEADS:
-        raise NotImplementedError(
-            f"grouped head {head!r} needs the ViT tower, which is not "
-            "ported yet (ROADMAP A10)")
 
 
 def _check_shared(pairs: PairScorer, model, kind: str) -> None:

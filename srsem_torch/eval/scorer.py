@@ -15,13 +15,15 @@ fidelity map.
 bottleneck kernel (srsem_torch/backbones/fused_resnet.py); ``False`` runs
 the module's plain ``F.conv2d`` chain, the counterpart of the JAX
 package's dense XLA tower.  The default, None, turns it on for the frozen
-base tower, that is unless the configuration sets ``lora_rank`` (a LoRA
-or fully fine-tuned CLU tower scores through the module, as in JAX); an
-explicit ``True`` there raises JAX's ``ValueError``
-(srsem/eval/scorer.py:58-63).  Both towers run as two passes (a, then
-b).  After the tower, by model:
+base ResNet tower, that is unless the configuration sets ``lora_rank`` (a
+LoRA or fully fine-tuned CLU tower scores through the module, as in JAX);
+an explicit ``True`` there, or with the ViT (which has no bottleneck),
+raises JAX's ``ValueError`` (srsem/eval/scorer.py:53-63).  The CLIP ViT
+runs as its module, in the compute dtype with float32 token taps.  Both
+towers run as two passes (a, then b).  After the tower, by model:
 
-* the conv heads (stages_cnn, wperlay_cnn) go through
+* the conv heads (stages_cnn, wperlay_cnn) and the ViT's token heads
+  (single_lin_vit, stages_vit, wperlay_vit) go through
   ``fused_global_score``: one launch of the CUDA head kernel a scored
   batch on the card, with the head packed once (``pack_head``);
 * the MLP heads (stages_cnn_pooling, emb_lin) run the module's
@@ -50,7 +52,7 @@ from srsem_torch.backbones.fused_resnet import (
 )
 from srsem_torch.data.preprocess import Preprocess
 from srsem_torch.device import DeviceLike, resolve_device
-from srsem_torch.models.global_models import CONV_HEADS
+from srsem_torch.models.global_models import KERNEL_HEADS
 from srsem_torch.models.local_models import (
     CluUnet,
     fold_decoder,
@@ -66,9 +68,9 @@ class PairScorer:
     (``model_kind="global"``, a GlobalPairScorer) or one (H, W) map
     (``"local"``, a CluUnet; or ``"global"`` with head="unet_global").
 
-    The BN-folded weights of the fused tower and decoder, and a conv head's
-    packed weights, are computed once, here, from the model's weights at
-    construction: load weights before building it."""
+    The BN-folded weights of the fused tower and decoder, and a linear
+    head's packed weights, are computed once, here, from the model's
+    weights at construction: load weights before building it."""
 
     def __init__(
         self,
@@ -103,10 +105,6 @@ class PairScorer:
                     "unavailable — build srsem_torch/native (see `python -m "
                     "srsem_torch info --native`) or use the default PIL "
                     "backend")
-        if cfg.backbone.kind not in ("resnet50", "resnet50_clip"):
-            raise NotImplementedError(
-                f"backbone {cfg.backbone.kind!r} is not ported yet "
-                "(ROADMAP A10)")
         self.cfg = cfg
         self.model = model.to(self.device).eval()
         self.model_kind = model_kind
@@ -114,7 +112,8 @@ class PairScorer:
         self.num_workers = num_workers
         self.decode_backend = decode_backend
         self.fused_tower = resolve_fused_tower(
-            fused_tower, getattr(cfg, "lora_rank", None) is None)
+            fused_tower, getattr(cfg, "lora_rank", None) is None,
+            cfg.backbone.kind)
         self.is_clu = isinstance(model, CluUnet)
         if model_kind == "local" and not self.is_clu:
             raise ValueError(f"model_kind='local' scores a CluUnet, got "
@@ -134,7 +133,7 @@ class PairScorer:
             self._decoder_folded = (fold_decoder(self.model)
                                     if self.fused_decoder else None)
             self.head = (pack_head(self.model.aggregator)
-                         if not self.is_clu and cfg.head in CONV_HEADS
+                         if not self.is_clu and cfg.head in KERNEL_HEADS
                          else None)
 
     # ---- device path ----------------------------------------------------

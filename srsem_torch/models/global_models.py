@@ -1,5 +1,5 @@
 """Global pair-scoring regressors ("CLIP-LPIPS") — the port of
-srsem/models/global_models.py for the CNN heads.
+srsem/models/global_models.py.
 
 Shared numerics (reference: models/global_eval_models.py:341-397): run
 both images through the frozen backbone; as in the JAX package the two
@@ -18,9 +18,15 @@ stages_cnn_pooling  the float32 spatial mean of each tapped stage of A
 emb_lin             the two embeddings concatenated, into ``MlpHead``
 unet_global         ``make_global_model`` returns the CLU ``CluUnet``
                     with ``sigmoid=False`` (a raw map)
+stages_vit          on the CLIP ViT tower: per tapped block (every 3rd,
+                    ``vit_block_taps(depth, step=3)``) ``(t_a - t_b) ** 2``
+                    over (N, T, W) tokens, a Linear to one value, the
+                    token mean; the mean over blocks, a final ReLU
+                    (``TokenHeadAggregator``)
+wperlay_vit         the same over the ``depth + 1`` deepest blocks
+single_lin_vit      the same blocks as wperlay_vit, one Linear shared by
+                    all of them (``w_layer``)
 ==================  ====================================================
-
-The ViT heads wait for the ViT tower (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from srsem_torch.backbones.resnet import (
     make_backbone,
     reset_tower,
 )
+from srsem_torch.backbones.vit import vit_block_taps
 from srsem_torch.config import GlobalModelConfig
 from srsem_torch.models.local_models import CluUnet
 
@@ -48,9 +55,12 @@ Tensor = torch.Tensor
 _STAGE_CHANNELS = (256, 512, 1024, 2048)
 #: Embedding width of each tower: CLIP's attention pool, ImageNet's GAP.
 _EMBED_WIDTH = {"resnet50_clip": 1024, "resnet50": 2048}
-#: The heads ``ConvHeadAggregator`` serves (the head kernel's heads).
+#: The heads ``ConvHeadAggregator`` serves.
 CONV_HEADS = ("stages_cnn", "wperlay_cnn")
-_VIT_HEADS = ("single_lin_vit", "stages_vit", "wperlay_vit")
+#: The heads ``TokenHeadAggregator`` serves, on the ViT tower.
+TOKEN_HEADS = ("single_lin_vit", "stages_vit", "wperlay_vit")
+#: The linear-to-scalar heads: the head kernel's (ops/fused_head.py).
+KERNEL_HEADS = CONV_HEADS + TOKEN_HEADS
 
 
 def head_bias_initializer(mode: str, fan_in: int
@@ -158,6 +168,74 @@ def conv_head_from_stats(head: ConvHeadAggregator,
     return F.relu(torch.stack(scores).mean(dim=0))
 
 
+class TokenHeadAggregator(nn.Module):
+    """The ViT token head (srsem/models/global_models.py:320-343): per
+    tapped block a Linear(W, 1) on the squared token diffs, the mean over
+    tokens, then over blocks, a ReLU.  ``shared`` (single_lin_vit) uses one
+    Linear for every block, ``w_layer`` = ``Sequential(Linear)`` (reference:
+    models/global_eval_models.py:29-31); otherwise ``w_layers.{j}`` (:125,
+    :227).  These are the reference's state-dict layouts, which
+    srsem/utils/convert.py::convert_global_head reads."""
+
+    def __init__(self, width: int, n_layers: int, shared: bool = False,
+                 bias_init: str = "live"):
+        super().__init__()
+        head_bias_initializer(bias_init, 1)  # validate the mode early
+        self.bias_init, self.n_layers, self.shared = bias_init, n_layers, shared
+        if shared:
+            self.w_layer = nn.Sequential(nn.Linear(width, 1))
+        else:
+            self.w_layers = nn.ModuleList(nn.Linear(width, 1)
+                                          for _ in range(n_layers))
+
+    def linears(self) -> List[nn.Linear]:
+        """The head of each tapped block, in tap order (``n_layers`` times
+        the one Linear when shared)."""
+        if self.shared:
+            return [self.w_layer[0]] * self.n_layers
+        return list(self.w_layers)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """torch's default ``U(±1/√W)`` weights (JAX's ``_head_init``);
+        bias per ``bias_init``."""
+        with torch.no_grad():
+            for layer in dict.fromkeys(self.linears()):
+                fan_in = layer.weight.shape[1]
+                bound = fan_in ** -0.5
+                layer.weight.uniform_(-bound, bound, generator=generator)
+                head_bias_initializer(self.bias_init, fan_in)(
+                    layer.bias, generator)
+
+    def forward(self, diffs: List[Tensor]) -> Tensor:
+        """(N, T, W) squared token diffs → (N,) scores."""
+        scores = [(d @ layer.weight.reshape(-1).float()
+                   + layer.bias.float()).mean(dim=1)
+                  for layer, d in zip(self.linears(), diffs)]
+        return F.relu(torch.stack(scores).mean(dim=0))
+
+
+def token_head_from_stats(head: TokenHeadAggregator,
+                          stats: Sequence[Tensor]) -> Tensor:
+    """:class:`TokenHeadAggregator` scores from per-block token means of
+    the squared diffs, shape ``(..., W)``: ``mean_t(d @ w + b) ==
+    mean_t(d) @ w + b`` exactly, up to FP reduction order
+    (srsem/models/global_models.py:219-234)."""
+    scores = [s.float() @ layer.weight.reshape(-1).float() + layer.bias.float()[0]
+              for layer, s in zip(head.linears(), stats)]
+    return F.relu(torch.stack(scores).mean(dim=0))
+
+
+def grouped_token_head(head: TokenHeadAggregator, taps_g: Dict[str, Tensor],
+                       taps_s: Dict[str, Tensor],
+                       names: Sequence[str]) -> Tensor:
+    """(G, K) token-head scores of G GT taps against G·K SR taps: the
+    plain counterpart of srsem/models/global_models.py::
+    fused_grouped_token_head, through the module over the broadcast squared
+    diffs (the head kernel folds the head into the reduction instead)."""
+    g = taps_g[names[0]].shape[0]
+    return head(grouped_diff_pyramid(taps_g, taps_s, names)).reshape(g, -1)
+
+
 def conv_head_params(weights: Sequence, biases: Sequence[float]
                      ) -> Dict[str, Dict[str, np.ndarray]]:
     """A :class:`ConvHeadAggregator`'s parameters in the JAX layout
@@ -229,24 +307,35 @@ class MlpHead(nn.Module):
 
 
 class GlobalPairScorer(nn.Module):
-    """score = model(a, b) for NHWC image batches a, b (the CNN heads)."""
+    """score = model(a, b) for NHWC image batches a, b."""
 
     def __init__(self, cfg: GlobalModelConfig):
         super().__init__()
         head, depth, kind = cfg.head, cfg.depth, cfg.backbone.kind
         if cfg.head_bias_init not in ("live", "torch"):
             raise ValueError(f"unknown head_bias_init {cfg.head_bias_init!r}")
-        if head in _VIT_HEADS:
-            raise NotImplementedError(
-                f"head {head!r} needs the ViT tower, which is not ported yet "
-                "(ROADMAP A10)")
         if head == "unet_global":
             raise ValueError("head 'unet_global' is a CluUnet: build it with "
                              "make_global_model")
+        if cfg.backbone.is_vit and head not in TOKEN_HEADS + ("emb_lin",):
+            raise ValueError(f"head {head!r} taps a ResNet tower; the ViT "
+                             f"takes {TOKEN_HEADS} and emb_lin")
         self.cfg = cfg
         self.backbone = make_backbone(cfg.backbone)
         bias = cfg.head_bias_init
-        if head in ("stages_cnn", "stages_cnn_pooling"):
+        if head in TOKEN_HEADS:
+            if not cfg.backbone.is_vit:
+                raise ValueError(f"{head} taps the ViT tower's blocks; "
+                                 f"backbone {kind!r} has none")
+            # stages_vit taps every 3rd block, as ResNet's four stages
+            # (reference: models/global_eval_models.py:116).
+            self.tap_names = vit_block_taps(
+                depth, total=cfg.backbone.vit_depth,
+                step=3 if head == "stages_vit" else 1)
+            self.aggregator = TokenHeadAggregator(
+                cfg.backbone.vit_width, len(self.tap_names),
+                shared=head == "single_lin_vit", bias_init=bias)
+        elif head in ("stages_cnn", "stages_cnn_pooling"):
             if not 0 <= depth <= 3:
                 raise ValueError(f"{head} taps depth + 1 of 4 stages, got "
                                  f"depth {depth}")
@@ -270,14 +359,16 @@ class GlobalPairScorer(nn.Module):
                 bias_init=bias)
         elif head == "emb_lin":
             self.tap_names = ()
-            self.aggregator = MlpHead(2 * _EMBED_WIDTH[kind], (1028, 512, 1))
+            width = (cfg.backbone.vit_width if cfg.backbone.is_vit
+                     else _EMBED_WIDTH[kind])
+            self.aggregator = MlpHead(2 * width, (1028, 512, 1))
         else:
             raise ValueError(f"unknown global head {head!r}")
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Fresh weights from ``generator``: Kaiming-normal (fan_in) convs
-        and identity frozen BN in the tower, as the Flax init does, and the
-        head's own init (torch-default conv heads, Kaiming MLPs)."""
+        """Fresh weights from ``generator``: the tower's Flax-like init
+        (``reset_tower``) and the head's own (torch-default conv and token
+        heads, Kaiming MLPs)."""
         reset_tower(self.backbone, generator)
         self.aggregator.reset_parameters(generator)
 
@@ -300,7 +391,7 @@ class GlobalPairScorer(nn.Module):
                         taps_a: Dict[str, Tensor],
                         taps_b: Dict[str, Tensor]) -> Tensor:
         """Head on precomputed tower outputs (the plain head; the scorer
-        runs the conv heads through the head kernel,
+        runs the conv and token heads through the head kernel,
         srsem_torch/ops/fused_head.py::fused_global_score, and the MLP
         heads here, as the JAX package leaves them to XLA)."""
         head = self.cfg.head

@@ -1,12 +1,14 @@
 """Fused squared-diff → 1x1-conv head → spatial sum — the port of
-srsem/ops/fused_head.py, and of the grouped head
-srsem/models/global_models.py::fused_grouped_head.
+srsem/ops/fused_head.py, of the grouped head
+srsem/models/global_models.py::fused_grouped_head, and of the ViT token
+head (``TokenHeadAggregator``, ``fused_grouped_token_head``).
 
 Per tapped stage the global regressor's head computes
-``mean_hw((f_a - f_b)^2 · w) + b`` (reference numerics:
-models/global_eval_models.py:379-392); the stages_cnn score is the ReLU of
-the mean over stages.  The kernel reads each feature map once and writes
-no diff tensor.
+``mean_hw((f_a - f_b)^2 · w) + b`` over (N, H, W, C) feature maps
+(reference numerics: models/global_eval_models.py:379-392), or
+``mean_t((t_a - t_b)^2 · w) + b`` over (N, T, W) token taps; the score is
+the ReLU of the mean over stages.  The kernel reads each tap once and
+writes no diff tensor.
 
 Hopper kernel: csrc/fused_head.cu (CUDA C++), one launch a scored batch
 with every stage, the bias, the mean and the ReLU in it; a grouped batch
@@ -17,13 +19,16 @@ library checks it.
 
 * ``fused_stage_score(fa, fb, w, b)`` — one stage, (N,) scores
   ``sum/(H·W) + b`` (the TPU kernel's wrapper);
-* ``fused_global_score(taps_a, taps_b, head, names)`` — (N,) stages_cnn
-  or wperlay_cnn scores (ConvHeadAggregator's numerics, up to 12 stages);
+* ``fused_global_score(taps_a, taps_b, head, names)`` — (N,) scores of
+  a conv head (stages_cnn, wperlay_cnn) or a token head (the ViT heads),
+  the aggregators' numerics, up to 12 stages;
 * ``fused_grouped_score(taps_g, taps_s, head, names)`` — (G, K) scores
-  from G GT and G·K SR taps (fused_grouped_head's numerics).
+  from G GT and G·K SR taps (fused_grouped_head's and
+  fused_grouped_token_head's numerics).
 
-``head`` is a ConvHeadAggregator or the ``PackedHead`` that ``pack_head``
-makes once (the scorers do, at construction).  Each function has a plain
+``head`` is a ConvHeadAggregator, a TokenHeadAggregator or the
+``PackedHead`` that ``pack_head`` makes once (the scorers do, at
+construction).  Each function has a plain
 PyTorch version beside it (``plain_stage_sums``, ``plain_global_score``,
 ``plain_grouped_score``), which runs for CPU tensors; for a CUDA tensor the
 wrapper launches the kernel or raises.  Each counts its launches in
@@ -47,6 +52,10 @@ Taps = Dict[str, Tensor]
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _STEP = 2048          # elements a block streams a step (256 threads x 8)
+# The fixed-channel path's steps, one a launch, the first that a stage's C
+# divides: all 256 threads, or 192 (C = 768, the ViT-B width, divides 1536
+# and not 2048).
+_VEC_STEPS = (_STEP, 1536)
 _UNROLL = 4 * _STEP   # chunks are whole groups of the most steps a thread unrolls
 _MAX_CHUNK = 32 * _STEP
 _ITEMS_PER_BLOCK = 8  # work items a block that the chunk size aims at
@@ -57,9 +66,9 @@ _MAX_STAGES = 12     # csrc/fused_head.cu kMaxStages: wperlay_cnn's 12 taps
 
 @dataclass(frozen=True)
 class PackedHead:
-    """A ConvHeadAggregator's per-stage weights and biases as the kernel
-    reads them: ``w`` (ΣC,) and ``b`` (S,) float32 on the head's device,
-    stage j's weights at ``w[offsets[j]: offsets[j] + channels[j]]``."""
+    """A head's per-stage weights and biases as the kernel reads them:
+    ``w`` (ΣC,) and ``b`` (S,) float32 on the head's device, stage j's
+    weights at ``w[offsets[j]: offsets[j] + channels[j]]``."""
 
     w: Tensor
     b: Tensor
@@ -79,10 +88,13 @@ class PackedHead:
 
 
 def pack_head(head) -> PackedHead:
-    """Concatenate a ConvHeadAggregator's ``w_layers.{j}`` weights and
-    biases in float32 on its device: one copy, made once by the scorers
-    (the head math runs in float32, so the pack has no other dtype)."""
-    layers = list(head.w_layers)
+    """Concatenate a ConvHeadAggregator's ``w_layers.{j}`` or a
+    TokenHeadAggregator's heads, weights and biases in float32 on its
+    device: one copy, made once by the scorers (the head math runs in
+    float32, so the pack has no other dtype).  A shared token head
+    (single_lin_vit) packs its one ``w_layer`` once a stage."""
+    layers = ([head.w_layer[0]] * head.n_layers
+              if getattr(head, "shared", False) else list(head.w_layers))
     with torch.no_grad():
         w = torch.cat([l.weight.reshape(-1).float() for l in layers])
         b = torch.cat([l.bias.reshape(-1).float() for l in layers])
@@ -98,17 +110,20 @@ def _as_packed(head) -> PackedHead:
 
 
 def _check_stages(stages: Sequence[Tuple[Tensor, Tensor]]) -> None:
-    """Check (GT, SR) tap pairs against what the kernel takes: SR batches
-    K times the GT batch, one dtype, one device, contiguous."""
+    """Check (GT, SR) tap pairs against what the kernel takes: (N, H, W, C)
+    maps or (N, T, W) tokens, SR batches K times the GT batch, one dtype,
+    one device, contiguous."""
     if not stages:
         raise ValueError("no tapped stages")
     g = stages[0][0].shape[0] if stages[0][0].dim() else 0
     k = None
     dev, dt = stages[0][0].device, stages[0][0].dtype
     for gt, sr in stages:
-        if gt.dim() != 4 or sr.dim() != 4 or gt.shape[1:] != sr.shape[1:]:
+        if gt.dim() not in (3, 4) or sr.dim() != gt.dim() \
+                or gt.shape[1:] != sr.shape[1:]:
             raise ValueError(f"GT {tuple(gt.shape)} and SR {tuple(sr.shape)} "
-                             "must be (N, H, W, C) with equal H, W, C")
+                             "must be (N, H, W, C) or (N, T, W) with equal "
+                             "trailing sizes")
         if gt.numel() == 0 or gt.shape[0] != g:
             raise ValueError(f"every stage needs the same nonzero GT batch "
                              f"{g}, got {tuple(gt.shape)}")
@@ -147,16 +162,17 @@ def _pairs(taps_g: Taps, taps_s: Taps, names: Sequence[str]):
 
 def plain_stage_sums(fa: Tensor, fb: Tensor, w: Tensor) -> Tensor:
     """Plain PyTorch version of the per-stage kernel: (N,) float32
-    ``sum_{h,w,c}((fa-fb)^2 · w[c])``."""
+    ``sum_{h,w,c}((fa-fb)^2 · w[c])`` (or over tokens and width)."""
     d = fa.float() - fb.float()
-    return (d * d * w).sum(dim=(1, 2, 3))
+    return (d * d * w).sum(dim=tuple(range(1, d.dim())))
 
 
 def plain_grouped_score(taps_g: Taps, taps_s: Taps, head,
                         tap_names: Sequence[str]) -> Tensor:
-    """Plain PyTorch version of the kernel (fused_grouped_head's math, in
-    float32): (G, K) ``relu(mean_s(sum_hwc((g - s)^2 · w_s)/(H·W) + b_s))``
-    for G GT taps against G·K SR taps."""
+    """Plain PyTorch version of the kernel (fused_grouped_head's and
+    fused_grouped_token_head's math, in float32): (G, K)
+    ``relu(mean_s(sum_hwc((g - s)^2 · w_s)/(H·W) + b_s))``, or with T
+    tokens in place of H·W, for G GT taps against G·K SR taps."""
     p = _as_packed(head)
     g = taps_g[tap_names[0]].shape[0]
     scores = []
@@ -165,8 +181,8 @@ def plain_grouped_score(taps_g: Taps, taps_s: Taps, head,
         d = (taps_g[name].float()[:, None]
              - t.reshape(g, t.shape[0] // g, *t.shape[1:]).float())
         w, b = p.stage(j)
-        scores.append((d * d * w).sum(dim=(2, 3, 4))
-                      / (t.shape[1] * t.shape[2]) + b)
+        scores.append((d * d * w).sum(dim=tuple(range(2, d.dim())))
+                      / math.prod(t.shape[1:-1]) + b)
     return torch.relu(torch.stack(scores).mean(dim=0))
 
 
@@ -183,8 +199,10 @@ def plain_global_score(taps_a: Taps, taps_b: Taps, head,
 class Plan(NamedTuple):
     """How one launch walks its work: stages in ``order`` (largest tap
     first); per stage (in that order) ``chunk`` elements a work item,
-    ``chunks`` an image, ``vec`` (fixed channels a thread, 16-byte loads),
-    its first item ``item0`` and first partial ``part0``; an item streams
+    ``chunks`` an image, ``step`` (on the fixed-channel path, ``vec``:
+    the launch's step, 2048 elements, or 1536 by 192 threads, with a
+    thread's channels fixed and 16-byte loads; 0 off it), its first item
+    ``item0`` and first partial ``part0``; an item streams
     ``kb`` SR images (``kblocks`` k-blocks a group; ``kt`` the kernel's
     compile-time bound); ``items`` in all, ``grid`` blocks, ``partials``
     floats of scratch."""
@@ -192,7 +210,7 @@ class Plan(NamedTuple):
     order: Tuple[int, ...]
     chunk: Tuple[int, ...]
     chunks: Tuple[int, ...]
-    vec: Tuple[bool, ...]
+    step: Tuple[int, ...]
     item0: Tuple[int, ...]
     part0: Tuple[int, ...]
     kb: int
@@ -201,6 +219,10 @@ class Plan(NamedTuple):
     items: int
     grid: int
     partials: int
+
+    @property
+    def vec(self) -> Tuple[bool, ...]:
+        return tuple(s > 0 for s in self.step)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -219,9 +241,12 @@ def kernel_plan(stages: Sequence[Tuple[Tensor, Tensor]], sms: int) -> Plan:
     """The plan of one launch over checked (GT, SR) tap pairs on ``sms``
     SMs (at most 12 stages): one chunk size for every stage, near
     ``items / (sms x 4 blocks) = 8`` items a block, in whole unrolled
-    groups of four 2048-element steps and spread evenly over each image's
-    tap.  A stage takes the fixed-channel path when C is a multiple of 8
-    dividing 2048 and both taps are 16-byte aligned."""
+    groups of four steps and spread evenly over each image's tap.  The
+    fixed-channel path has one step a launch (the kernel's instance): 2048
+    elements if a stage's C divides it, else 1536 (192 of the 256 threads:
+    C = 768, the ViT tokens' width).  A stage takes it when C is a
+    multiple of 8 dividing that step and both taps are 16-byte aligned;
+    else the general path, in steps of 2048."""
     return _plan(*_shapes(stages), sms)
 
 
@@ -240,23 +265,29 @@ def _plan(shapes: tuple, aligned: tuple, sms: int) -> Plan:
     total = g * kblocks * sum(per_image)
     target = min(_MAX_CHUNK, _cdiv(_cdiv(total, cap * _ITEMS_PER_BLOCK),
                                    _UNROLL) * _UNROLL)
-    chunk, chunks, vec, item0, part0 = [], [], [], [], []
+    fits = [gt[-1] % 8 == 0 and ok for (gt, _), ok in zip(shapes, aligned)]
+    launch_step = next((v for v in _VEC_STEPS
+                        if any(f and v % gt[-1] == 0
+                               for f, (gt, _) in zip(fits, shapes))), 0)
+    chunk, chunks, step, item0, part0 = [], [], [], [], []
     items = parts = 0
     for s in order:
         n = per_image[s]
-        size = _cdiv(_cdiv(n, _cdiv(n, target)), _UNROLL) * _UNROLL
+        vstep = launch_step if (fits[s] and launch_step
+                                and launch_step % shapes[s][0][-1] == 0) else 0
+        unit = _UNROLL // _STEP * vstep if vstep else _UNROLL
+        size = _cdiv(_cdiv(n, _cdiv(n, target)), unit) * unit
         m = _cdiv(n, size)
-        c = shapes[s][0][-1]
         chunk.append(size)
         chunks.append(m)
-        vec.append(c % 8 == 0 and _STEP % c == 0 and aligned[s])
+        step.append(vstep)
         item0.append(items)
         part0.append(parts)
         items += g * kblocks * m
         parts += g * k * m
-    return Plan(order, tuple(chunk), tuple(chunks), tuple(vec), tuple(item0),
-                tuple(part0), kb, kblocks, 1 << (kb - 1).bit_length(), items,
-                min(items, cap), parts)
+    return Plan(order, tuple(chunk), tuple(chunks), tuple(step),
+                tuple(item0), tuple(part0), kb, kblocks,
+                1 << (kb - 1).bit_length(), items, min(items, cap), parts)
 
 
 # ---- the launch --------------------------------------------------------
@@ -295,7 +326,7 @@ def _descriptor(shapes: tuple, aligned: tuple, sms: int, dtype: int,
         gt = shapes[s][0]
         values += [math.prod(gt[1:]), plan.item0[i], plan.part0[i], gt[-1],
                    offsets[s], s, plan.chunk[i], plan.chunks[i],
-                   int(plan.vec[i]), gt[1] * gt[2]]
+                   plan.step[i], math.prod(gt[1:-1])]
     return plan, (ctypes.c_longlong * len(values))(*values)
 
 
@@ -352,7 +383,7 @@ def _on_card(device: torch.device, name: str) -> bool:
 
 def _score(wrapper, taps_g: Taps, taps_s: Taps, head,
            tap_names: Sequence[str]) -> Tensor:
-    """(G·K,) stages_cnn scores through the kernel or its plain version."""
+    """(G·K,) head scores through the kernel or its plain version."""
     stages = _pairs(taps_g, taps_s, tap_names)
     _check_stages(stages)
     p = _as_packed(head)
@@ -367,12 +398,12 @@ def _score(wrapper, taps_g: Taps, taps_s: Taps, head,
 
 def fused_stage_score(fa: Tensor, fb: Tensor, w: Tensor,
                       b: Union[Tensor, float]) -> Tensor:
-    """(N, H, W, C) feature pair + head weights (C,) float32 + bias →
-    (N,) float32 scores ``mean_hw((fa-fb)^2 · w) + b``.  On the card a
-    tensor ``b`` is read there (no host sync)."""
+    """(N, H, W, C) feature pair (or (N, T, W) tokens) + head weights (C,)
+    float32 + bias → (N,) float32 scores ``mean_hw((fa-fb)^2 · w) + b``.
+    On the card a tensor ``b`` is read there (no host sync)."""
     if fa.shape != fb.shape:
         raise ValueError(f"fa {tuple(fa.shape)} and fb {tuple(fb.shape)} "
-                         "must be equal (N, H, W, C) shapes")
+                         "must be equal (N, H, W, C) or (N, T, W) shapes")
     _check_stages([(fa, fb)])
     if tuple(w.shape) != (fa.shape[-1],) or w.dtype != torch.float32:
         raise ValueError(f"w must be float32 of shape ({fa.shape[-1]},), got "
@@ -381,7 +412,7 @@ def fused_stage_score(fa: Tensor, fb: Tensor, w: Tensor,
         raise ValueError(f"w must be contiguous on {fa.device}, got "
                          f"{w.device}")
     if not _on_card(fa.device, "fused_stage_score"):
-        return plain_stage_sums(fa, fb, w) / (fa.shape[1] * fa.shape[2]) + b
+        return plain_stage_sums(fa, fb, w) / math.prod(fa.shape[1:-1]) + b
     if isinstance(b, Tensor) and b.device == fa.device:
         bias = b.reshape(-1).float().contiguous()
         if bias.numel() != 1:
@@ -395,9 +426,9 @@ def fused_stage_score(fa: Tensor, fb: Tensor, w: Tensor,
 
 def fused_global_score(taps_a: Taps, taps_b: Taps, head,
                        tap_names: Sequence[str]) -> Tensor:
-    """The stages_cnn aggregation — per-stage score, mean over stages,
-    final ReLU, ConvHeadAggregator's numerics — in one launch: (N,)
-    float32.  ``head``: a ConvHeadAggregator or its ``pack_head``."""
+    """The head's aggregation — per-stage score, mean over stages, final
+    ReLU, ConvHeadAggregator's or TokenHeadAggregator's numerics — in one
+    launch: (N,) float32.  ``head``: an aggregator or its ``pack_head``."""
     return _score(fused_global_score, taps_a, taps_b, head, tap_names)
 
 

@@ -116,7 +116,7 @@ def build_training(model, is_map_model: bool, predicate, lr: float,
             trainable.append(p)
             tower_trains |= name.startswith("backbone.")
     frozen = not (tower_trains or has_lora(model))
-    fused = resolve_fused_tower(fused_tower, frozen)
+    fused = resolve_fused_tower(fused_tower, frozen, _backbone_kind(model))
     optimizer = torch.optim.Adam(trainable, lr=lr)
     tower = (frozen_tower(model.backbone, _backbone_kind(model), fused)
              if frozen else None)

@@ -92,7 +92,8 @@ def sweep_tower(cfg, backbone_params, generator: torch.Generator,
         load_backbone_params(backbone, cfg.backbone.kind, backbone_params)
     backbone.to(device).eval().requires_grad_(False)
     return frozen_tower(backbone, cfg.backbone.kind,
-                        resolve_fused_tower(fused_tower, True))
+                        resolve_fused_tower(fused_tower, True,
+                                            cfg.backbone.kind))
 
 
 @torch.no_grad()
@@ -219,7 +220,8 @@ def local_sweep_models(cfg, tcfg: TrainConfig, n: int, backbone_params,
         m.decoder.requires_grad_(True)
         models.append(m)
     tower = frozen_tower(backbone, cfg.backbone.kind,
-                         resolve_fused_tower(fused_tower, True))
+                         resolve_fused_tower(fused_tower, True,
+                                             cfg.backbone.kind))
     return models, tower
 
 

@@ -1,5 +1,6 @@
 """The port's kernels against their plain PyTorch versions on a CUDA card:
-the head (csrc/fused_head.cu), the bottleneck and the decoder level; the
+the head (csrc/fused_head.cu; conv and ViT token taps), the bottleneck and
+the decoder level; a ViT PairScorer against its module; the
 scoring service and the dual scorer on the card against the scorers they
 share kernels with.
 
@@ -106,12 +107,12 @@ def _check_head_kernel(stages, k, packed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
 @pytest.mark.parametrize("s", [1, 2, 4])
 def test_head_kernel_matches_plain(cuda_device, dtype, k, s):
     """The whole head in one launch: S stages (the main path's 56x56x256
     and 7x7x2048, C = 40 on the general path, a one-chunk 8x8x32), K SR
-    images a GT image."""
+    images a GT image (K = 8: the instance streaming the most)."""
     g = torch.Generator(device=cuda_device).manual_seed(s * 10 + k)
     shapes = _HEAD_SHAPES[:s]
     stages = [(torch.randn((2, *sh), device=cuda_device, generator=g)
@@ -158,6 +159,78 @@ def test_head_kernel_twelve_stages_matches_plain(cuda_device, dtype, k):
                .abs().to(dtype)) for sh in shapes]
     packed = tfh.pack_head(_head([sh[-1] for sh in shapes], cuda_device))
     _check_head_kernel(stages, k, packed)
+
+
+def _token_head(width, n_layers, shared, device):
+    """A TokenHeadAggregator with nonnegative weights and biases +0.25."""
+    from srsem_torch.models.global_models import TokenHeadAggregator
+
+    head = TokenHeadAggregator(width, n_layers, shared=shared)
+    head.reset_parameters(torch.Generator().manual_seed(n_layers))
+    with torch.no_grad():
+        for layer in head.linears():
+            layer.weight.abs_()
+            layer.bias.fill_(0.25)
+    return head.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_layer", "shared"])
+@pytest.mark.parametrize("n_stages", [4, 12])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_token_head_kernel_matches_plain(cuda_device, dtype, shared,
+                                         n_stages, k):
+    """The ViT token head in one launch: (N, 197, 768) token taps (the
+    1536-element fixed-channel path, which the plan takes), stages_vit's 4
+    and wperlay_vit's 12, per-layer or one shared head (single_lin_vit,
+    packed once a stage), pairwise, K = 4 and K = 8, at batch 2."""
+    g = torch.Generator(device=cuda_device).manual_seed(n_stages + k)
+    stages = [(torch.randn((2, 197, 768), device=cuda_device, generator=g)
+               .abs().to(dtype),
+               torch.randn((2 * k, 197, 768), device=cuda_device, generator=g)
+               .abs().to(dtype)) for _ in range(n_stages)]
+    plan = tfh.kernel_plan(stages, sms=132)
+    assert all(plan.vec) and set(plan.step) == {1536}
+    packed = tfh.pack_head(_token_head(768, n_stages, shared, cuda_device))
+    assert packed.channels == (768,) * n_stages
+    blocks = packed.w.reshape(n_stages, 768)
+    assert torch.equal(blocks[0], blocks[-1]) == shared
+    _check_head_kernel(stages, k, packed)
+
+
+@pytest.mark.cuda
+def test_vit_pair_scorer_kernel_path_matches_module(cuda_device):
+    """PairScorer on the full-width ViT-B/16 (224 px, float32, seeded
+    weights, stages_vit): the tower as the module, the head through the
+    kernel, one head launch a batch, against the module's own forward
+    (1e-4: the head's float32 sums in another order)."""
+    from srsem_torch.config import BackboneConfig, GlobalModelConfig
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.models.global_models import make_global_model
+
+    cfg = GlobalModelConfig(backbone=BackboneConfig(
+        kind="vit_clip", image_size=224, compute_dtype="float32"),
+        head="stages_vit", depth=3)
+    model = make_global_model(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in model.aggregator.w_layers:
+            layer.weight.abs_().mul_(100.0)
+            layer.bias.add_(1.0)
+    scorer = PairScorer(cfg, model, batch_size=4)
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 256, (4, 224, 224, 3), dtype=np.uint8)
+    b = np.clip(a + rng.integers(-20, 21, a.shape), 0, 255).astype(np.uint8)
+    before = tfh.fused_global_score.launches
+    got = scorer.score_arrays(a, b)
+    torch.cuda.synchronize()
+    assert tfh.fused_global_score.launches == before + 1
+    pre = scorer.preprocess
+    with torch.inference_mode():
+        want = model(pre.device_normalize(torch.tensor(a, device=cuda_device)),
+                     pre.device_normalize(torch.tensor(b, device=cuda_device)))
+    assert bool((want > 1.0).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

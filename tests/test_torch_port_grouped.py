@@ -113,16 +113,27 @@ def test_grouped_scorer_matches_pairwise(port_model, k):
 
 
 def test_grouped_scorer_heads(port_model):
-    """The MLP heads have no grouped form (JAX's ValueError); the ViT heads
-    wait for the ViT tower (A10); wperlay_cnn builds on the CLIP tower."""
+    """The MLP heads have no grouped form (JAX's ValueError); a ViT head
+    needs the ViT tower (a ValueError on a ResNet) and builds on it, its
+    head packed for the kernel; wperlay_cnn builds on the CLIP tower."""
     import dataclasses
 
     for head, err, match in (("emb_lin", ValueError, "use PairScorer"),
-                             ("stages_cnn_pooling", ValueError, "PairScorer"),
-                             ("stages_vit", NotImplementedError, "A10")):
+                             ("stages_cnn_pooling", ValueError, "PairScorer")):
         with pytest.raises(err, match=match):
             GroupedPairScorer(dataclasses.replace(CFG, head=head), port_model,
                               k=2, device="cpu")
+    with pytest.raises(ValueError, match="ViT tower"):
+        make_global_model(dataclasses.replace(CFG, head="stages_vit"))
+    vit = dataclasses.replace(
+        CFG, head="single_lin_vit", depth=1,
+        backbone=BackboneConfig(kind="vit_clip", image_size=64,
+                                compute_dtype="float32", vit_width=96,
+                                vit_depth=4, vit_heads=4))
+    scorer = GroupedPairScorer(vit, make_global_model(vit), k=2, device="cpu")
+    assert scorer.pairs.head.channels == (96, 96)
+    w = scorer.pairs.head.w.reshape(2, 96)
+    assert torch.equal(w[0], w[1])
     clip = dataclasses.replace(
         CFG, head="wperlay_cnn", depth=11,
         backbone=dataclasses.replace(CFG.backbone, kind="resnet50_clip"))

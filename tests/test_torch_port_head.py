@@ -11,6 +11,8 @@ finish) is held against the plain version.  The card tests are in
 tests/test_torch_port_cuda.py.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,10 +249,12 @@ def _emulate(stages, k, packed, plan, per_stage=False, b_const=0.0):
     ``plan``: each item decoded from its index as the kernel does, the GT
     chunk read once against its k-block's SR chunks, per-thread sums (on
     the fixed-channel path each thread's 8 channels stay fixed, which is
-    asserted), the block's sum written to its partial (each exactly once),
-    then the finish: per pair, stage by stage, then chunk by chunk.
-    Returns the (G·K,) scores."""
+    asserted; a block is the launch's step / 8 threads: 256 for 2048
+    elements, 192 for 1536), the block's sum written to its partial (each
+    exactly once), then the finish: per pair, stage by stage, then chunk
+    by chunk.  Returns the (G·K,) scores."""
     g = stages[0][0].shape[0]
+    threads = (max(plan.step) or 2048) // 8
     part = torch.full((plan.partials,), float("nan"))
     written = torch.zeros(plan.partials, dtype=torch.int64)
     lanes8 = torch.arange(8)
@@ -269,23 +273,25 @@ def _emulate(stages, k, packed, plan, per_stage=False, b_const=0.0):
         sr = sr_t.reshape(g * k, -1)[grp * k + k0: grp * k + k0 + kn,
                                      begin: begin + length].float()
         w = packed.w[packed.offsets[s]: packed.offsets[s] + c]
-        acc = torch.zeros(kn, 256)
+        acc = torch.zeros(kn, threads)
         done = 0
         if plan.vec[i]:
-            steps = length // 2048
-            done = steps * 2048
-            chans = (torch.arange(256)[:, None] * 8) % c + lanes8  # (256, 8)
-            elems = begin + torch.arange(done).reshape(steps, 256, 8)
-            assert torch.equal(elems % c, chans.expand(steps, 256, 8))
-            d = gt[:done].reshape(steps, 256, 8) - sr[:, :done].reshape(
-                kn, steps, 256, 8)
+            step = plan.step[i]
+            assert step == threads * 8
+            steps = length // step
+            done = steps * step
+            chans = (torch.arange(threads)[:, None] * 8) % c + lanes8
+            elems = begin + torch.arange(done).reshape(steps, threads, 8)
+            assert torch.equal(elems % c, chans.expand(steps, threads, 8))
+            d = gt[:done].reshape(steps, threads, 8) - sr[:, :done].reshape(
+                kn, steps, threads, 8)
             acc += (d * d * w[chans]).sum(dim=(1, 3))
         e = torch.arange(done, length)
         d = gt[done:] - sr[:, done:]
-        acc.index_add_(1, (e - done) % 256, d * d * w[(begin + e) % c])
+        acc.index_add_(1, (e - done) % threads, d * d * w[(begin + e) % c])
         idx = (plan.part0[i] + (grp * k + k0 + torch.arange(kn))
                * plan.chunks[i] + chunk)
-        part[idx] = acc.reshape(kn, 8, 32).sum(dim=2).sum(dim=1)
+        part[idx] = acc.reshape(kn, threads // 32, 32).sum(dim=2).sum(dim=1)
         written[idx] += 1
     assert (written == 1).all()
     out = torch.empty(g * k)
@@ -294,7 +300,7 @@ def _emulate(stages, k, packed, plan, per_stage=False, b_const=0.0):
         for i, s in enumerate(plan.order):
             n = plan.chunks[i]
             mine = part[plan.part0[i] + q * n: plan.part0[i] + (q + 1) * n]
-            hw = stages[s][0].shape[1] * stages[s][0].shape[2]
+            hw = math.prod(stages[s][0].shape[1:-1])  # H·W, or T tokens
             total = total + sum(mine.unbind(), torch.zeros(())) / hw + (
                 b_const if per_stage else packed.b[s])
         out[q] = total if per_stage else torch.relu(total / len(stages))

@@ -299,7 +299,8 @@ def test_mlp_init_is_truncated_kaiming_fan_out():
 
 def test_refusals():
     """fused_decoder=True needs a CluUnet (JAX's ValueError); wperlay_cnn
-    needs the CLIP tower and depth <= 11; the ViT heads wait for A10."""
+    needs the CLIP tower and depth <= 11; the ViT heads need the ViT
+    tower."""
     cfg = _cfg("resnet50", "stages_cnn")
     model = make_global_model(cfg)
     with pytest.raises(ValueError, match="fused_decoder"):
@@ -315,7 +316,7 @@ def test_refusals():
     with pytest.raises(ValueError, match="unknown global head"):
         GlobalPairScorer(_cfg("resnet50", "nope"))
     for head in ("single_lin_vit", "stages_vit", "wperlay_vit"):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(ValueError, match="ViT tower"):
             GlobalPairScorer(_cfg("resnet50_clip", head))
     assert wperlay_taps(0) == ("stages.3.2.act",)
     assert len(wperlay_taps(11)) == 12 and wperlay_taps(11)[0] == "stages.0.0.act"

@@ -121,5 +121,10 @@ def test_load_torch_resnet50_drops_classifier(towers):
 
 
 def test_make_backbone_rejects_unported_kinds():
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_backbone(BackboneConfig(kind="vit_clip"))
+    """Every kind of the JAX package's is ported (the ViT too); an unknown
+    kind raises."""
+    with pytest.raises(ValueError, match="unknown backbone kind"):
+        make_backbone(BackboneConfig(kind="convnext"))
+    vit = make_backbone(BackboneConfig(kind="vit_clip", vit_width=96,
+                                       vit_depth=2, vit_heads=4))
+    assert type(vit).__name__ == "ClipViT" and len(vit.blocks) == 2

@@ -496,14 +496,14 @@ def test_cli_serve_stdio(paths, tmp_path):
 
 
 def test_cli_serve_refuses_without_card_and_vit_heads():
-    """``serve`` runs on cuda unless given --device cpu; the ViT heads wait
-    for the ViT tower (ROADMAP A10)."""
+    """``serve`` runs on cuda unless given --device cpu; a ViT head needs
+    ``--backbone vit_clip`` (the default ResNet tower refuses it)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     proc = _cli(["serve", "--image-size", "32", "--warmup-k"])
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr
     proc = _cli(["serve", "--device", "cpu", "--head", "stages_vit"])
-    assert proc.returncode != 0 and "ROADMAP A10" in proc.stderr
+    assert proc.returncode != 0 and "ViT tower" in proc.stderr
 
 
 def test_profile_flag_writes_trace(tmp_path):
