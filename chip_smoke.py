@@ -116,7 +116,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
              5 and 64 (global) and 80 (CLU): steps/s, pairs/s or maps/s,
              peak memory, losses and a profile of three steps; one
              float32 train step through the fused tower against the module
-             tower (loss rtol 1e-5, head atol 1e-6).
+             tower (loss rtol 1e-5, head atol 1e-6); the SRCC rehearsal
+             at 224 px (tests/test_srcc_rehearsal.py's planted signal:
+             40 train and 16 validation pairs, batch 8, 30 epochs,
+             stages_cnn depth 2): the port's ``train_global`` (kernel
+             tower) beside a plain-module loop (module tower, the same
+             head and Adam, the same batches), in float32 (TF32 off) and
+             in bf16; each SRCC and the two deltas (fails if the float32
+             delta exceeds 0.005; bf16 recorded).
 10. finetune — tower training at full width from the train phase's
              tower: the CLU at batch 80 with LoRA (rank 32) on every tower
              conv and with the whole tower trained under activation
@@ -157,7 +164,33 @@ Phases (each prints one JSON line; any failure exits non-zero):
              one corrupt file each); a frozen and an enc_ft train step at
              batch 5 (ms a step); the plain attention against
              ``F.scaled_dot_product_attention`` on the same q, k, v.
-13. result — a ``timing`` line (seconds of each phase), the card line,
+13. nr_train — ``train-nr-iqa`` at its defaults (224 px, batch 8,
+             float32 tower) for one epoch over 32 images (three steps and
+             a validation batch: four float32 tower passes of 8), the
+             counts reset just before and read just after; ms a train
+             step; the float32 GAP features and scores through the kernel
+             tower against the module tower (1e-3).
+14. iqa    — ``folder-metrics`` over 64 synthetic pairs (224 px) at
+             batch 32 with LPIPS alex and the nr_train phase's NR-IQA
+             head (bf16 tower: two passes of 32), then the pyramid LPIPS
+             (``make_pyramid_lpips``: two 2N = 64 passes), the counts
+             reset before the first and read after the second; pairs/s
+             of each metric set in the steady state (at least 5 s after a
+             warm pass; set-up timed apart); four pairs in float32 on the
+             card against the CPU (1e-3 + 1e-3·|x|; the pyramid on a
+             float32 copy of its tower, 1e-3·|x|); a corrupt SR file
+             gives a NaN row.
+15. text   — ``score_caption_pairs`` over 2,048 captions through a seeded
+             full-width MiniLM (6 layers, 384; WordPiece on a written
+             30,522-entry vocab.txt), ``embed_image_folder`` over 128
+             images (one corrupt: a NaN row) at batch 64 through the CLIP
+             ResNet-50 (bf16: two passes of 64) and ``score_c2i`` with the
+             full-width CLIP text tower; counts reset before the captions
+             and read after the C2I scores; captions/s, images/s in the
+             steady state (as iqa's; set-up timed apart); MiniLM
+             and float32 C2I embeddings on the card against the CPU
+             (1e-3).
+16. result — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
              the paths that use it, worst bf16 error, and times summed
              over one scored batch's launches of each path at that
@@ -165,8 +198,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
              and times: global, clu, wperlay, serve (one score and one
              maps batch), dual, train (one global and one CLU train
              step), sweeps (the train path's tower passes at 10 and 160
-             images, times ``SWEEP_PASSES``), vit (one scored batch); the
-             head's entry, ``fused_stage_score``
+             images, times ``SWEEP_PASSES``), vit (one scored batch),
+             nr_train (its four float32 passes of 8, timed in float32),
+             iqa (the clu and the global path's passes), text (the
+             global path's); the head's entry, ``fused_stage_score``
              after the TPU kernel it replaces, counts the whole-head
              launches of ``fused_global_score`` and, on the serve path,
              ``fused_grouped_score``), the device line.
@@ -298,6 +333,17 @@ BOTTLENECK_SHAPES["train"] = [((n, h, h, c), wd, k)
                               for (h, c, wd, k) in ((28, 512, 128, 3),
                                                     (14, 1024, 256, 5),
                                                     (7, 2048, 512, 2))]
+# The nr_train path: ``train-nr-iqa`` at its batch of 8 over NR_IMAGES
+# images for one epoch (three train steps, one validation batch of 8),
+# one float32 ImageNet tower pass a batch (the trainer's default tower
+# dtype, timed in float32: ``TIMED_DTYPE``).
+NR_IMAGES, NR_BATCH = 32, 8
+NR_PASSES = NR_IMAGES // NR_BATCH
+BOTTLENECK_SHAPES["nr_train"] = [((NR_BATCH, h, h, c), wd, k * NR_PASSES)
+                                 for (h, c, wd, k) in ((28, 512, 128, 3),
+                                                       (14, 1024, 256, 5),
+                                                       (7, 2048, 512, 2))]
+TIMED_DTYPE = {"nr_train": "float32"}
 # Checked and not on the main path: ragged H and W (a ragged last flat
 # tile, ragged patches, an odd patch count).
 BOTTLENECK_SHAPES["global"].append(((9, 13, 11, 1024), 256, 0))
@@ -305,6 +351,7 @@ TILED_SHAPES = {path: [((n, 56, 56, 256), 64, 4)]
                 for path, n in {**PATH_BATCH, "serve": SERVE_G}.items()}
 TILED_SHAPES["train"] = [((10, 56, 56, 256), 64, 2),
                          ((160, 56, 56, 256), 64, 2)]
+TILED_SHAPES["nr_train"] = [((NR_BATCH, 56, 56, 256), 64, 2 * NR_PASSES)]
 # CLU decoder levels at batch 32, 224 px: (n, h, w, cd, cu, cm, co,
 # final_kernel, row tile, wrapper calls per scored batch).  The last two
 # rows are checked and not on the default path (v2's odd skip width;
@@ -691,7 +738,11 @@ def check_kernels(torch):
             add(name, path, errs[str(torch.bfloat16)], 0, 0, 0, 0,
                 "operations", 0)
             continue
-        # Timed as the tower calls it: weights packed once (fold_tower).
+        # Timed as the tower calls it: weights packed once (fold_tower),
+        # in the path's dtype (bf16, the serving dtype, unless
+        # TIMED_DTYPE says otherwise).
+        x = randn(*shape).to(getattr(torch, TIMED_DTYPE.get(path,
+                                                            "bfloat16")))
         packed = fb.pack_weights(ws, x.dtype)
         ms = cuda_ms(torch, lambda: wrapper(x, packed, **kw), 20)
         conv_ms = launch_ms(torch, lambda: wrapper(x, packed, **kw),
@@ -713,13 +764,15 @@ def check_kernels(torch):
 
         lib = cuda_ms(torch, chain, 20)
         n, h, w_, c = shape
+        esz = x.element_size()
         flops = 2 * n * h * w_ * (c * wd + 9 * wd * wd + wd * c)
-        nbytes = (2 * x.numel() * 2 + 2 * (2 * c * wd + 9 * wd * wd)
+        nbytes = (2 * x.numel() * esz + esz * (2 * c * wd + 9 * wd * wd)
                   + 4 * (2 * wd + c))
-        bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
+        bms, by = bound(nbytes, flops, BF16_TC_FLOPS if esz == 2
+                        else F32_FLOPS)
         emit("kernel", on_main_path=True, ms=ms, conv_ms=conv_ms,
              plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-             tflops=flops / ms / 1e9, **line)
+             tflops=flops / ms / 1e9, timed_dtype=str(x.dtype), **line)
         add(name, path, errs[str(torch.bfloat16)], ms, plain, lib, bms, by,
             count)
         if path == "train":  # the sweeps path's passes run these shapes
@@ -812,18 +865,29 @@ def check_kernels(torch):
         clu = summary[(name, "clu")]
         summary[(name, "dual")] = clu
         own = summary.get((name, "serve"))
-        if own is None:
-            summary[(name, "serve")] = clu
-            continue
-        by = dict(own["by"])
-        for b, v in clu["by"].items():
-            by[b] = by.get(b, 0.0) + v
-        summary[(name, "serve")] = {
-            **{key: own[key] + clu[key] for key in (
-                "launches", "ms", "plain_ms", "library_ms", "bound_ms")},
-            "max_abs_err": max(own["max_abs_err"], clu["max_abs_err"]),
-            "by": by}
+        summary[(name, "serve")] = clu if own is None else combine(own, clu)
+    # The iqa path's folder-metrics run scores its 64 eval images in two
+    # NR-IQA tower passes of 32 (the CLU path's two passes at batch 32),
+    # its pyramid-LPIPS run two 2N = 64 passes (the global path's); the
+    # text path's C2I folder two CLIP tower passes of 64 (the global
+    # path's).
+    for name in BOTTLENECK:
+        summary[(name, "iqa")] = combine(summary[(name, "clu")],
+                                         summary[(name, "global")])
+        summary[(name, "text")] = summary[(name, "global")]
     return summary
+
+
+def combine(*parts: dict) -> dict:
+    """check_kernels summaries of launch sets run one after the other: the
+    launches and times added, the worst error."""
+    by: dict = {}
+    for part in parts:
+        for b, v in part["by"].items():
+            by[b] = by.get(b, 0.0) + v
+    return {**{key: sum(p[key] for p in parts) for key in (
+        "launches", "ms", "plain_ms", "library_ms", "bound_ms")},
+        "max_abs_err": max(p["max_abs_err"] for p in parts), "by": by}
 
 
 def randomize_bn(torch, np, model, rng) -> None:
@@ -2542,7 +2606,116 @@ def run_train(torch, np, card: str):
          losses={"fused": lf, "module": lm}, loss_rel_err=rel,
          head_param_max_abs_err=perr,
          tolerance="loss rtol 1e-5, head params atol 1e-6")
+    del fused, module, steps
+    run_rehearsal(torch, np, card, tower)
     return launches
+
+
+# The SRCC rehearsal (tests/test_srcc_rehearsal.py's planted signal) at
+# 224 px: 40 train and 16 validation pairs, batch 8, 30 epochs.
+REHEARSAL = {"train": 40, "val": 16, "batch": 8, "epochs": 30}
+
+
+def rehearsal_batches(np, n: int, rng) -> list:
+    """GT textures in [0,1]; each SR the GT blended with a pixel-permuted
+    copy at strength alpha plus noise; label alpha; full batches."""
+    gt = rng.uniform(0, 1, (n, IMAGE, IMAGE, 3)).astype(np.float32)
+    alpha = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    perm = np.stack([rng.permutation(g.reshape(-1, 3)).reshape(g.shape)
+                     for g in gt])
+    a = alpha[:, None, None, None]
+    sr = np.clip((1 - a) * gt + a * perm
+                 + 0.02 * rng.standard_normal(gt.shape), 0, 1)
+    b = REHEARSAL["batch"]
+    return [(((gt[i:i + b], sr[i:i + b].astype(np.float32)), alpha[i:i + b]),
+             np.ones((b,), np.float32)) for i in range(0, n - b + 1, b)]
+
+
+def run_rehearsal(torch, np, card: str, tower: dict) -> None:
+    """The train phase's SRCC rehearsal: the port's ``train_global``
+    (stages_cnn depth 2 on the train phase's CLIP tower, the fused kernel
+    tower) beside a plain-module loop (the module tower, the same head
+    and Adam at 1e-4, the same batches), in float32 (TF32 off) and in
+    bf16; each run's validation SRCC and the two deltas.  Fails if the
+    float32 delta exceeds 0.005 (the north star) or an SRCC is not
+    finite; the bf16 delta is recorded, not gated."""
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        TrainConfig,
+    )
+    from srsem_torch.models.global_models import make_global_model
+    from srsem_torch.train.logging import MultiWriter
+    from srsem_torch.train.loop import batch_to_device, train_global
+    from srsem_torch.train.metrics import srcc
+    from srsem_torch.train.steps import masked_mse
+    from srsem_torch.utils.convert import jax_tower_params, jax_trainable_params
+
+    dev = torch.device(TRAIN_DEVICE)
+    rng = np.random.default_rng(31)
+    train = rehearsal_batches(np, REHEARSAL["train"], rng)
+    val = rehearsal_batches(np, REHEARSAL["val"], rng)
+    targets = np.concatenate([y for ((_, _), y), _ in val])
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = GlobalModelConfig(backbone=BackboneConfig(
+            kind="resnet50_clip", image_size=IMAGE, compute_dtype=dtype),
+            head="stages_cnn", depth=2)
+        model = make_global_model(cfg, torch.Generator().manual_seed(12))
+        model.backbone.load_state_dict(tower)
+        # The test's heads: torch's default Conv2d init, biases in [0.05,
+        # 0.15] (a live final ReLU).
+        g = torch.Generator().manual_seed(13)
+        with torch.no_grad():
+            for conv in model.aggregator.w_layers:
+                bound_ = conv.weight[0].numel() ** -0.5
+                conv.weight.uniform_(-bound_, bound_, generator=g)
+                conv.bias.uniform_(0.05, 0.15, generator=g)
+        variables = {"params": {
+            "backbone": jax_tower_params(model.backbone,
+                                         model.backbone.state_dict(),
+                                         lambda t: t),
+            **jax_trainable_params(model)[0]}}
+        t0 = time.perf_counter()
+        res = train_global(cfg, TrainConfig(
+            lr=1e-4, batch_size=REHEARSAL["batch"],
+            epochs=REHEARSAL["epochs"], log_every=10 ** 6), train, val,
+            writer=MultiWriter(), variables=variables, device=dev)
+        t_kernel = time.perf_counter() - t0
+
+        plain = model.to(dev)  # make_global_model froze every parameter
+        head = [p.requires_grad_(True) for n, p in plain.named_parameters()
+                if not n.startswith("backbone.")]
+        opt = torch.optim.Adam(head, lr=1e-4)
+        t0 = time.perf_counter()
+        for _ in range(REHEARSAL["epochs"]):
+            for batch in train:
+                a, b, y, m = batch_to_device(batch, dev)
+                loss = masked_mse(plain(a, b), y, m)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+        with torch.no_grad():
+            preds = np.concatenate([
+                plain(*batch_to_device(batch, dev)[:2]).float().cpu().numpy()
+                for batch in val])
+        t_plain = time.perf_counter() - t0
+        out[dtype] = {"srcc_kernel_tower": res.val_metrics["srcc"],
+                      "srcc_module_tower": srcc(preds, targets),
+                      "seconds": {"kernel_tower": t_kernel,
+                                  "module_tower": t_plain}}
+        out[dtype]["delta"] = abs(out[dtype]["srcc_kernel_tower"]
+                                  - out[dtype]["srcc_module_tower"])
+        del model, plain, opt, res
+    emit("train", step="srcc_rehearsal_224", **REHEARSAL, image=IMAGE,
+         f32_tf32_off=out["float32"], bf16=out["bfloat16"],
+         srcc_delta={"float32": out["float32"]["delta"],
+                     "bfloat16": out["bfloat16"]["delta"]},
+         gate="float32 delta <= 0.005; bf16 recorded", card=card)
+    vals = [v for d in out.values() for v in
+            (d["srcc_kernel_tower"], d["srcc_module_tower"])]
+    if not np.isfinite(vals).all() or out["float32"]["delta"] > 0.005:
+        raise AssertionError(f"SRCC rehearsal: {out}")
 
 
 # The finetune phase: the reference's LoRA rank on every tower conv, at
@@ -3321,6 +3494,435 @@ def run_vit(torch, np, card: str):
     return launches
 
 
+# The iqa path: folder-metrics over IQA_PAIRS pairs at batch IQA_BATCH;
+# the text path: N_CAPTIONS captions (each in one of N_CAPTIONS / 2
+# pairs), then C2I_IMAGES images (one corrupt) at batch C2I_BATCH.
+IQA_PAIRS, IQA_BATCH = 64, 32
+RATE_WINDOW_S = 5.0  # the least window a steady-state rate is timed over
+N_CAPTIONS, C2I_IMAGES, C2I_BATCH = 2048, 128, 64
+_WORK: dict = {}
+
+
+def work_dir() -> Path:
+    """A temporary directory the nr_train, iqa and text phases share (the
+    iqa phase scores with the nr_train phase's checkpoint), removed when
+    the process exits."""
+    if not _WORK:
+        _WORK["dir"] = tempfile.TemporaryDirectory()
+    return Path(_WORK["dir"].name)
+
+
+def smooth_images(np, n: int, size: int, seed: int):
+    """``n`` smooth uint8 images (bicubic upsampling of 8x8 noise)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    return [np.asarray(Image.fromarray(
+        rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).resize(
+        (size, size), Image.BICUBIC)) for _ in range(n)]
+
+
+def run_nr_train(torch, np, card: str):
+    """Phase 13 (nr_train): ``train-nr-iqa`` at its defaults (224 px,
+    batch 8, lr 1e-3, float32 tower) for one epoch over NR_IMAGES images:
+    three train steps and one validation batch, one tower pass each, with
+    the launch counts reset just before and read just after (the
+    nr_train path).  Its checkpoint (the head, the tower seed, the port's
+    tower marker) serves the iqa phase.  ms a train step: the difference
+    of a four-epoch and a one-epoch ``train_nr_iqa`` over nine steps
+    (degrade, normalize, tower, head, Adam; the host's batch copy).  Card
+    check: the float32 GAP features and scores through the kernel tower
+    against the module tower (TF32 off, 1e-3 of the largest).  Returns
+    the path's launches."""
+    from PIL import Image
+
+    from srsem_torch.backbones.resnet import IMAGENET_STAGE_TAPS
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.train.checkpoint import restore_checkpoint
+    from srsem_torch.train.nr_iqa import (
+        load_nr_iqa_head,
+        normalize_imagenet,
+        train_nr_iqa,
+    )
+
+    dev = torch.device(TRAIN_DEVICE)
+    folder = work_dir() / "nr_images"
+    folder.mkdir()
+    for i, img in enumerate(smooth_images(np, NR_IMAGES, 256, 21)):
+        Image.fromarray(img).save(folder / f"{i:04d}.png")
+    ck = work_dir() / "nr_ckpt"
+    zero_launches(fb)
+    t0 = time.perf_counter()
+    out = cli_json(["train-nr-iqa", str(folder), "--checkpoint-dir", str(ck),
+                    "--epochs", "1"])
+    launches = read_launches(torch, fb)
+    seconds = time.perf_counter() - t0
+    raw = restore_checkpoint(str(ck))
+    want = {k: NR_PASSES * v for k, v in PASS_CALLS.items()}
+    if (launches != want or out["steps"] != NR_PASSES - 1
+            or not np.isfinite([out["final_loss"], out["val_mse"]]).all()
+            or raw.get("tower_init") != "torch"):
+        raise AssertionError(f"train-nr-iqa: {out}, launched {launches} "
+                             f"(want {want}), checkpoint keys {sorted(raw)}")
+    emit("nr_train", step="train_nr_iqa_cli", batch=NR_BATCH,
+         images=NR_IMAGES, result=out, seconds=seconds, launches=launches,
+         checkpoint_keys=sorted(raw), card=card)
+    _WORK["nr_ckpt"] = ck
+
+    imgs = np.stack([np.asarray(Image.open(p).convert("RGB").resize(
+        (IMAGE, IMAGE), Image.BICUBIC), np.float32) / 255.0
+        for p in sorted(folder.iterdir())])
+    took = {}
+    for epochs in (1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_nr_iqa(imgs, epochs=epochs, batch_size=NR_BATCH,
+                           device=dev)
+        torch.cuda.synchronize()
+        took[epochs] = time.perf_counter() - t0
+    steps = 3 * (NR_PASSES - 1)
+    ms = (took[4] - took[1]) / steps * 1e3
+    if not np.isfinite(res.losses + [res.val_mse]).all():
+        raise AssertionError(f"train_nr_iqa losses {res.losses}")
+    emit("nr_train", step="throughput", batch=NR_BATCH, ms_per_train_step=ms,
+         images_per_s=NR_BATCH / ms * 1e3, seconds=took,
+         losses=res.losses, val_mse=res.val_mse, card=card)
+
+    model = load_nr_iqa_head(str(ck), torch.float32).to(dev).eval()
+    x = normalize_imagenet(torch.from_numpy(imgs[:NR_BATCH]).to(dev))
+    with torch.no_grad():
+        got = model.features(x)
+        _, taps = model.backbone(x)
+        plain = torch.cat([taps[n].float().mean(dim=(1, 2))
+                           for n in IMAGENET_STAGE_TAPS], dim=-1)
+        errs = {"features": float((got - plain).abs().max()),
+                "scores": float((model.head(got) - model.head(plain))
+                                .abs().max())}
+        scale = {"features": float(plain.abs().max()),
+                 "scores": float(model.head(plain).abs().max())}
+    if any(errs[k] > 1e-3 * max(scale[k], 1.0) for k in errs):
+        raise AssertionError(f"f32 NR-IQA kernel tower vs module: {errs} "
+                             f"(scale {scale})")
+    emit("nr_train", step="f32_kernel_vs_module_tower", max_abs_err=errs,
+         scale=scale, tolerance="1e-3 of max(largest value, 1)")
+    return launches
+
+
+def iqa_folders(np, root: Path, n: int, seed: int):
+    """GT (JPEG, 256x240) and SR (PNG: the GT with noise) folders of ``n``
+    pairs; returns (gt_dir, sr_dir)."""
+    from PIL import Image
+
+    gt, sr = root / "gt", root / "sr"
+    gt.mkdir(parents=True)
+    sr.mkdir()
+    rng = np.random.default_rng(seed)
+    for i, img in enumerate(smooth_images(np, n, 256, seed)):
+        img = img[:, :240]
+        noisy = np.clip(img + rng.normal(0, 12, img.shape), 0, 255)
+        Image.fromarray(img).save(gt / f"{i:04d}.jpg", quality=90)
+        Image.fromarray(noisy.astype(np.uint8)).save(sr / f"{i:04d}.png")
+    return gt, sr
+
+
+def steady_rate(torch, fn, items: int):
+    """Items a second of ``fn`` (one call handles ``items``) in the steady
+    state, its set-up and first call outside the window: one warm call,
+    then calls until RATE_WINDOW_S seconds have passed.  Returns (rate,
+    calls, seconds)."""
+    fn()
+    torch.cuda.synchronize()
+    calls, t0 = 0, time.perf_counter()
+    while True:
+        fn()
+        calls += 1
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if seconds >= RATE_WINDOW_S:
+            return items * calls / seconds, calls, seconds
+
+
+def run_iqa(torch, np, card: str):
+    """Phase 14 (iqa): ``folder-metrics`` over IQA_PAIRS pairs (resized to
+    224) at batch 32 with LPIPS alex (seeded) and the NR-IQA head of the
+    nr_train phase's checkpoint (bf16 tower, two passes of 32 eval
+    images), then ``run_folder_sweep`` with ``make_pyramid_lpips()`` (two
+    2N = 64 tower passes); the launch counts reset just before the first
+    and read just after the second (the iqa path).  Those runs' seconds
+    include the CLI's set-up; the pairs/s are the steady state's
+    (``steady_rate``) of an ``ImageQualityMetrics`` built once (its
+    set-up timed apart) over the same pairs, with each metric.  Card
+    checks: every row finite, SSIM in (-1, 1]; on four pairs the float32
+    columns on the card (TF32 off) against the CPU's plain path (1e-3 +
+    1e-3·|x|), the NR head in float32, and the pyramid distance on a
+    float32 copy of its tower (1e-3·|x| + 1e-9: the distances are about
+    1e-4); a corrupt SR file a NaN row (an uncounted run).  Returns the
+    path's launches."""
+    from PIL import Image
+
+    from srsem_torch.backbones.resnet import ImageNetResNet50
+    from srsem_torch.eval.folder_metrics import (
+        CSV_COLUMNS,
+        METRIC_COLUMNS,
+        ImageQualityMetrics,
+        make_pyramid_lpips,
+        read_metrics_csv,
+        run_folder_sweep,
+    )
+    from srsem_torch.eval.nr_iqa import NrIqaScorer
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.train.nr_iqa import load_nr_iqa_head
+
+    dev = torch.device(TRAIN_DEVICE)
+    ck = str(_WORK["nr_ckpt"])
+    gt, sr = iqa_folders(np, work_dir() / "iqa", IQA_PAIRS, 22)
+    t0 = time.perf_counter()
+    pyramid = make_pyramid_lpips(device=dev)
+    setup = {"pyramid": time.perf_counter() - t0}
+    zero_launches(fb)
+    t0 = time.perf_counter()
+    out = cli_json(["folder-metrics", str(gt), str(sr), "--batch-size",
+                    str(IQA_BATCH), "--koniqpp-checkpoint", ck])
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    swept = run_folder_sweep(str(gt), [str(sr)], ImageQualityMetrics(
+        batch_size=IQA_BATCH, lpips_fn=pyramid, device=dev),
+        csv_name="metrics_pyramid.csv")
+    torch.cuda.synchronize()
+    t_pyr = time.perf_counter() - t0
+    launches = read_launches(torch, fb)
+    rows = read_metrics_csv(str(sr / "metrics.csv"))
+    prow = swept[str(sr)]
+    bad = [r["image_name"] for r in rows
+           if not all(np.isfinite(r[c]) for c in METRIC_COLUMNS)]
+    bad += [r["image_name"] for r in prow
+            if not all(np.isfinite(r[c]) for c in ("SSIM", "PSNR", "LPIPS"))]
+    if (out != {str(sr): IQA_PAIRS} or len(prow) != IQA_PAIRS or bad
+            or not all(-1 < r["SSIM"] <= 1 for r in rows)
+            or list(rows[0]) != list(CSV_COLUMNS)):
+        raise AssertionError(f"folder-metrics: {out}, non-finite rows {bad}")
+
+    gps = [r["gt_path"] for r in rows]
+    sps = [r["eval_path"] for r in rows]
+    t0 = time.perf_counter()
+    calc = ImageQualityMetrics(batch_size=IQA_BATCH, koniqpp=NrIqaScorer(
+        load_nr_iqa_head(ck), device=dev), device=dev)
+    setup["alex_and_nr"] = time.perf_counter() - t0
+    rate, calls, secs = steady_rate(torch, lambda: calc.batch(gps, sps),
+                                    IQA_PAIRS)
+    calc = ImageQualityMetrics(batch_size=IQA_BATCH, lpips_fn=pyramid,
+                               device=dev)
+    prate, pcalls, psecs = steady_rate(torch, lambda: calc.batch(gps, sps),
+                                       IQA_PAIRS)
+    emit("iqa", step="folder_metrics", pairs=IQA_PAIRS, batch=IQA_BATCH,
+         cli_seconds_with_setup=t_cli, pyramid_sweep_seconds=t_pyr,
+         setup_seconds=setup, pairs_per_s=rate, pairs_timed=IQA_PAIRS * calls,
+         seconds_timed=secs, pyramid_pairs_per_s=prate,
+         pyramid_pairs_timed=IQA_PAIRS * pcalls, pyramid_seconds_timed=psecs,
+         launches=launches, means={c: float(np.mean([r[c] for r in rows]))
+                                   for c in METRIC_COLUMNS},
+         pyramid_lpips_mean=float(np.mean([r["LPIPS"] for r in prow])),
+         card=card)
+
+    # Four pairs in float32: the card against the CPU's plain path.
+    gps, sps = gps[:4], sps[:4]
+    got = [ImageQualityMetrics(batch_size=4, koniqpp=NrIqaScorer(
+        load_nr_iqa_head(ck, torch.float32), device=where),
+        device=where).batch(gps, sps) for where in (TRAIN_DEVICE, "cpu")]
+    worst = 0.0
+    for a, b in zip(*got):
+        for c in METRIC_COLUMNS:
+            err = abs(a[c] - b[c])
+            worst = max(worst, err)
+            if not err <= 1e-3 + 1e-3 * abs(b[c]):
+                raise AssertionError(f"iqa f32 card vs CPU {c}: {a[c]} vs "
+                                     f"{b[c]}")
+    tower32 = ImageNetResNet50(torch.float32)
+    tower32.load_state_dict(pyramid.model.state_dict())
+    pair = [torch.from_numpy(np.stack([np.asarray(Image.open(p).convert(
+        "RGB").resize((IMAGE, IMAGE), Image.BICUBIC), np.float32) / 255.0
+        for p in paths])) for paths in (gps, sps)]
+    on_card, ref = (make_pyramid_lpips(copy.deepcopy(tower32),
+                                       device=where)(*pair).cpu().numpy()
+                    for where in (TRAIN_DEVICE, "cpu"))
+    pyr_err = float(np.abs(on_card - ref).max())
+    if not (np.abs(on_card - ref) <= 1e-3 * np.abs(ref) + 1e-9).all():
+        raise AssertionError(f"pyramid f32 card vs CPU: {on_card} vs {ref}")
+    # A corrupt SR file: its row NaN, the only one.
+    (sr / "0001.png").write_bytes(b"not a png")
+    nan_rows = [i for i, r in enumerate(ImageQualityMetrics(
+        batch_size=4, device=dev).batch(gps, sps))
+        if all(np.isnan(v) for v in r.values())]
+    if nan_rows != [1]:
+        raise AssertionError(f"corrupt SR: NaN rows {nan_rows}, want [1]")
+    emit("iqa", step="f32_card_vs_cpu", pairs=4, max_abs_err=worst,
+         tolerance="1e-3 + 1e-3*|x|", pyramid=ref.tolist(),
+         pyramid_max_abs_err=pyr_err, pyramid_tolerance="1e-3*|x| + 1e-9",
+         corrupt_row_nan=True)
+    return launches
+
+
+class ClipTextEmbedder:
+    """The dual encoder's text tower behind the embedder interface."""
+
+    def __init__(self, dual):
+        self.dual, self.device = dual, dual.device
+
+    def encode(self, texts):
+        return self.dual.encode_text(list(texts)).float().cpu().numpy()
+
+
+def write_vocab(np, root: Path, words: list) -> Path:
+    """A BERT-layout vocab.txt of 30,522 entries: [PAD], unused slots, the
+    specials at 100-103, ``words``, then filler pieces."""
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words)
+    vocab += [f"##p{i}" for i in range(30522 - len(vocab))]
+    path = root / "vocab.txt"
+    path.write_text("\n".join(vocab) + "\n")
+    return path
+
+
+def run_text(torch, np, card: str):
+    """Phase 15 (text): ``score_caption_pairs`` over N_CAPTIONS captions
+    (N_CAPTIONS / 2 pairs, each caption in one) through a seeded
+    full-width MiniLMEmbedder (6 layers, 384; batch 256, 128 tokens) with
+    the port's WordPieceTokenizer on a vocab.txt written here;
+    ``embed_image_folder`` over C2I_IMAGES images (one corrupt: its row
+    NaN) at batch 64 through ClipDualEncoder's seeded CLIP ResNet-50 (224,
+    bf16; two tower passes of 64); ``score_c2i`` with the dual encoder's
+    seeded full-width CLIP text tower (12 layers, 512) on a
+    ClipBpeTokenizer over a merges file written here.  The launch counts
+    are reset just before the caption pairs and read just after the C2I
+    scores (the text path).  captions/s and images/s are the steady
+    state's (``steady_rate``) over the same captions and folder, the
+    models' set-up timed apart.  Card checks: the
+    cosines finite in [-1, 1]; 16 captions' MiniLM embeddings and 4
+    images' float32 C2I embeddings against the CPU's (1e-3 of the
+    largest).  Returns the path's launches."""
+    from PIL import Image
+
+    from srsem_torch.backbones.resnet import make_backbone, reset_tower
+    from srsem_torch.config import BackboneConfig
+    from srsem_torch.data.preprocess import Preprocess
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.pseudo.clip_text import ClipDualEncoder
+    from srsem_torch.pseudo.scoring import (
+        embed_image_folder,
+        score_c2i,
+        score_caption_pairs,
+    )
+    from srsem_torch.pseudo.text_embed import MiniLMEmbedder, MiniLMEncoder
+    from srsem_torch.pseudo.tokenizer import (
+        ClipBpeTokenizer,
+        WordPieceTokenizer,
+    )
+
+    dev = torch.device(TRAIN_DEVICE)
+    root = work_dir() / "text"
+    root.mkdir()
+    rng = np.random.default_rng(23)
+    syll = ["ka", "lo", "mi", "ne", "su", "ra", "to", "vi", "be", "do"]
+    words = sorted({"".join(rng.choice(syll, rng.integers(1, 4)))
+                    for _ in range(3000)})
+    tok = WordPieceTokenizer(str(write_vocab(np, root, words)))
+    captions = {f"c{i}": " ".join(rng.choice(words + ["zzq", "photo,"],
+                                              rng.integers(8, 40)))
+                for i in range(N_CAPTIONS)}
+    keys = list(captions)
+    pairs = list(zip(keys[0::2], keys[1::2]))
+    t0 = time.perf_counter()
+    minilm = MiniLMEncoder().reset_parameters(torch.Generator().manual_seed(8))
+    embedder = MiniLMEmbedder(minilm, tok, device=dev)
+    setup = {"minilm": time.perf_counter() - t0}
+
+    folder = root / "images"
+    folder.mkdir()
+    for i, img in enumerate(smooth_images(np, C2I_IMAGES - 1, 256, 24)):
+        Image.fromarray(img).save(folder / f"{i:04d}.jpg", quality=90)
+    (folder / "9999.png").write_bytes(b"not a png")
+    merges = root / "merges.txt"
+    merges.write_text("#version: toy\n" + "\n".join(
+        f"{a} {b}" for a, b in (("k", "a"), ("l", "o"), ("m", "i"),
+                                ("ka", "lo</w>"), ("n", "e</w>"))) + "\n")
+    t0 = time.perf_counter()
+    tower = make_backbone(BackboneConfig(kind="resnet50_clip",
+                                         image_size=IMAGE))
+    reset_tower(tower, torch.Generator().manual_seed(9))
+    randomize_bn(torch, np, tower, np.random.default_rng(9))
+    dual = ClipDualEncoder(tower, tokenizer=ClipBpeTokenizer(str(merges)),
+                           device=dev)
+    dual.init_text(torch.Generator().manual_seed(10))
+    setup["clip_dual"] = time.perf_counter() - t0
+    pre = Preprocess.for_backbone("resnet50_clip", IMAGE)
+    c2i_caps = {f"{i:04d}": captions[keys[i]] for i in range(C2I_IMAGES)}
+
+    zero_launches(fb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cos = score_caption_pairs(captions, pairs, embedder)
+    t_c2c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    embs = embed_image_folder(dual, str(folder), pre, batch_size=C2I_BATCH)
+    torch.cuda.synchronize()
+    t_img = time.perf_counter() - t0
+    c2i = score_c2i(c2i_caps, embs, ClipTextEmbedder(dual))
+    launches = read_launches(torch, fb)
+    want = {k: 2 * v for k, v in PASS_CALLS.items()}
+    c2i_vals = np.array([c2i[k] for k in c2i if k != "9999"])
+    if (launches != want or cos.shape != (len(pairs),)
+            or not (np.isfinite(cos).all() and np.abs(cos).max() <= 1 + 1e-5)
+            or len(embs) != C2I_IMAGES or not np.isnan(embs["9999"]).all()
+            or not np.isfinite(c2i_vals).all()
+            or np.abs(c2i_vals).max() > 1 + 1e-5):
+        raise AssertionError(f"text path: launched {launches} (want {want}), "
+                             f"c2c {cos[:4]}, c2i {c2i_vals[:4]}")
+    rate, calls, secs = steady_rate(
+        torch, lambda: score_caption_pairs(captions, pairs, embedder),
+        N_CAPTIONS)
+    irate, icalls, isecs = steady_rate(
+        torch, lambda: embed_image_folder(dual, str(folder), pre,
+                                          batch_size=C2I_BATCH), C2I_IMAGES)
+    emit("text", step="c2c_and_c2i", captions=N_CAPTIONS, pairs=len(pairs),
+         setup_seconds=setup, first_c2c_seconds=t_c2c,
+         first_c2i_seconds=t_img, captions_per_s=rate,
+         captions_timed=N_CAPTIONS * calls, c2c_seconds_timed=secs,
+         c2i_images=C2I_IMAGES, images_per_s=irate,
+         images_timed=C2I_IMAGES * icalls, c2i_seconds_timed=isecs,
+         launches=launches,
+         c2c_mean=float(cos.mean()), c2i_mean=float(c2i_vals.mean()),
+         card=card)
+
+    # The CPU's plain path on a few inputs: MiniLM in float32, and the
+    # C2I tower in float32 (TF32 off on the card).
+    texts = [captions[k] for k in keys[:16]]
+    cpu = MiniLMEmbedder(copy.deepcopy(minilm), tok, batch_size=16,
+                         device="cpu").encode(texts)
+    card_emb = MiniLMEmbedder(minilm, tok, batch_size=16,
+                              device=dev).encode(texts)
+    errs = {"minilm": float(np.abs(card_emb - cpu).max())}
+    tower32 = make_backbone(BackboneConfig(kind="resnet50_clip",
+                                           image_size=IMAGE,
+                                           compute_dtype="float32"))
+    tower32.load_state_dict(tower.state_dict())
+    small = root / "small"
+    small.mkdir()
+    for i in range(4):
+        (small / f"{i:04d}.jpg").write_bytes(
+            (folder / f"{i:04d}.jpg").read_bytes())
+    on_card, ref = (np.stack(list(embed_image_folder(
+        ClipDualEncoder(copy.deepcopy(tower32), device=where), str(small),
+        pre, batch_size=4).values())) for where in (TRAIN_DEVICE, "cpu"))
+    errs["c2i"] = float(np.abs(on_card - ref).max())
+    scale = {"minilm": 1.0, "c2i": float(np.abs(ref).max())}
+    if any(errs[k] > 1e-3 * scale[k] for k in errs):
+        raise AssertionError(f"text card vs CPU: {errs} (scale {scale})")
+    emit("text", step="f32_card_vs_cpu", max_abs_err=errs, scale=scale,
+         tolerance="1e-3 of the largest value")
+    return launches
+
+
 # Stack frame bytes of each head-kernel instance (dtype 0 f32, 1 bf16,
 # 2 f16; KT SR images an item) at four stages (ptxas -v, H100 build of
 # csrc/fused_head.cu before the limit went to 12).  Twelve stage
@@ -3410,7 +4012,8 @@ def main() -> int:
                      ("wperlay", run_heads), ("serve", run_serve),
                      ("dual", run_dual), ("train", run_train),
                      ("finetune", run_finetune), ("sweeps", run_sweeps),
-                     ("vit", run_vit)):
+                     ("vit", run_vit), ("nr_train", run_nr_train),
+                     ("iqa", run_iqa), ("text", run_text)):
         t0 = time.perf_counter()
         runs[path] = fn(torch, np, card)
         seconds[path] = time.perf_counter() - t0

@@ -1,8 +1,10 @@
 """``python -m srsem_torch`` — the port's command line (the ``score``,
 ``score-groups``, ``score-maps-groups``, ``serve``, ``sweep-dataset``,
 ``train-global``, ``eval-global``, ``train-clu``, ``sweep-global``,
-``sweep-clu``, ``convert`` and ``info`` subcommands of srsem/cli/main.py
-so far, and the global ``--profile DIR``).
+``sweep-clu``, ``folder-metrics``, ``train-nr-iqa``, ``pseudo-c2c``,
+``pseudo-captions``, ``maps-build``, ``convert`` and ``info``
+subcommands of srsem/cli/main.py so far, and the global ``--profile
+DIR``).
 
     python -m srsem_torch score pairs.csv --backbone resnet50 [--device cpu]
     python -m srsem_torch score pairs.csv --backbone resnet50_clip \
@@ -22,6 +24,11 @@ so far, and the global ``--profile DIR``).
     python -m srsem_torch sweep-global study.csv ROOT [--shared-tower | \
         --cached-diffs | --cached-stats | --closed-form [--l2 1e-6]]
     python -m srsem_torch sweep-clu pairs.csv [--shared-thresholds]
+    python -m srsem_torch folder-metrics GT_DIR SR_DIR... \
+        [--koniqpp-checkpoint DIR] [--lpips-checkpoint alex.pth]
+    python -m srsem_torch train-nr-iqa IMAGE_DIR --checkpoint-dir DIR
+    python -m srsem_torch pseudo-c2c ROOT [--embedder minilm:CKPT:TOK_DIR]
+    python -m srsem_torch maps-build pairs.csv [--out-dir DIR]
     python -m srsem_torch convert vit.pt --kind clip_vit --out vit.msgpack
     python -m srsem_torch info [--native] [--devices]
     python -m srsem_torch --profile DIR score-groups GT_DIR SR_DIR...
@@ -41,9 +48,10 @@ for CLU maps their ``batch_stats``, over the model, as the JAX CLI's
 param tree (``.msgpack``, ``convert``'s output, the port's or the JAX
 CLI's) or a torchvision ``resnet50`` / OpenAI-CLIP / timm or HF CLIP ViT
 state dict (``.pt``).  ``convert`` writes the bytes ``srsem convert``
-writes for the tower and head kinds (``resnet50``, ``resnet50_clip``,
-``clip_vit``, ``hf_clip_vit``, ``global_head``, ``clu_decoder``).  Without
-either, the weights are seeded random ones.  The training commands train
+writes for the tower, head and text kinds (``resnet50``,
+``resnet50_clip``, ``clip_vit``, ``hf_clip_vit``, ``global_head``,
+``clu_decoder``, ``lpips``, ``hf_clip_text``, ``clip_text``,
+``minilm``).  Without either, the weights are seeded random ones.  The training commands train
 the head or decoder, and with ``--set enc_ft=True`` (global) or ``--set
 lora_rank=R`` / ``lora_rank='full'`` (CLU) the tower
 (srsem_torch/train/loop.py), and write the JAX package's checkpoint
@@ -77,6 +85,23 @@ def _parse_sets(pairs: List[str]) -> Dict[str, Any]:
     return out
 
 
+def _torch_load(path):
+    """A torch ``.pth``/``.pt`` state dict, read as the JAX CLI reads a
+    reference checkpoint: a pickled module gives its ``state_dict()``, and
+    a dict wrapping one under ``state_dict`` or ``model`` is unwrapped.
+    Unpickling runs the file's code: read only files you trust."""
+    import torch
+
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
+        sd = sd["model"]
+    return sd
+
+
 def _read_backbone(path):
     """A tower file's weights: a converted JAX tower param tree
     (``.msgpack``, ``srsem convert``) or a torchvision ``resnet50`` /
@@ -88,10 +113,7 @@ def _read_backbone(path):
 
         with open(path, "rb") as f:
             return msgpack_restore(f.read())
-    import torch
-
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return sd.get("state_dict", sd)
+    return _torch_load(path)
 
 
 def _load_backbone(backbone, kind: str, path) -> None:
@@ -470,11 +492,192 @@ def cmd_sweep_clu(args) -> int:
     return 0
 
 
+def cmd_folder_metrics(args) -> int:
+    """SSIM, PSNR, LPIPS (and with ``--koniqpp-checkpoint`` the five
+    KonIQ++ columns) of each SR folder against the GT folder: one
+    ``metrics.csv`` a folder (srsem_torch/eval/folder_metrics.py)."""
+    from srsem_torch.device import resolve_device
+    from srsem_torch.eval.folder_metrics import (
+        ImageQualityMetrics,
+        run_folder_sweep,
+    )
+
+    device = resolve_device(args.device)
+    lpips_fn = None
+    if args.lpips_checkpoint:
+        from srsem_torch.eval.lpips import make_lpips
+
+        lpips_fn = make_lpips(
+            args.lpips_net, lin_sd=_torch_load(args.lpips_checkpoint),
+            tower_sd=(_torch_load(args.lpips_tower) if args.lpips_tower
+                      else None), device=device)
+    koniqpp = None
+    if args.koniqpp_checkpoint:
+        from srsem_torch.eval.nr_iqa import NrIqaScorer
+        from srsem_torch.train.nr_iqa import load_nr_iqa_head
+
+        koniqpp = NrIqaScorer(load_nr_iqa_head(args.koniqpp_checkpoint),
+                              device=device)
+    calc = ImageQualityMetrics(batch_size=args.batch_size,
+                               lpips_net=args.lpips_net, lpips_fn=lpips_fn,
+                               koniqpp=koniqpp, device=device)
+    results = run_folder_sweep(args.gt_folder, args.eval_folders, calc)
+    print(json.dumps({f: len(rows) for f, rows in results.items()}))
+    return 0
+
+
+def cmd_train_nr_iqa(args) -> int:
+    """Train the NR-IQA head on synthetic degradations of a folder's
+    images (srsem_torch/train/nr_iqa.py)."""
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    from srsem_torch.data.preprocess import IMG_EXTENSIONS
+    from srsem_torch.device import resolve_device
+    from srsem_torch.train.nr_iqa import train_nr_iqa
+
+    device = resolve_device(args.device)
+    paths = sorted(p for p in Path(args.image_folder).iterdir()
+                   if p.suffix.lower() in IMG_EXTENSIONS)
+    if args.limit:
+        paths = paths[: args.limit]
+    imgs = np.stack([
+        np.asarray(Image.open(p).convert("RGB").resize(
+            (args.image_size, args.image_size), Image.BICUBIC), np.float32)
+        / 255.0 for p in paths])
+    result = train_nr_iqa(imgs, epochs=args.epochs,
+                          batch_size=args.batch_size, lr=args.lr,
+                          checkpoint_dir=args.checkpoint_dir, device=device)
+    print(json.dumps({"images": len(imgs), "steps": len(result.losses),
+                      "final_loss": result.losses[-1],
+                      "val_mse": result.val_mse}))
+    return 0
+
+
+def _make_embedder(kind: str, device):
+    """``hashing``, or ``minilm:<torch_ckpt>:<tokenizer_dir>``: an HF
+    MiniLM state dict and the WordPiece ``vocab.txt`` in
+    ``tokenizer_dir`` (the port's own tokenizer; the JAX CLI reads the
+    directory with transformers' AutoTokenizer)."""
+    if kind == "hashing":
+        from srsem_torch.pseudo.text_embed import HashingTextEmbedder
+
+        return HashingTextEmbedder()
+    if kind.startswith("minilm:"):
+        from srsem_torch.pseudo.text_embed import (
+            MiniLMEmbedder,
+            MiniLMEncoder,
+            load_hf_minilm,
+        )
+        from srsem_torch.pseudo.tokenizer import WordPieceTokenizer
+
+        _, ckpt, tok_dir = kind.split(":", 2)
+        model = load_hf_minilm(MiniLMEncoder(), _torch_load(ckpt))
+        tokenizer = WordPieceTokenizer(os.path.join(tok_dir, "vocab.txt"))
+        return MiniLMEmbedder(model, tokenizer, device=device)
+    raise ValueError(f"unknown embedder {kind!r}")
+
+
+def _write_csv(path: str, header, rows) -> None:
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        writer.writerows(rows)
+
+
+def cmd_pseudo_c2c(args) -> int:
+    """Caption-to-caption cosines over the KonIQ SR folder layout: every
+    (HQ, SR) and (SR, SR) pair of one image (srsem_torch/pseudo)."""
+    from srsem_torch.device import resolve_device
+    from srsem_torch.pseudo.captions import (
+        default_folders,
+        enumerate_pairs,
+        merge_caption_dicts,
+        parse_caption_file,
+    )
+    from srsem_torch.pseudo.scoring import score_caption_pairs
+
+    device = resolve_device(args.device)
+    folders = [f for f in default_folders(args.root) if os.path.isdir(f)]
+    listings = {f: sorted(os.listdir(f)) for f in folders}
+    captions = merge_caption_dicts(
+        [parse_caption_file(os.path.join(f, args.captions_name))
+         for f in folders], folders)
+    pairs = enumerate_pairs(folders, listings)
+    embedder = _make_embedder(args.embedder, device)
+    cosines = score_caption_pairs(captions, pairs, embedder)
+    out = args.out or os.path.join(args.root, "wholeim_pairs_cosines.csv")
+    _write_csv(out, ["img_a_pth", "img_b_pth", "cosine"],
+               [(a, b, repr(float(c))) for (a, b), c in zip(pairs, cosines)])
+    print(json.dumps({"pairs": len(pairs), "out": out}))
+    return 0
+
+
+def cmd_pseudo_captions(args) -> int:
+    """Whole-image captioning over the KonIQ folder layout
+    (srsem_torch/pseudo/vlm.py; ``static`` or ``transformers:<model>``)."""
+    from srsem_torch.pseudo.captions import default_folders
+    from srsem_torch.pseudo.vlm import (
+        StaticCaptioner,
+        TransformersCaptioner,
+        caption_folder_batch,
+    )
+
+    if args.backend == "static":
+        captioner = StaticCaptioner()
+    elif args.backend.startswith("transformers:"):
+        captioner = TransformersCaptioner(args.backend.split(":", 1)[1])
+    else:
+        raise SystemExit(f"unknown captioner backend {args.backend!r}")
+    counts = {folder: caption_folder_batch(captioner, folder,
+                                           batch_size=args.batch_size)
+              for folder in default_folders(args.root)
+              if os.path.isdir(folder)}
+    print(json.dumps(counts))
+    return 0
+
+
+def cmd_maps_build(args) -> int:
+    """Per-pair cosine maps and ``filt_refs.csv`` from the panoptic
+    pickles and per-region caption files (srsem_torch/maps/cosmap.py)."""
+    import pickle
+
+    from srsem_torch.device import resolve_device
+    from srsem_torch.maps.cosmap import (
+        read_region_captions,
+        write_cosine_map_dataset,
+    )
+    from srsem_torch.maps.panoptic import panoptic_to_masks
+
+    device = resolve_device(args.device)
+    with open(args.pairs_csv, newline="") as f:
+        pairs = list(csv.DictReader(f))
+    records = []
+    for row in pairs:
+        a, b = row["img_a_pth"], row["img_b_pth"]
+        stem_a = os.path.splitext(os.path.basename(a))[0]
+        stem_b = os.path.splitext(os.path.basename(b))[0]
+        pan_dir_a = os.path.join(os.path.dirname(a), "general_panoptic")
+        pan_dir_b = os.path.join(os.path.dirname(b), "general_panoptic")
+        with open(os.path.join(pan_dir_a, stem_a + ".pkl"), "rb") as f:
+            panoptic = pickle.load(f)
+        ids = list(panoptic_to_masks(panoptic))
+        caps_a = read_region_captions(
+            os.path.join(pan_dir_a, stem_a + ".txt"), ids)
+        caps_b = read_region_captions(
+            os.path.join(pan_dir_b, stem_b + ".txt"), ids)
+        records.append((a, b, panoptic, caps_a, caps_b))
+    embedder = _make_embedder(args.embedder, device)
+    write_cosine_map_dataset(records, embedder, args.out_dir, args.out_csv)
+    print(json.dumps({"pairs": len(records), "csv": args.out_csv}))
+    return 0
+
+
 #: ``srsem convert``'s kinds not ported yet, with their ROADMAP items.
-UNPORTED_CONVERT_KINDS = {
-    "lpips": "A10b", "hf_clip_text": "A11", "clip_text": "A11",
-    "minilm": "A11", "slip": "A12", "albef": "A12", "albef_fusion": "A12",
-    "transalnet": "A12"}
+UNPORTED_CONVERT_KINDS = {"slip": "A12", "albef": "A12",
+                          "albef_fusion": "A12", "transalnet": "A12"}
 
 
 def cmd_convert(args) -> int:
@@ -483,8 +686,6 @@ def cmd_convert(args) -> int:
     flax-msgpack file for the towers (``--backbone-checkpoint``), a
     checkpoint directory for ``global_head`` and ``clu_decoder``
     (``--checkpoint``)."""
-    import torch
-
     from srsem_torch.train.checkpoint import msgpack_serialize, save_checkpoint
     from srsem_torch.train.partition import flatten_dict
     from srsem_torch.utils import convert as cv
@@ -496,15 +697,7 @@ def cmd_convert(args) -> int:
             f"(ROADMAP {UNPORTED_CONVERT_KINDS[kind]})")
     if args.image_size is not None and args.image_size <= 0:
         raise SystemExit(f"--image-size must be positive, got {args.image_size}")
-    # As the JAX CLI: a reference checkpoint may be a pickled module or
-    # wrap its state dict.
-    sd = torch.load(args.input, map_location="cpu", weights_only=False)
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
-        sd = sd["model"]
+    sd = _torch_load(args.input)
     if kind in ("global_head", "clu_decoder"):
         if kind == "global_head":
             ckpt = {"trainable": cv.convert_global_head(
@@ -517,10 +710,24 @@ def cmd_convert(args) -> int:
         print(json.dumps({"kind": kind, "out": args.out, "ckpt": path,
                           "n_arrays": len(flatten_dict(ckpt))}))
         return 0
-    tree = {"resnet50": cv.convert_torch_resnet50,
-            "resnet50_clip": cv.convert_clip_resnet50,
-            "clip_vit": cv.convert_clip_vit,
-            "hf_clip_vit": cv.convert_hf_clip_vit}[kind](sd)
+    if kind == "lpips":
+        from srsem_torch.eval.lpips import convert_lpips
+
+        if not args.tower:
+            raise SystemExit("--tower (AlexNet/VGG16 feature sd) is "
+                             "required for kind=lpips")
+        tree = convert_lpips(sd, _torch_load(args.tower), net=args.lpips_net)
+    elif kind == "minilm":
+        from srsem_torch.pseudo.text_embed import convert_hf_minilm
+
+        tree = convert_hf_minilm(sd)
+    else:
+        tree = {"resnet50": cv.convert_torch_resnet50,
+                "resnet50_clip": cv.convert_clip_resnet50,
+                "clip_vit": cv.convert_clip_vit,
+                "hf_clip_vit": cv.convert_hf_clip_vit,
+                "hf_clip_text": cv.convert_hf_clip_text,
+                "clip_text": cv.convert_clip_text}[kind](sd)
     with open(args.out, "wb") as f:
         f.write(msgpack_serialize(cv.jax_key_order(tree)))
     print(json.dumps({"kind": kind, "out": args.out,
@@ -878,6 +1085,70 @@ def main(argv=None) -> int:
     add_training_flags(p)
     p.set_defaults(fn=cmd_sweep_clu)
 
+    p = sub.add_parser("folder-metrics", help="SSIM/PSNR/LPIPS (and the "
+                       "NR-IQA head's KonIQ++ columns) of SR folders "
+                       "against a GT folder: metrics.csv a folder")
+    p.add_argument("gt_folder")
+    p.add_argument("eval_folders", nargs="+")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lpips-net", default="alex", choices=["alex", "vgg"])
+    p.add_argument("--lpips-checkpoint", default=None,
+                   help="official lpips lin-weights .pth, loaded straight "
+                        "into the port's LPIPS")
+    p.add_argument("--lpips-tower", default=None,
+                   help="torchvision alexnet/vgg16 state dict for the tower")
+    p.add_argument("--koniqpp-checkpoint", default=None,
+                   help="NR-IQA head checkpoint dir (the port's "
+                        "train-nr-iqa; a JAX-written one raises)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.set_defaults(fn=cmd_folder_metrics)
+
+    p = sub.add_parser("train-nr-iqa", help="train the KonIQ++-equivalent "
+                       "NR-IQA head on synthetic degradations of a folder")
+    p.add_argument("image_folder")
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--limit", type=int, default=0,
+                   help="cap the number of images (0 = all)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.set_defaults(fn=cmd_train_nr_iqa)
+
+    p = sub.add_parser("pseudo-c2c", help="caption-to-caption cosines over "
+                       "the KonIQ SR folder layout")
+    p.add_argument("root")
+    p.add_argument("--captions-name", default="wholeim_captions_batch.txt")
+    p.add_argument("--embedder", default="hashing",
+                   help="hashing, or minilm:<torch_ckpt>:<tokenizer_dir> "
+                        "(tokenizer_dir holds vocab.txt)")
+    p.add_argument("--out")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.set_defaults(fn=cmd_pseudo_c2c)
+
+    p = sub.add_parser("pseudo-captions", help="whole-image captions over "
+                       "the KonIQ SR folder layout")
+    p.add_argument("root")
+    p.add_argument("--backend", default="static",
+                   help='"static" or "transformers:<model-name>"')
+    p.add_argument("--batch-size", type=int, default=10)
+    p.set_defaults(fn=cmd_pseudo_captions)
+
+    p = sub.add_parser("maps-build", help="per-pair cosine maps and "
+                       "filt_refs.csv from panoptic pickles and region "
+                       "captions")
+    p.add_argument("pairs_csv")
+    p.add_argument("--out-dir", default="cosine_maps")
+    p.add_argument("--out-csv", default="filt_refs.csv")
+    p.add_argument("--embedder", default="hashing")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.set_defaults(fn=cmd_maps_build)
+
     p = sub.add_parser("convert", help="convert torch pretrained or "
                        "reference-trained checkpoints to srsem param trees "
                        "(flax msgpack)")
@@ -888,9 +1159,8 @@ def main(argv=None) -> int:
                             "slip", "minilm", "lpips", "transalnet",
                             "albef", "albef_fusion",
                             "global_head", "clu_decoder"],
-                   help="resnet50, resnet50_clip, clip_vit, hf_clip_vit, "
-                        "global_head and clu_decoder are ported; the others "
-                        "raise, naming their ROADMAP item")
+                   help="slip, albef, albef_fusion and transalnet are not "
+                        "ported and raise, naming their ROADMAP item")
     p.add_argument("--shared-head", action="store_true",
                    help="for global_head: the checkpoint is the singleLin "
                         "shared ViT head (w_layer Sequential) rather than "
@@ -901,7 +1171,8 @@ def main(argv=None) -> int:
     p.add_argument("--patch", type=int, default=16,
                    help="for albef (not ported)")
     p.add_argument("--tower", default=None,
-                   help="for lpips (not ported)")
+                   help="for lpips: the torchvision AlexNet/VGG16 state "
+                        "dict of the tower")
     p.add_argument("--lpips-net", default="alex", choices=["alex", "vgg"])
     p.add_argument("--out", default="converted.msgpack")
     p.set_defaults(fn=cmd_convert)

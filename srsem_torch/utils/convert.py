@@ -680,3 +680,75 @@ def convert_clu_decoder(sd: Mapping[str, Any]) -> Dict:
         params[f"decoder.{lvl}"] = block
         stats[f"decoder.{lvl}"] = bstats
     return {"params": params, "batch_stats": stats}
+
+
+def _text_keys(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    return {k[len(prefix):] if k.startswith(prefix) else k: v
+            for k, v in sd.items()}
+
+
+def _n_layers(sd: Mapping[str, Any], pattern: str) -> int:
+    return 1 + max(int(m.group(1)) for k in sd if (m := re.match(pattern, k)))
+
+
+def convert_hf_clip_text(sd: Mapping[str, Any]) -> Dict:
+    """HF ``CLIPTextModel(WithProjection)`` state dict (``text_model.``
+    prefix or not) → ClipTextEncoder params: q/k/v concatenated into
+    ``attn.qkv``, Dense kernels (in, out), ``text_projection`` (in, out)
+    when the file has one."""
+    sd = _text_keys(sd, "text_model.")
+    tree: Dict[str, Any] = {
+        "token_embedding": {"embedding": _f32(
+            sd["embeddings.token_embedding.weight"])},
+        "positional_embedding": _f32(sd["embeddings.position_embedding.weight"]),
+        "ln_final": {"scale": _f32(sd["final_layer_norm.weight"]),
+                     "bias": _f32(sd["final_layer_norm.bias"])}}
+    if "text_projection.weight" in sd:
+        tree["text_projection"] = _f32(sd["text_projection.weight"]).T
+    for i in range(_n_layers(sd, r"encoder\.layers\.(\d+)\.")):
+        tp = f"encoder.layers.{i}"
+        att = f"{tp}.self_attn"
+        block = {
+            "attn.qkv": {
+                "kernel": np.concatenate([_f32(sd[f"{att}.{p}_proj.weight"])
+                                          for p in "qkv"], axis=0).T,
+                "bias": np.concatenate([_f32(sd[f"{att}.{p}_proj.bias"])
+                                        for p in "qkv"], axis=0)},
+            "attn.out_proj": {"kernel": _f32(sd[f"{att}.out_proj.weight"]).T,
+                              "bias": _f32(sd[f"{att}.out_proj.bias"])}}
+        for hf_ln, j_ln in (("layer_norm1", "ln_1"), ("layer_norm2", "ln_2")):
+            block[j_ln] = {"scale": _f32(sd[f"{tp}.{hf_ln}.weight"]),
+                           "bias": _f32(sd[f"{tp}.{hf_ln}.bias"])}
+        for hf_fc, j_fc in (("fc1", "c_fc"), ("fc2", "c_proj")):
+            block[f"mlp.{j_fc}"] = {"kernel": _f32(sd[f"{tp}.mlp.{hf_fc}.weight"]).T,
+                                    "bias": _f32(sd[f"{tp}.mlp.{hf_fc}.bias"])}
+        tree[f"resblocks.{i}"] = block
+    return tree
+
+
+def convert_clip_text(sd: Mapping[str, Any]) -> Dict:
+    """OpenAI CLIP text transformer state dict (``token_embedding.weight``,
+    ``positional_embedding``, ``transformer.resblocks.N.*``, ``ln_final``,
+    ``text_projection``; the port's ClipTextEncoder's own layout) →
+    ClipTextEncoder params."""
+    tree: Dict[str, Any] = {
+        "token_embedding": {"embedding": _f32(sd["token_embedding.weight"])},
+        "positional_embedding": _f32(sd["positional_embedding"]),
+        "text_projection": _f32(sd["text_projection"]),
+        "ln_final": {"scale": _f32(sd["ln_final.weight"]),
+                     "bias": _f32(sd["ln_final.bias"])}}
+    for i in range(_n_layers(sd, r"transformer\.resblocks\.(\d+)\.")):
+        tp = f"transformer.resblocks.{i}"
+        block = {
+            "attn.qkv": {"kernel": _f32(sd[f"{tp}.attn.in_proj_weight"]).T,
+                         "bias": _f32(sd[f"{tp}.attn.in_proj_bias"])},
+            "attn.out_proj": {"kernel": _f32(sd[f"{tp}.attn.out_proj.weight"]).T,
+                              "bias": _f32(sd[f"{tp}.attn.out_proj.bias"])}}
+        for ln in ("ln_1", "ln_2"):
+            block[ln] = {"scale": _f32(sd[f"{tp}.{ln}.weight"]),
+                         "bias": _f32(sd[f"{tp}.{ln}.bias"])}
+        for mlp in ("c_fc", "c_proj"):
+            block[f"mlp.{mlp}"] = {"kernel": _f32(sd[f"{tp}.mlp.{mlp}.weight"]).T,
+                                   "bias": _f32(sd[f"{tp}.mlp.{mlp}.bias"])}
+        tree[f"resblocks.{i}"] = block
+    return tree

@@ -92,8 +92,7 @@ def test_unported_kinds_name_their_item(tmp_path):
     src = tmp_path / "in.pt"
     torch.save({"w": torch.zeros(1)}, src)
     assert UNPORTED_CONVERT_KINDS == {
-        "lpips": "A10b", "hf_clip_text": "A11", "clip_text": "A11",
-        "minilm": "A11", "slip": "A12", "albef": "A12", "albef_fusion": "A12",
+        "slip": "A12", "albef": "A12", "albef_fusion": "A12",
         "transalnet": "A12"}
     for kind, item in UNPORTED_CONVERT_KINDS.items():
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
