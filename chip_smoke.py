@@ -190,7 +190,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
              steady state (as iqa's; set-up timed apart); MiniLM
              and float32 C2I embeddings on the card against the CPU
              (1e-3).
-16. result — a ``timing`` line (seconds of each phase), the card line,
+16. explain — the approach drivers (simple, focus through ClipTagger,
+             SpLiCE focus at rank 5) over 2 (HQ, SR) pairs on a full-width
+             CLIP ResNet-50 (bf16, kernel tower, batch 1: 11 passes a
+             pair) and CLIP text tower behind ClipDualEncoder, a seeded
+             10,000 x 1024 concept dictionary (hints seeded by an l1
+             sweep), Grad-CAM on stages.3.2.act of the module tower, LPIPS
+             alex and a seeded SaliencyMaps tree, the counts reset just
+             before and read just after; pairs/s of
+             compute_embedding_sim_metrics with and without Grad-CAM,
+             tags/s, ms a CAM (ResNet; ViT-B/16 on blocks.11.ls2), a cell
+             of a 4 x 4 grad_cam_matrix, an ADMM step and the steps of a
+             solve at c = 10,000, a rank search; card checks (float32,
+             TF32 off): the kernel tower's embedding against the module
+             tower's (1e-3), Grad-CAM on the card against the CPU (1e-3),
+             ADMM at 2,000 concepts (1e-4), greedy indices equal;
+             ``python -m srsem_torch visualize`` for its four kinds when
+             matplotlib is installed (the line says when not; without
+             sklearn the tagger keeps top_k 3, so no KMeans runs).
+17. result — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
              the paths that use it, worst bf16 error, and times summed
              over one scored batch's launches of each path at that
@@ -201,7 +219,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
              images, times ``SWEEP_PASSES``), vit (one scored batch),
              nr_train (its four float32 passes of 8, timed in float32),
              iqa (the clu and the global path's passes), text (the
-             global path's); the head's entry, ``fused_stage_score``
+             global path's), explain (its 22 batch-1 passes); the head's
+             entry, ``fused_stage_score``
              after the TPU kernel it replaces, counts the whole-head
              launches of ``fused_global_score`` and, on the serve path,
              ``fused_grouped_score``), the device line.
@@ -344,6 +363,16 @@ BOTTLENECK_SHAPES["nr_train"] = [((NR_BATCH, h, h, c), wd, k * NR_PASSES)
                                                        (14, 1024, 256, 5),
                                                        (7, 2048, 512, 2))]
 TIMED_DTYPE = {"nr_train": "float32"}
+# The explain path embeds one image a call: EXPLAIN_PAIRS (HQ, SR) pairs
+# through the three approach drivers with one target, 11 CLIP tower passes
+# at batch 1 a pair (simple 2; focus 1 for the tagger and 2 for each of its
+# 3 concepts; SpLiCE focus 2).
+EXPLAIN_PAIRS = 2
+EXPLAIN_PASSES = EXPLAIN_PAIRS * (2 + 1 + 3 * 2 + 2)
+BOTTLENECK_SHAPES["explain"] = [((1, h, h, c), wd, k * EXPLAIN_PASSES)
+                                for (h, c, wd, k) in ((28, 512, 128, 3),
+                                                      (14, 1024, 256, 5),
+                                                      (7, 2048, 512, 2))]
 # Checked and not on the main path: ragged H and W (a ragged last flat
 # tile, ragged patches, an odd patch count).
 BOTTLENECK_SHAPES["global"].append(((9, 13, 11, 1024), 256, 0))
@@ -352,6 +381,7 @@ TILED_SHAPES = {path: [((n, 56, 56, 256), 64, 4)]
 TILED_SHAPES["train"] = [((10, 56, 56, 256), 64, 2),
                          ((160, 56, 56, 256), 64, 2)]
 TILED_SHAPES["nr_train"] = [((NR_BATCH, 56, 56, 256), 64, 2 * NR_PASSES)]
+TILED_SHAPES["explain"] = [((1, 56, 56, 256), 64, 2 * EXPLAIN_PASSES)]
 # CLU decoder levels at batch 32, 224 px: (n, h, w, cd, cu, cm, co,
 # final_kernel, row tile, wrapper calls per scored batch).  The last two
 # rows are checked and not on the default path (v2's odd skip width;
@@ -3923,6 +3953,419 @@ def run_text(torch, np, card: str):
     return launches
 
 
+# The explain phase's concept dictionary (the reference's LAION-10k size,
+# SURVEY.md §2.7, in CLIP RN50's 1024-d joint space), the SpLiCE rank and
+# the Grad-CAM tap (the last CLIP stage).
+N_CONCEPTS, SPLICE_RANK, CAM_TAP = 10_000, 5, "stages.3.2.act"
+
+
+class PixelEncoder:
+    """A dual encoder over [0, 1] NHWC pixels: CLIP's normalization, then
+    the ClipDualEncoder (its image side through the kernel tower)."""
+
+    def __init__(self, torch, dual):
+        from srsem_torch.ops.image import CLIP_MEAN, CLIP_STD
+
+        self.dual = dual
+        self.mean = torch.tensor(CLIP_MEAN, device=dual.device)
+        self.std = torch.tensor(CLIP_STD, device=dual.device)
+
+    def normalize(self, x):
+        return (x - self.mean) / self.std
+
+    def encode_image(self, x):
+        return self.dual.encode_image(self.normalize(x))
+
+    def encode_text(self, texts):
+        return self.dual.encode_text(texts)
+
+
+def explain_pairs(np, root: Path, seed: int):
+    """EXPLAIN_PAIRS + 2 (HQ PNG, SR PNG: the HQ with noise) pairs under
+    ``root`` as relative paths (cwd = root), and a seeded saliency map for
+    each HQ image in the ``SaliencyMaps/`` tree beside it."""
+    from PIL import Image
+
+    from srsem_torch.eval.approaches import saliency_path_for
+
+    (root / "HQ").mkdir(parents=True)
+    (root / "SR").mkdir()
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for i, img in enumerate(smooth_images(np, EXPLAIN_PAIRS + 2, 256, seed)):
+        hq, sr = f"HQ/{i}.png", f"SR/{i}.png"
+        Image.fromarray(img).save(root / hq)
+        noisy = np.clip(img + rng.normal(0, 12, img.shape), 0, 255)
+        Image.fromarray(noisy.astype(np.uint8)).save(root / sr)
+        sal = root / saliency_path_for(hq)
+        sal.parent.mkdir(exist_ok=True)
+        np.save(sal, smooth_images(np, 1, 56, seed + i)[0][..., 0]
+                .astype(np.float32) / 255.0)
+        pairs.append((hq, sr))
+    return pairs
+
+
+def run_explain(torch, np, card: str):
+    """Phase 16 (explain): the approach drivers (A12) on a full-width CLIP
+    ResNet-50 (224, bf16, seeded with random BN statistics) and CLIP text
+    tower (BPE over a merges file written here) behind ClipDualEncoder, a
+    seeded 10,000 x 1024 concept dictionary and image mean, LPIPS alex
+    (seeded), and a seeded ``SaliencyMaps/`` tree.  SpLiCE's hints are
+    first seeded by an l1 sweep on one embedding (the reference ships its
+    hint files); then ``simple_``, ``focus_`` (``ClipTagger`` over
+    DEFAULT_TAG_VOCABULARY; top_k 10 and KMeans to 3 concepts with
+    sklearn, else top_k 3) and ``splice_focus_embedding_similarity``
+    (rank 5) over EXPLAIN_PAIRS pairs with the cosine target, Grad-CAM on
+    ``stages.3.2.act`` of the module tower in bf16 and LPIPS, the counts
+    reset just before and read just after (the explain path: 11 tower
+    passes at batch 1 a pair).  Rates and times: pairs/s of
+    ``compute_embedding_sim_metrics`` with and without Grad-CAM and tags/s
+    (``steady_rate``), ms a CAM (the ResNet, and a ViT-B/16 on
+    ``blocks.11.ls2``, grid 14x14), ms a cell of a 4 x 4
+    ``grad_cam_matrix``, ms an ADMM step and the steps of one l1 solve at
+    c = 10,000, ms a rank search.  Where a pair with Grad-CAM spends its
+    time: each part of ``compute_embedding_sim_metrics`` timed alone, and
+    a profile of the whole pair (the card's busy share, its top kernels,
+    the host's top operations).  Card checks: the kernel tower's
+    embedding against the module tower's (f32, TF32 off, 1e-3 of the
+    largest); a Grad-CAM on the card against the CPU on the same float32
+    weights (1e-3 of the map); ADMM on the card against the CPU at 2,000
+    concepts (1e-4); greedy indices equal on the card and the CPU.  Then
+    ``python -m srsem_torch visualize`` for its four kinds when matplotlib
+    is installed (the line says when it is not).  Returns the path's
+    launches."""
+    import importlib.util
+    import os
+
+    from PIL import Image
+
+    from srsem_torch.backbones.resnet import make_backbone, reset_tower
+    from srsem_torch.backbones.vit import ClipViT
+    from srsem_torch.config import BackboneConfig
+    from srsem_torch.decompose.admm import _solve as admm_solve
+    from srsem_torch.decompose.admm import admm_lasso, precompute_factors
+    from srsem_torch.decompose.greedy import GreedyDecomposer
+    from srsem_torch.decompose.splice import SpliceDecomposer
+    from srsem_torch.eval import approaches
+    from srsem_torch.eval.lpips import make_lpips
+    from srsem_torch.explain.embedders import EmbedderSuite, to_numpy
+    from srsem_torch.explain.gradcam import (grad_cam, grad_cam_matrix,
+                                             grad_cam_tensor)
+    from srsem_torch.explain.iqa import psnr, ssim
+    from srsem_torch.explain.overlap import similarity_matrix
+    from srsem_torch.explain.tagger import DEFAULT_TAG_VOCABULARY, ClipTagger
+    from srsem_torch.explain.targets import (cosine_similarity_target,
+                                             vector_sum_target)
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.pseudo.clip_text import ClipDualEncoder
+    from srsem_torch.pseudo.tokenizer import ClipBpeTokenizer
+
+    dev = torch.device(TRAIN_DEVICE)
+    root = work_dir() / "explain"
+    pairs = explain_pairs(np, root, 31)
+    extra, pairs = pairs[EXPLAIN_PAIRS:], pairs[:EXPLAIN_PAIRS]
+    has_sklearn = importlib.util.find_spec("sklearn") is not None
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    merges = root / "merges.txt"
+    merges.write_text("#version: toy\n" + "\n".join(
+        f"{a} {b}" for a, b in (("s", "k"), ("t", "r"), ("e", "e</w>"),
+                                ("sk", "y</w>"), ("c", "a"))) + "\n")
+
+    t0 = time.perf_counter()
+    tower = make_backbone(BackboneConfig(kind="resnet50_clip",
+                                         image_size=IMAGE))
+    reset_tower(tower, torch.Generator().manual_seed(32))
+    randomize_bn(torch, np, tower, np.random.default_rng(32))
+    tower.requires_grad_(False)
+    dual = ClipDualEncoder(tower, tokenizer=ClipBpeTokenizer(str(merges)),
+                           device=dev)
+    dual.init_text(torch.Generator().manual_seed(33))
+    enc = PixelEncoder(torch, dual)
+    rng = np.random.default_rng(34)
+    concepts = rng.standard_normal((N_CONCEPTS, 1024)).astype(np.float32)
+    concepts /= np.linalg.norm(concepts, axis=1, keepdims=True)
+    image_mean = (rng.standard_normal(1024) * 0.02).astype(np.float32)
+    splice = SpliceDecomposer(concepts, image_mean,
+                              vocab=[f"concept{i}" for i in range(N_CONCEPTS)],
+                              rank_search_max_iter=100, device=dev)
+    torch.cuda.synchronize()
+    setup = {"models_and_cholesky": time.perf_counter() - t0}
+
+    def load_img(path):
+        img = Image.open(path).convert("RGB").resize((IMAGE, IMAGE),
+                                                     Image.BICUBIC)
+        pixels = np.asarray(img, np.float32) / 255.0
+        return torch.from_numpy(pixels)[None].to(dev)
+
+    def cam_fn(img, offsets):
+        return tower(enc.normalize(img), tap_offsets=offsets)
+
+    t0 = time.perf_counter()
+    suite = EmbedderSuite(enc, load_img, splice=splice)
+    top_k = 10 if has_sklearn else 3
+    # Random towers' cosines sit near 0: a threshold of -1 keeps top_k.
+    tagger = ClipTagger(enc, load_img, DEFAULT_TAG_VOCABULARY,
+                        threshold=-1.0, top_k=top_k)
+    lpips = make_lpips("alex", device=dev)
+    setup["suite_tagger_lpips"] = time.perf_counter() - t0
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        # SpLiCE hints from an l1 sweep on the first HQ image's embedding.
+        t0 = time.perf_counter()
+        emb0 = to_numpy(suite.img_embedder(load_img(pairs[0][0])))
+        sweep = {}
+        for l1 in np.geomspace(0.02, 0.5, 12):
+            w = splice.decompose(emb0, l1=float(l1))
+            sweep[int(np.count_nonzero(w[0]))] = float(l1)
+        splice.l1p_hint["admm"].update(sweep)
+        setup["hint_sweep"] = time.perf_counter() - t0
+
+        data = []
+        zero_launches(fb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for hq, sr in pairs:
+            kw = dict(embed_fn_for_cam=cam_fn, lpips_fn=lpips)
+            approaches.simple_embedding_similarity(
+                suite, None, [cosine_similarity_target], CAM_TAP, hq, sr,
+                data, **kw)
+            approaches.focus_embedding_similarity(
+                suite, tagger, [cosine_similarity_target], CAM_TAP, hq, sr,
+                data, **kw)
+            approaches.splice_focus_embedding_similarity(
+                suite, [cosine_similarity_target], CAM_TAP, hq, sr, data,
+                rank=SPLICE_RANK, **kw)
+        launches = read_launches(torch, fb)
+        drivers_s = time.perf_counter() - t0
+        want = {k: EXPLAIN_PASSES * v for k, v in PASS_CALLS.items()}
+        methods = [r["embedding_method"] for r in data]
+        per_pair = ["simple"] + ["focus"] * 3 + ["splice_focus"]
+        bad = [r for r in data if not (
+            np.isfinite([r["score"], r["ssim"], r["psnr"], r["lpips"],
+                         r["gcam_saliency_ssim"], r["gcam_hqgcam_psnr"]])
+            .all() and 0 <= r["hqgcam_overlap_gradcam"] <= 100)]
+        if launches != want or methods != per_pair * EXPLAIN_PAIRS or bad:
+            raise AssertionError(f"explain drivers: launched {launches} "
+                                 f"(want {want}), methods {methods}, "
+                                 f"bad rows {bad[:1]}")
+        emit("explain", step="drivers", pairs=EXPLAIN_PAIRS, rows=len(data),
+             tower_passes=EXPLAIN_PASSES, launches=launches,
+             seconds=drivers_s, setup_seconds=setup, hint_sweep=sweep,
+             sklearn=has_sklearn,
+             focus="KMeans of top_k 10 tags to 3" if has_sklearn else
+             "top_k 3 tags, no KMeans (no sklearn on this machine)",
+             concepts=[r["img_element"] for r in data
+                       if r["embedding_method"] == "focus"],
+             keys=sorted(data[0]), card=card)
+
+        # Rates in the steady state, and single-operation times.
+        every = pairs + extra
+
+        def metrics(do_cam):
+            for hq, sr in every:
+                approaches.compute_embedding_sim_metrics(
+                    suite.img_embedder, cam_fn, CAM_TAP, hq, sr,
+                    cosine_similarity_target, load_img, do_gradcam=do_cam,
+                    lpips_fn=lpips)
+
+        cam_rate = steady_rate(torch, lambda: metrics(True), len(every))
+        plain_rate = steady_rate(torch, lambda: metrics(False), len(every))
+        tag_rate = steady_rate(
+            torch, lambda: [tagger(hq) for hq, _ in every], len(every))
+        imgs = [load_img(hq) for hq, _ in every]
+        target = cosine_similarity_target(
+            rng.standard_normal(1024).astype(np.float32))
+
+        def timed(fn, reps):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        cam_ms = timed(lambda: grad_cam(cam_fn, imgs[0], CAM_TAP, target,
+                                        (IMAGE, IMAGE)), 10)
+        vit = ClipViT().to(dev).requires_grad_(False)
+        vit.reset_parameters(torch.Generator(device=dev).manual_seed(35))
+        vit_target = cosine_similarity_target(
+            rng.standard_normal(768).astype(np.float32))
+        vit_ms = timed(lambda: grad_cam(
+            lambda x, o: vit(enc.normalize(x), tap_offsets=o), imgs[0],
+            "blocks.11.ls2", vit_target, (IMAGE, IMAGE),
+            (IMAGE // 16, IMAGE // 16)), 10)
+        embs = torch.cat([enc.encode_image(x) for x in imgs]).float()
+        t0 = time.perf_counter()
+        grid = grad_cam_matrix(cam_fn, imgs, embs, CAM_TAP,
+                               cosine_similarity_target, (IMAGE, IMAGE))
+        cell_ms = (time.perf_counter() - t0) / grid[:, :, 0, 0].size * 1e3
+        emb1 = to_numpy(suite.img_embedder(imgs[1]))
+        l1 = splice.l1p_hint["admm"].get(SPLICE_RANK, 0.1)
+        # One l1 solve as SpLiCE makes it (centred, unit length), with its
+        # steps under admm_lasso's defaults.
+        v = (emb1 - image_mean) / np.linalg.norm(emb1 - image_mean)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, steps = admm_solve(splice._factors, torch.from_numpy(v).to(dev),
+                              l1, 1e-6, 2000)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranked = splice.decompose(to_numpy(suite.img_embedder(imgs[-1])),
+                                  rank=SPLICE_RANK)
+        rank_ms = (time.perf_counter() - t0) * 1e3
+        if (ranked is None or np.count_nonzero(ranked) != SPLICE_RANK
+                or not np.isfinite(grid).all() or grid.shape != (4, 4, IMAGE,
+                                                                 IMAGE)):
+            raise AssertionError(f"explain: rank search {ranked is None}, "
+                                 f"grid {grid.shape}")
+        emit("explain", step="rates", pairs_per_s_gradcam=cam_rate[0],
+             pairs_timed_gradcam=len(every) * cam_rate[1],
+             seconds_timed_gradcam=cam_rate[2],
+             pairs_per_s_no_gradcam=plain_rate[0],
+             pairs_timed_no_gradcam=len(every) * plain_rate[1],
+             seconds_timed_no_gradcam=plain_rate[2], tags_per_s=tag_rate[0],
+             tags_timed=len(every) * tag_rate[1],
+             tags_seconds_timed=tag_rate[2], ms_cam_resnet_bf16=cam_ms,
+             ms_cam_vit_b16_bf16=vit_ms, ms_matrix_cell=cell_ms,
+             admm_concepts=N_CONCEPTS, admm_l1=l1, admm_steps=steps,
+             admm_nonzeros=int(torch.count_nonzero(w)),
+             ms_admm_solve=solve_s * 1e3, ms_per_admm_step=solve_s / steps
+             * 1e3, ms_rank_search=rank_ms, card=card)
+
+        # Where a pair with Grad-CAM spends its time.
+        hq, sr = pairs[0]
+        hq4, sr4 = load_img(hq), load_img(sr)
+        hq_emb = suite.img_embedder(hq4).float()
+        sal = torch.from_numpy(approaches.load_saliency(hq)).float().to(dev)
+
+        def two_cams():
+            return (grad_cam_tensor(cam_fn, sr4, CAM_TAP,
+                                    cosine_similarity_target(hq_emb),
+                                    (IMAGE, IMAGE))[0],
+                    grad_cam_tensor(cam_fn, hq4, CAM_TAP, vector_sum_target(),
+                                    (IMAGE, IMAGE))[0])
+
+        cam, hq_cam = two_cams()
+
+        def comparisons():
+            row = {}
+            for a, b, name in ((cam, sal, "gcam_saliency"),
+                               (hq_cam, sal, "hqgcam_saliency"),
+                               (cam, hq_cam, "gcam_hqgcam")):
+                row.update(approaches._map_pair_scores(a, b, name))
+            for a, b, na, nb in ((hq_cam, sal, "hqgcam", "saliency"),
+                                 (cam, sal, "gradcam", "saliency"),
+                                 (hq_cam, cam, "hqgcam", "gradcam")):
+                row.update(approaches._overlap_scores(a, b, na, nb))
+            return approaches._to_host(row, dev)
+
+        def pair():
+            return approaches.compute_embedding_sim_metrics(
+                suite.img_embedder, cam_fn, CAM_TAP, hq, sr,
+                cosine_similarity_target, load_img, lpips_fn=lpips)
+
+        parts = {
+            "load_2_images": lambda: (load_img(hq), load_img(sr)),
+            "embed_2_kernel_tower": lambda: (suite.img_embedder(hq4),
+                                             suite.img_embedder(sr4)),
+            "ssim_psnr": lambda: (ssim(hq4, sr4), psnr(hq4, sr4)),
+            "lpips": lambda: lpips(hq4, sr4),
+            "cam_2_module_tower": two_cams,
+            "cam_comparisons": comparisons}
+        part_ms = {k: timed(fn, 5) for k, fn in parts.items()}
+        pair_ms = timed(pair, 5)
+        emit("explain", step="pair_breakdown", ms=part_ms,
+             ms_sum_of_parts=sum(part_ms.values()), ms_pair=pair_ms,
+             card=card, **profile_scoring(torch, types.SimpleNamespace(
+                 score_arrays=lambda a, b: pair()), None, None, reps=3,
+                 host_top=10))
+
+        # Card checks.
+        tower32 = make_backbone(BackboneConfig(
+            kind="resnet50_clip", image_size=IMAGE, compute_dtype="float32"))
+        tower32.load_state_dict(tower.state_dict())
+        tower32.requires_grad_(False)
+        x = enc.normalize(imgs[0])
+        with torch.no_grad():
+            module_emb = tower32.to(dev)(x)[0]
+        kernel_emb = ClipDualEncoder(copy.deepcopy(tower32),
+                                     device=dev).encode_image(x)
+        errs = {"embedding": float((kernel_emb - module_emb).abs().max())}
+        scale = {"embedding": float(module_emb.abs().max())}
+        # A cosine target and its negation: the CAM of one of the two is
+        # not all zero (their gradients differ in sign only).
+        direction = rng.standard_normal(1024).astype(np.float32)
+        cams = {}
+        for where in (TRAIN_DEVICE, "cpu"):
+            t = copy.deepcopy(tower32).to(where)
+            cams[where] = np.concatenate([grad_cam(
+                lambda im, o, t=t: t(im, tap_offsets=o), x.to(where),
+                CAM_TAP, cosine_similarity_target(sign * direction),
+                (IMAGE, IMAGE)) for sign in (1, -1)])
+        errs["cam"] = float(np.abs(cams[TRAIN_DEVICE] - cams["cpu"]).max())
+        scale["cam"] = 1.0
+        small = concepts[:2000]
+        on = {where: admm_lasso(None, v, 0.05, factors=precompute_factors(
+            small, device=where)).cpu().numpy()
+            for where in (TRAIN_DEVICE, "cpu")}
+        errs["admm"] = float(np.abs(on[TRAIN_DEVICE] - on["cpu"]).max())
+        scale["admm"] = 1.0
+        greedy = {where: [int(i) for i in GreedyDecomposer(
+            concepts, rank=8, device=where)(v[0])[2]]
+            for where in (TRAIN_DEVICE, "cpu")}
+        tol = {"embedding": 1e-3, "cam": 1e-3, "admm": 1e-4}
+        if (any(errs[k] > tol[k] * max(scale[k], 1e-30) for k in errs)
+                or greedy[TRAIN_DEVICE] != greedy["cpu"]
+                or cams["cpu"].max() <= 0.5
+                or not 0 < np.count_nonzero(on["cpu"]) < 2000):
+            raise AssertionError(f"explain card vs CPU: {errs} (scale "
+                                 f"{scale}), greedy {greedy}")
+        emit("explain", step="f32_card_checks", max_abs_err=errs, scale=scale,
+             tolerance="embedding 1e-3 of the largest, CAM 1e-3, ADMM 1e-4",
+             admm_concepts=len(small), admm_nonzeros=int(np.count_nonzero(
+                 on["cpu"])), greedy_indices=greedy["cpu"])
+
+        # visualize, headless, in its own process.
+        vis = {}
+        if has_mpl:
+            cam_file = root / "cam.npy"
+            np.save(cam_file, cams["cpu"][int(cams["cpu"][0].max() <= 0.5)])
+            sim = root / "sim.npy"
+            np.save(sim, similarity_matrix(embs, cosine_similarity_target))
+            _, words, scores = splice.weights2words(ranked)
+            weights = root / "splice.json"
+            weights.write_text(json.dumps(
+                {str(wd): float(sc) for wd, sc in zip(words[0], scores[0])}))
+            for kind, args in (
+                    ("overlay", ["--image", pairs[0][0], "--map",
+                                 str(cam_file)]),
+                    ("grid", ["--images", *[p for pr in pairs for p in pr],
+                              "--cols", "2"]),
+                    ("heatmap", ["--matrix", str(sim), "--title", "cosine"]),
+                    ("splice", ["--json", str(weights)])):
+                out = root / f"vis_{kind}.png"
+                t0 = time.perf_counter()
+                res = subprocess.run(
+                    [sys.executable, "-m", "srsem_torch", "visualize", kind,
+                     *args, "--out", str(out)], capture_output=True,
+                    text=True, timeout=300,
+                    env={**os.environ, "PYTHONPATH": str(REPO)})
+                if res.returncode != 0 or not out.stat().st_size:
+                    raise AssertionError(f"visualize {kind}: {res.stderr}")
+                vis[kind] = {"seconds": time.perf_counter() - t0,
+                             "bytes": out.stat().st_size}
+        emit("explain", step="visualize", ran=has_mpl, kinds=vis,
+             note=None if has_mpl else
+             "matplotlib is not installed on this machine: not run")
+    finally:
+        os.chdir(cwd)
+    return launches
+
+
 # Stack frame bytes of each head-kernel instance (dtype 0 f32, 1 bf16,
 # 2 f16; KT SR images an item) at four stages (ptxas -v, H100 build of
 # csrc/fused_head.cu before the limit went to 12).  Twelve stage
@@ -4013,7 +4456,8 @@ def main() -> int:
                      ("dual", run_dual), ("train", run_train),
                      ("finetune", run_finetune), ("sweeps", run_sweeps),
                      ("vit", run_vit), ("nr_train", run_nr_train),
-                     ("iqa", run_iqa), ("text", run_text)):
+                     ("iqa", run_iqa), ("text", run_text),
+                     ("explain", run_explain)):
         t0 = time.perf_counter()
         runs[path] = fn(torch, np, card)
         seconds[path] = time.perf_counter() - t0

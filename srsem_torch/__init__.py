@@ -24,6 +24,10 @@ mirrors the JAX package's module paths so each counterpart is easy to find:
 * ``train.checkpoint``       — srsem/train/checkpoint.py (flax msgpack)
 * ``train.partition``        — srsem/train/partition.py
 * ``utils.convert``          — weights from JAX params / torchvision / CLIP
+* ``explain``                — srsem/explain (Grad-CAM, overlap, targets,
+  embedders, tagger, IQA, visual; saliency, dual encoders, fusion: A12)
+* ``decompose``              — srsem/decompose (SpLiCE, ADMM, greedy)
+* ``eval.approaches``        — srsem/eval/approaches.py (approach drivers)
 
 Public functions keep the JAX layout (NHWC).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.

@@ -24,7 +24,15 @@ torchvision layout (``conv1``, ``bn1``,
 ``visual`` layout (``conv1..3``/``bn1..3``, the same block keys,
 ``attnpool.{positional_embedding,q_proj,k_proj,v_proj,c_proj}``), so
 srsem/utils/convert.py::convert_torch_resnet50 and ::convert_clip_resnet50
-read the port's own ``state_dict()``.  Tap offsets wait (ROADMAP A12).
+read the port's own ``state_dict()``.
+
+``forward(x, tap_offsets)`` takes an optional ``{tap name: NHWC tensor}``
+of additive offsets, each added where the JAX package's ``_tap`` adds it
+(srsem/backbones/resnet.py:229-236) so that the tap and everything after
+it see it: Grad-CAM (srsem_torch/explain/gradcam.py) differentiates with
+respect to a zero offset to get d(output)/d(activation).  The tap records
+the activation with its offset.  An entry of None makes that zero offset
+in the forward (``tap_offset``).
 
 ``lora_rank`` puts LoRA factors (srsem_torch/ops/lora.py) on every conv of
 the tower, the downsample convs included, and on no attention-pool
@@ -70,6 +78,28 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW channels_last tensor → its contiguous NHWC view."""
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def tap_offset(offsets, name: str, shape, like: torch.Tensor):
+    """The offset registered for tap ``name``, or None.  An entry of None
+    asks for a zero offset that takes a gradient: it is made here, of the
+    tap's ``shape`` and ``like``'s dtype and device, and put back in
+    ``offsets`` for the caller to differentiate against (Grad-CAM learns
+    the tap's shape so without a forward of its own)."""
+    if not offsets or name not in offsets:
+        return None
+    if offsets[name] is None:
+        offsets[name] = torch.zeros(shape, dtype=like.dtype, device=like.device,
+                                    requires_grad=True)
+    return offsets[name].to(like.dtype)
+
+
+def add_tap_offset(h: torch.Tensor, offsets, name: str) -> torch.Tensor:
+    """NCHW ``h`` plus the NHWC offset registered for tap ``name`` (cast to
+    h's dtype), or ``h`` when there is none."""
+    n, c, hh, ww = h.shape
+    off = tap_offset(offsets, name, (n, hh, ww, c), h)
+    return h if off is None else h + to_nchw(off)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -184,19 +214,23 @@ class ImageNetResNet50(nn.Module):
         """``[layer1, ..., layer4]`` as a list of block lists."""
         return [list(getattr(self, f"layer{s + 1}")) for s in range(4)]
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, tap_offsets=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         taps: Dict[str, torch.Tensor] = {}
         h = to_nchw(x.to(self.dtype))
         stem = conv_nchw(h, self.conv1)
-        taps[IMAGENET_STEM_TAP] = to_nhwc(stem)  # raw pre-BN conv output
+        # The raw pre-BN conv output (the reference hooks the bare conv).
+        stem = add_tap_offset(stem, tap_offsets, IMAGENET_STEM_TAP)
+        taps[IMAGENET_STEM_TAP] = to_nhwc(stem)
         h = F.relu(self.bn1(stem))
         h = F.max_pool2d(h, 3, 2, 1)
         for s, blocks in enumerate(self.stages()):
             for b, block in enumerate(blocks):
                 h = block(h)
                 if b == 2:
-                    taps[IMAGENET_STAGE_TAPS[s]] = to_nhwc(h)
+                    name = IMAGENET_STAGE_TAPS[s]
+                    h = add_tap_offset(h, tap_offsets, name)
+                    taps[name] = to_nhwc(h)
         return h.mean(dim=(2, 3)), taps
 
 
@@ -309,16 +343,18 @@ class ClipResNet50(nn.Module):
             h = F.relu(bn(conv_nchw(h, conv)))
         return h
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, tap_offsets=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        h = self.stem(x)
+        h = add_tap_offset(self.stem(x), tap_offsets, CLIP_STEM_TAP)
         taps: Dict[str, torch.Tensor] = {CLIP_STEM_TAP: to_nhwc(h)}
         h = F.avg_pool2d(h, 2)
         for s, blocks in enumerate(self.stages()):
             for b, block in enumerate(blocks):
                 h = block(h)
                 if b < 3:
-                    taps[f"stages.{s}.{b}.act"] = to_nhwc(h)
+                    name = f"stages.{s}.{b}.act"
+                    h = add_tap_offset(h, tap_offsets, name)
+                    taps[name] = to_nhwc(h)
         return self.attnpool(h), taps
 
 

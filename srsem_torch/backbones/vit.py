@@ -28,6 +28,11 @@ Casts follow the JAX package exactly:
 
 The positional table is always the 14x14 + 1 training grid and is
 interpolated to the input's patch grid on every call.
+
+``forward(x, tap_offsets)`` adds an optional ``{"blocks.{l}.ls2": (N, 1 +
+patches, width)}`` offset to that block's branch before the residual add,
+as srsem/backbones/vit.py:135-139 does for Grad-CAM; an entry of None
+makes a zero offset that takes a gradient (resnet.py::tap_offset).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from srsem_torch.backbones.resnet import tap_offset
 from srsem_torch.ops.image import interpolate_pos_embed
 
 Tensor = torch.Tensor
@@ -165,7 +171,8 @@ class ClipViT(nn.Module):
             self.cls_token.normal_(0.0, 0.02, generator=generator)
             self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+    def forward(self, x: Tensor, tap_offsets=None
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
         n = x.shape[0]
         dt = self.dtype
         proj = self.patch_embed.proj
@@ -181,6 +188,10 @@ class ClipViT(nn.Module):
         taps: Dict[str, Tensor] = {}
         for l, block in enumerate(self.blocks):
             x_attn, branch = block(tokens)
-            taps[f"blocks.{l}.ls2"] = branch
+            name = f"blocks.{l}.ls2"
+            off = tap_offset(tap_offsets, name, branch.shape, branch)
+            if off is not None:
+                branch = branch + off
+            taps[name] = branch
             tokens = x_attn + branch
         return _layer_norm(tokens, self.norm)[:, 0], taps

@@ -2,9 +2,9 @@
 ``score-groups``, ``score-maps-groups``, ``serve``, ``sweep-dataset``,
 ``train-global``, ``eval-global``, ``train-clu``, ``sweep-global``,
 ``sweep-clu``, ``folder-metrics``, ``train-nr-iqa``, ``pseudo-c2c``,
-``pseudo-captions``, ``maps-build``, ``convert`` and ``info``
-subcommands of srsem/cli/main.py so far, and the global ``--profile
-DIR``).
+``pseudo-captions``, ``maps-build``, ``convert``, ``info`` and
+``visualize`` subcommands of srsem/cli/main.py so far, and the global
+``--profile DIR``).
 
     python -m srsem_torch score pairs.csv --backbone resnet50 [--device cpu]
     python -m srsem_torch score pairs.csv --backbone resnet50_clip \
@@ -31,6 +31,7 @@ DIR``).
     python -m srsem_torch maps-build pairs.csv [--out-dir DIR]
     python -m srsem_torch convert vit.pt --kind clip_vit --out vit.msgpack
     python -m srsem_torch info [--native] [--devices]
+    python -m srsem_torch visualize overlay --image IMG --map MAP.npy --out o.png
     python -m srsem_torch --profile DIR score-groups GT_DIR SR_DIR...
 
 Flags follow srsem/cli/main.py (:957-1072, :1119-1205, :1206-1246 and
@@ -784,6 +785,109 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_visualize(args) -> int:
+    """Render scoring artifacts to image files — the reference's notebook
+    plotting surface (additional_approaches/src/visual_utils.py:9-219) as a
+    CLI over srsem_torch/explain/visual.py (srsem/cli/main.py:839-903).  Kinds:
+
+    * ``overlay`` — blend a fidelity/cosine map (.npy from ``serve``/
+      ``score-maps-groups``, or a cosine-map .pkl) onto its image;
+    * ``grid``    — tile images (e.g. GT + the K SR outputs) into one PNG;
+    * ``heatmap`` — a similarity-matrix .npy/.pkl as an annotated heatmap;
+    * ``splice``  — SpLiCE word-weight bars from a {word: weight} JSON
+      (``srsem_torch.decompose.splice.weights2words`` output).
+
+    Headless by construction (matplotlib Agg) and device-free: nothing on
+    this path calls ``torch.cuda``, so the command never claims a card a
+    running ``serve`` holds (the map resize is pure numpy,
+    srsem_torch/explain/visual.py::_resize_bilinear_np)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+    from PIL import Image
+
+    from srsem_torch.explain.visual import (overlay_cam, plot_image_grid,
+                                            plot_similarity_heatmap,
+                                            plot_splice_weights)
+
+    def _need(name: str) -> None:
+        if getattr(args, name.replace("-", "_"), None) in (None, []):
+            raise SystemExit(
+                f"visualize {args.kind}: --{name} is required")
+
+    def _load01(path: str) -> np.ndarray:
+        return np.asarray(Image.open(path).convert("RGB"),
+                          np.float32) / 255.0
+
+    def _load_array(path: str) -> np.ndarray:
+        """.npy or .pkl → float32 array (maps and similarity matrices are
+        emitted in both formats by the pipelines)."""
+        if path.endswith(".pkl"):
+            import pickle
+
+            with open(path, "rb") as f:
+                return np.asarray(pickle.load(f), np.float32)
+        if path.endswith(".npy"):
+            return np.asarray(np.load(path), np.float32)
+        raise SystemExit(f"{path}: unsupported extension (expected .npy "
+                         f"or .pkl)")
+
+    def _load_map(path: str) -> np.ndarray:
+        m = np.squeeze(_load_array(path))
+        if m.ndim != 2:
+            raise SystemExit(f"map {path}: expected a 2-D map, got "
+                             f"shape {m.shape}")
+        lo, hi = float(m.min()), float(m.max())
+        if args.normalize:
+            return ((m - lo) / (hi - lo) if hi > lo else np.zeros_like(m))
+        # Tiny float overshoots (e.g. a sigmoid map saved as 1.0000001)
+        # are clipped, not rescaled — a silent min-max remap would change
+        # the rendered contrast of an effectively-[0,1] map.
+        if -1e-3 <= lo and hi <= 1.0 + 1e-3:
+            return np.clip(m, 0.0, 1.0)
+        print(f"visualize: map {path} has range [{lo:g}, {hi:g}] — "
+              f"min-max rescaling to [0,1] (pass --normalize to silence)",
+              file=sys.stderr)
+        return ((m - lo) / (hi - lo) if hi > lo else np.zeros_like(m))
+
+    if args.kind == "overlay":
+        _need("image"), _need("map")
+        arr = overlay_cam(_load01(args.image), _load_map(args.map),
+                          alpha=args.alpha)
+        Image.fromarray(arr).save(args.out)
+    elif args.kind == "grid":
+        _need("images")
+        fig = plot_image_grid([_load01(p) for p in args.images],
+                              titles=args.titles, cols=args.cols)
+        fig.savefig(args.out, dpi=150)
+        plt.close(fig)
+    elif args.kind == "heatmap":
+        _need("matrix")
+        mat = np.atleast_2d(_load_array(args.matrix))
+        ax = plot_similarity_heatmap(mat, labels=args.labels,
+                                     title=args.title,
+                                     annotate=mat.size <= 400)
+        ax.figure.savefig(args.out, dpi=150, bbox_inches="tight")
+        plt.close(ax.figure)
+    else:  # splice
+        _need("json")
+        with open(args.json) as f:
+            weights = json.load(f)
+        items = (list(weights.items()) if isinstance(weights, dict)
+                 else [tuple(kv) for kv in weights])
+        items.sort(key=lambda kv: -abs(float(kv[1])))
+        items = items[: args.top]
+        ax = plot_splice_weights([w for w, _ in items],
+                                 [float(s) for _, s in items],
+                                 title=args.title or "SpLiCE decomposition")
+        ax.figure.savefig(args.out, dpi=150, bbox_inches="tight")
+        plt.close(ax.figure)
+    print(json.dumps({"kind": args.kind, "out": args.out}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="srsem_torch")
     parser.add_argument(
@@ -1185,6 +1289,31 @@ def main(argv=None) -> int:
     p.add_argument("--native", action="store_true",
                    help="build/load the C++ decoder and report its status")
     p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser(
+        "visualize",
+        help="render artifacts: map overlays, image grids, similarity "
+             "heatmaps, SpLiCE weight bars (reference: visual_utils.py)")
+    p.add_argument("kind", choices=["overlay", "grid", "heatmap", "splice"])
+    p.add_argument("--out", required=True, help="output image path")
+    p.add_argument("--image", help="overlay: the image under the map")
+    p.add_argument("--map", help="overlay: .npy fidelity map or .pkl "
+                                 "cosine map")
+    p.add_argument("--alpha", type=float, default=0.5,
+                   help="overlay: heatmap blend weight")
+    p.add_argument("--normalize", action="store_true",
+                   help="overlay: min-max rescale the map to [0,1] "
+                        "(automatic when values fall outside [0,1])")
+    p.add_argument("--images", nargs="+", help="grid: image paths")
+    p.add_argument("--titles", nargs="+", help="grid: per-cell titles")
+    p.add_argument("--cols", type=int, default=4)
+    p.add_argument("--matrix", help="heatmap: .npy similarity matrix")
+    p.add_argument("--labels", nargs="+", help="heatmap: axis labels")
+    p.add_argument("--title", default="")
+    p.add_argument("--json", help="splice: {word: weight} JSON")
+    p.add_argument("--top", type=int, default=20,
+                   help="splice: keep the top-N |weight| words")
+    p.set_defaults(fn=cmd_visualize)
 
     args = parser.parse_args(argv)
     if args.profile:

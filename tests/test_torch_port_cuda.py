@@ -674,3 +674,123 @@ def test_tower_training_step_on_card_matches_cpu(cuda_device, rank):
                 mc[moment][key], w, rtol=1e-3,
                 atol=max(1e-2 * float(np.abs(w).max()), 1e-4 * tree_scale),
                 err_msg=f"{moment} {key}")
+
+
+# The explain path embeds one image a call: the bottleneck at batch 1.
+_BATCH1 = [((1, 56, 56, 256), 64, 8), ((1, 28, 28, 512), 128, None),
+           ((1, 14, 14, 1024), 256, None), ((1, 7, 7, 2048), 512, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,wd,row_tile", _BATCH1)
+def test_bottleneck_at_batch_one(cuda_device, dtype, shape, wd, row_tile):
+    """The four stages' shapes at batch 1 (a tower pass of the explain
+    path; stage 3's 49 pixels are one 64-row tile): the plan's three
+    launches, its blocks and rows computed over useful, and the kernel
+    against the plain version (f32 1e-4, bf16 2e-2)."""
+    rng = np.random.default_rng(10)
+    x = torch.tensor(rng.normal(size=shape).astype(np.float32),
+                     device=cuda_device).to(dtype)
+    plan = tfb.kernel_plan(x, wd, sms=132)
+    m = shape[1] * shape[2]
+    assert plan.launches == 3
+    if dtype == torch.bfloat16:  # tensor cores: flat 1x1 convs, paired
+        assert plan.tilings[0] == plan.tilings[2] == "flat"
+        pairs = -(-m // 128)
+        for i, cout in ((0, wd), (2, shape[-1])):
+            assert cout % plan.nts[i] == 0
+            assert plan.blocks[i] == pairs * cout // plan.nts[i]
+            assert plan.rows_ratio[i] == pytest.approx(pairs * 128 / m)
+    assert plan.rows_ratio[1] >= 1
+    ws = _weights(rng, shape[-1], wd, cuda_device)
+    wrapper = tfb.fused_bottleneck_tiled if row_tile else tfb.fused_bottleneck
+    kwargs = {"row_tile": row_tile} if row_tile else {}
+    before = wrapper.launches
+    got = wrapper(x, tfb.pack_weights(ws, dtype), **kwargs)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               tfb.plain_bottleneck(x, ws, row_tile).float(),
+                               rtol=tol, atol=tol)
+
+
+def _clip_cam_tower(size):
+    """A CLIP ResNet-50 with identity BN and small gammas closing each
+    residual branch (its embedding moves with the image), float32."""
+    from srsem_torch.backbones.resnet import ClipResNet50, reset_tower
+
+    tower = ClipResNet50(torch.float32, size)
+    reset_tower(tower, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for name, m in tower.named_modules():
+            if name.startswith("layer") and name.endswith(("bn3",
+                                                           "downsample.1")):
+                m.weight.fill_(0.2)
+    return tower.requires_grad_(False).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", ["stages.3.2.act", "stem.conv3"])
+def test_grad_cam_on_card_matches_cpu(cuda_device, tap):
+    """Grad-CAM through the module tower at 224 px in float32 (TF32 off)
+    on the card against the CPU on the same weights, within 1e-3 of the
+    map; the card run's map comes from tensors that stayed on the card."""
+    import copy
+
+    from srsem_torch.explain.gradcam import grad_cam, grad_cam_matrix
+    from srsem_torch.explain.targets import cosine_similarity_target
+
+    tower = _clip_cam_tower(224)
+    rng = np.random.default_rng(11)
+    x = rng.random((1, 224, 224, 3)).astype(np.float32)
+    target = rng.standard_normal((1, 1024)).astype(np.float32)
+    cams = {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        t = copy.deepcopy(tower).to(dev)
+        seen = []
+
+        def embed(img, offsets, t=t, seen=seen):
+            seen.append(img.device.type)
+            return t(img, tap_offsets=offsets)
+
+        cams[name] = grad_cam(embed, torch.from_numpy(x).to(dev), tap,
+                              cosine_similarity_target(target), (224, 224))
+        assert set(seen) == {dev.type}
+    assert cams["cpu"].max() > 0.5
+    np.testing.assert_allclose(cams["card"], cams["cpu"], atol=1e-3)
+    t = tower.to(cuda_device)
+    imgs = [torch.from_numpy(x).to(cuda_device),
+            torch.from_numpy(rng.random((1, 224, 224, 3)).astype(np.float32))
+            .to(cuda_device)]
+    embs = torch.cat([t(im)[0] for im in imgs])
+    grid = grad_cam_matrix(lambda img, o: t(img, tap_offsets=o), imgs, embs,
+                           tap, cosine_similarity_target, (56, 56))
+    assert grid.shape == (2, 2, 56, 56) and np.isfinite(grid).all()
+
+
+@pytest.mark.cuda
+def test_admm_and_greedy_on_card_match_cpu(cuda_device):
+    """ADMM on the card (cuSOLVER's Cholesky, cuBLAS's triangular solves)
+    against the CPU at a 2,000-concept dictionary of width 1024, within
+    1e-4; the greedy span's indices equal."""
+    from srsem_torch.decompose.admm import admm_lasso, precompute_factors
+    from srsem_torch.decompose.greedy import GreedyDecomposer
+
+    rng = np.random.default_rng(12)
+    concepts = rng.standard_normal((2000, 1024)).astype(np.float32)
+    concepts /= np.linalg.norm(concepts, axis=1, keepdims=True)
+    v = rng.standard_normal((2, 1024)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        factors = precompute_factors(concepts, device=dev)
+        w = admm_lasso(None, v, 0.2, factors=factors)
+        assert w.device.type == dev.type
+        out[dev.type] = w.cpu().numpy()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4)
+    assert 0 < np.count_nonzero(out["cpu"]) < concepts.shape[0]
+    idx = {dev: [int(i) for i in GreedyDecomposer(
+        concepts, rank=8, device=dev)(v[0])[2]] for dev in ("cuda", "cpu")}
+    assert idx["cuda"] == idx["cpu"]
