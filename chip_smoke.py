@@ -208,7 +208,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
              ``python -m srsem_torch visualize`` for its four kinds when
              matplotlib is installed (the line says when not; without
              sklearn the tagger keeps top_k 3, so no KMeans runs).
-17. result — a ``timing`` line (seconds of each phase), the card line,
+17. saliency — A12's second half, float32 (TF32 off) but SLIP's bf16
+             tower: ``python -m srsem_torch saliency --random-init``
+             (TranSalNet-Dense at 288x384) over 8 images of mixed aspect
+             (maps of each source's shape in [0, 1], the meta marker);
+             SLIP (ViT-B/16 at 224, 512-d, the CLIP text tower) and
+             ALBEF (its DeiT ViT-B/16 at 384, BERT-base, 256-d) through
+             their dual encoders at batch 64, the ITM head (577 image
+             tokens against 16 captions of 30 tokens), one pair through
+             ``compute_embedding_sim_metrics`` over the SLIP suite
+             against the tree the CLI wrote; every kernel's count reset
+             just before and read just after must stay 0 (no kernel lies
+             on this path); images/s, embeddings/s, texts/s and ITM
+             pairs/s in the steady state, a profile of one TranSalNet
+             image; card vs CPU (1e-3 of each output's largest).
+18. result — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
              the paths that use it, worst bf16 error, and times summed
              over one scored batch's launches of each path at that
@@ -219,7 +233,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
              images, times ``SWEEP_PASSES``), vit (one scored batch),
              nr_train (its four float32 passes of 8, timed in float32),
              iqa (the clu and the global path's passes), text (the
-             global path's), explain (its 22 batch-1 passes); the head's
+             global path's), explain (its 22 batch-1 passes); finetune
+             and saliency launch none and have no entry; the head's
              entry, ``fused_stage_score``
              after the TPU kernel it replaces, counts the whole-head
              launches of ``fused_global_score`` and, on the serve path,
@@ -4366,6 +4381,319 @@ def run_explain(torch, np, card: str):
     return launches
 
 
+# The saliency phase's folder (about 8 images of mixed aspect, (h, w)),
+# TranSalNet's input, and the dual encoders' batches: SLIP at 224 px and
+# ALBEF at 384 (577 tokens), 64 images or captions a call; the ITM head
+# scores one image against ITM_CAPTIONS captions of ITM_TOKENS tokens.
+SALIENCY_SOURCES = [(500, 200), (200, 500), (768, 1024), (384, 512),
+                    (480, 640), (600, 300), (256, 256), (300, 400)]
+SALIENCY_SIZE = (288, 384)
+DUAL_EMBED_BATCH, ALBEF_SIZE, ITM_CAPTIONS, ITM_TOKENS = 64, 384, 16, 30
+KERNEL_WRAPPERS = ("fused_stage_score", "fused_global_score",
+                   "fused_grouped_score", "fused_bottleneck",
+                   "fused_bottleneck_tiled", "fused_decoder_level",
+                   "fused_decoder_level_tiled")
+
+
+def kernel_wrappers():
+    """Every kernel wrapper with a launch count, by name."""
+    from srsem_torch.ops import fused_bottleneck, fused_decoder, fused_head
+
+    return {name: getattr(mod, name) for mod in (fused_head, fused_bottleneck,
+                                                 fused_decoder)
+            for name in KERNEL_WRAPPERS if hasattr(mod, name)}
+
+
+def albef_tokens(torch, vit, x):
+    """ALBEF's image states for the fusion encoder: the tower's patch
+    embedding, class token and positional table, its blocks and its final
+    LayerNorm over every token, (N, 1 + patches, 768) in float32 (the
+    port's ClipViT returns only the class token's)."""
+    import torch.nn.functional as F
+
+    from srsem_torch.backbones.vit import _layer_norm
+    from srsem_torch.ops.image import interpolate_pos_embed
+
+    proj, dt = vit.patch_embed.proj, vit.dtype
+    with torch.no_grad():
+        p = F.conv2d(torch.as_tensor(x, device=proj.weight.device).to(dt)
+                     .permute(0, 3, 1, 2), proj.weight.to(dt),
+                     proj.bias.to(dt), stride=vit.patch)
+        tokens = p.flatten(2).transpose(1, 2)
+        tokens = torch.cat([vit.cls_token.to(dt).expand(
+            tokens.shape[0], 1, -1), tokens], dim=1)
+        tokens = tokens + interpolate_pos_embed(vit.pos_embed,
+                                                tuple(p.shape[2:])).to(dt)
+        for block in vit.blocks:
+            x_attn, branch = block(tokens)
+            tokens = x_attn + branch
+        return _layer_norm(tokens, vit.norm)
+
+
+def run_saliency(torch, np, card: str):
+    """Phase 17 (saliency): A12's second half at full width, seeded,
+    float32 with TF32 off.  TranSalNet-Dense at 288x384: ``python -m
+    srsem_torch saliency --random-init`` over SALIENCY_SOURCES images of
+    mixed aspect (each map its source's shape, values in [0, 1], the meta
+    marker written); SLIP (a bf16 ViT-B/16 at 224 with a 512-d projection
+    and the full CLIP text tower) and ALBEF (the float32 DeiT ViT-B/16 at
+    384, BERT-base with CLS pooling, 256-d projections) behind
+    SlipDualEncoder / AlbefDualEncoder; ALBEF's fusion encoder scoring one
+    image's 577 tokens against ITM_CAPTIONS captions (AlbefItmScorer);
+    one (HQ, SR) pair through ``compute_embedding_sim_metrics`` over an
+    EmbedderSuite of the SLIP encoder (Grad-CAM on blocks.11.ls2) against
+    the SaliencyMaps tree the CLI wrote (the ``*_saliency_*`` keys).  The
+    launch counts of every kernel wrapper are reset just before and read
+    just after: no kernel lies on this path (the JAX package runs it as
+    plain XLA), so every count must be 0.  Rates (``steady_rate``):
+    TranSalNet images/s at batch 1 with a profile of one image (busy share,
+    top device kernels, the host's top operations), SLIP image embeddings/s
+    at batch 64 and texts/s, ALBEF image embeddings/s at batch 64, ITM
+    pairs/s.  Card checks (float32, TF32 off): a TranSalNet map (random
+    BN statistics) on the card against the CPU within 1e-3 of its largest
+    value; SLIP (a float32 copy of its tower), ALBEF and the ITM
+    probabilities of four captions on the card against the CPU within
+    1e-3 of the largest.  The models are built and drawn on the card.
+    Returns the path's launch counts (all zero)."""
+    import os
+
+    from PIL import Image
+
+    from srsem_torch.backbones.vit import ClipViT
+    from srsem_torch.eval import approaches
+    from srsem_torch.explain.dual_encoders import (AlbefDualEncoder,
+                                                   SlipDualEncoder, albef_bert,
+                                                   albef_vit)
+    from srsem_torch.explain.embedders import EmbedderSuite
+    from srsem_torch.explain.fusion import AlbefFusionEncoder, AlbefItmScorer
+    from srsem_torch.explain.saliency import (TranSalNetDense,
+                                              postprocess_crop,
+                                              preprocess_pad)
+    from srsem_torch.explain.targets import cosine_similarity_target
+    from srsem_torch.pseudo.clip_text import ClipTextEncoder
+    from srsem_torch.pseudo.tokenizer import (ClipBpeTokenizer,
+                                              WordPieceTokenizer)
+
+    dev = torch.device(TRAIN_DEVICE)
+    root = work_dir() / "saliency"
+    hq_dir, sr_dir = root / "data" / "HQ", root / "data" / "SR"
+    hq_dir.mkdir(parents=True)
+    sr_dir.mkdir()
+    rng = np.random.default_rng(40)
+    for i, (h, w) in enumerate(SALIENCY_SOURCES):
+        img = np.asarray(Image.fromarray(smooth_images(np, 1, 64, 40 + i)[0])
+                         .resize((w, h), Image.BICUBIC))
+        Image.fromarray(img).save(hq_dir / f"{i}.png")
+        noisy = np.clip(img + rng.normal(0, 12, img.shape), 0, 255)
+        Image.fromarray(noisy.astype(np.uint8)).save(sr_dir / f"{i}.png")
+    out = root / "data" / "SaliencyMaps" / "HQ"
+    syll = ["ka", "lo", "mi", "ne", "su", "ra", "to", "vi", "be", "do"]
+    words = sorted({"".join(rng.choice(syll, rng.integers(1, 4)))
+                    for _ in range(2000)})
+    captions = [" ".join(rng.choice(words, rng.integers(5, 20)))
+                for _ in range(DUAL_EMBED_BATCH)]
+    merges = root / "merges.txt"
+    merges.write_text("#version: toy\n" + "\n".join(
+        f"{a} {b}" for a, b in (("k", "a"), ("l", "o"), ("m", "i"),
+                                ("ka", "lo</w>"), ("n", "e</w>"))) + "\n")
+    wordpiece = WordPieceTokenizer(str(write_vocab(np, root, words)),
+                                   max_length=ITM_TOKENS)
+
+    lap = Laps()
+    # Built and drawn on the card: a CPU init of the four towers (about
+    # 400 M parameters) takes seconds.
+    with torch.device(dev):
+        gen = torch.Generator(device=dev).manual_seed(41)
+        slip_vit = ClipViT()
+        slip_vit.reset_parameters(gen)
+        slip_text = ClipTextEncoder(embed_dim=512).reset_parameters(gen)
+        slip_proj = torch.randn(768, 512, generator=gen) / 768 ** 0.5
+        a_vit = albef_vit()
+        a_vit.reset_parameters(gen)
+        a_bert = albef_bert().reset_parameters(gen)
+        proj = lambda n: {  # noqa: E731
+            "kernel": torch.randn(768, n, generator=gen) / 768 ** 0.5,
+            "bias": torch.randn(n, generator=gen) * 0.02}
+        a_proj = {"vision": proj(256), "text": proj(256)}
+        fusion = AlbefFusionEncoder().reset_parameters(gen)
+    slip = SlipDualEncoder(slip_vit, slip_proj, text_encoder=slip_text,
+                           tokenizer=ClipBpeTokenizer(str(merges)),
+                           device=dev)
+    albef = AlbefDualEncoder(a_vit, a_proj["vision"], bert=a_bert,
+                             text_proj=a_proj["text"], tokenizer=wordpiece,
+                             device=dev)
+    itm = AlbefItmScorer(fusion, lambda px: albef_tokens(torch, albef.vit,
+                                                          px),
+                         wordpiece, device=dev)
+    enc = PixelEncoder(torch, slip)
+    suite = EmbedderSuite(enc)
+    torch.cuda.synchronize()
+    lap("setup_slip_albef_fusion")
+
+    def cam_fn(img, offsets):
+        emb, taps = slip.vit(enc.normalize(img), tap_offsets=offsets)
+        return emb @ slip.image_proj, taps
+
+    def load_img(path):
+        img = Image.open(path).convert("RGB").resize((IMAGE, IMAGE),
+                                                     Image.BICUBIC)
+        pixels = np.asarray(img, np.float32) / 255.0
+        return torch.from_numpy(pixels)[None].to(dev)
+
+    g = torch.Generator(device=dev).manual_seed(42)
+    x_slip = torch.randn(DUAL_EMBED_BATCH, IMAGE, IMAGE, 3, device=dev,
+                         generator=g)
+    x_albef = torch.randn(DUAL_EMBED_BATCH, ALBEF_SIZE, ALBEF_SIZE, 3,
+                          device=dev, generator=g)
+    itm_caps = captions[:ITM_CAPTIONS]
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    lap("inputs")
+    res = cli_json(["saliency", "--images", str(hq_dir), "--out", str(out),
+                    "--random-init"])
+    lap("cli")
+    embs = {"slip_image": slip.encode_image(x_slip),
+            "slip_text": slip.encode_text(captions),
+            "albef_image": albef.encode_image(x_albef),
+            "albef_text": albef.encode_text(captions)}
+    p_match = itm(x_albef[:1], itm_caps)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        row = approaches.compute_embedding_sim_metrics(
+            suite.img_embedder, cam_fn, "blocks.11.ls2", "data/HQ/0.png",
+            "data/SR/0.png", cosine_similarity_target, load_img,
+            grid_hw=(IMAGE // 16, IMAGE // 16), device=dev)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    lap("path_after_cli")
+
+    maps = {p.stem: np.load(p) for p in sorted(out.glob("*.npy"))}
+    meta = json.loads((out / ".srsem_saliency_meta.json").read_text())
+    shapes_ok = all(maps[str(i)].shape == hw
+                    for i, hw in enumerate(SALIENCY_SOURCES))
+    in_range = all(np.isfinite(m).all() and 0 <= m.min() and m.max() <= 1
+                   for m in maps.values())
+    sal_keys = sorted(k for k in row if "saliency" in k)
+    want_keys = {"gcam_saliency_psnr", "gcam_saliency_ssim",
+                 "hqgcam_saliency_psnr", "hqgcam_saliency_ssim",
+                 "hqgcam_vsoverlap_saliency", "saliency_vsoverlap_hqgcam",
+                 "hqgcam_overlap_saliency", "gradcam_vsoverlap_saliency",
+                 "saliency_vsoverlap_gradcam", "gradcam_overlap_saliency"}
+    shapes = {k: tuple(v.shape) for k, v in embs.items()}
+    if (any(launches.values()) or res["written"] != len(SALIENCY_SOURCES)
+            or len(maps) != len(SALIENCY_SOURCES) or not shapes_ok
+            or not in_range or meta != {"geometry": "pad",
+                                        "channel_order": "bgr",
+                                        "image_size": list(SALIENCY_SIZE)}
+            or set(sal_keys) != want_keys
+            or not np.isfinite([row[k] for k in sal_keys]).all()
+            or shapes != {"slip_image": (DUAL_EMBED_BATCH, 512),
+                          "slip_text": (DUAL_EMBED_BATCH, 512),
+                          "albef_image": (DUAL_EMBED_BATCH, 256),
+                          "albef_text": (DUAL_EMBED_BATCH, 256)}
+            or not all(torch.isfinite(v).all() for v in embs.values())
+            or p_match.shape != (ITM_CAPTIONS,)
+            or not ((p_match >= 0) & (p_match <= 1)).all()):
+        raise AssertionError(
+            f"saliency path: launched {launches}, CLI {res}, maps "
+            f"{ {k: m.shape for k, m in maps.items()} }, meta {meta}, "
+            f"saliency keys {sal_keys}, embeddings {shapes}, ITM {p_match}")
+    emit("saliency", step="path", launches=launches, cli=res,
+         seconds=dict(lap.seconds), map_shapes={k: list(m.shape)
+                                          for k, m in maps.items()},
+         map_range=[float(min(m.min() for m in maps.values())),
+                    float(max(m.max() for m in maps.values()))],
+         meta=meta, embedding_shapes=shapes, itm_p_match=p_match.tolist(),
+         pair_saliency_row={k: row[k] for k in sal_keys},
+         pair_score=row["score"], card=card)
+
+    # TranSalNet in process: seeded weights, random BN statistics.
+    model = TranSalNetDense().reset_parameters(
+        torch.Generator().manual_seed(43))
+    randomize_bn(torch, np, model, np.random.default_rng(43))
+    src = np.asarray(Image.open(hq_dir / "0.png").convert("RGB"))[..., ::-1]
+    x1 = torch.from_numpy(preprocess_pad(src, SALIENCY_SIZE).astype(
+        np.float32)[None] / 255.0)
+    with torch.no_grad():
+        cpu_map = model(x1)[0].numpy()
+    model = model.to(dev).requires_grad_(False)
+    x1_card = x1.to(dev)
+
+    def forward():
+        with torch.no_grad():
+            return model(x1_card)
+
+    card_map = forward()[0].cpu().numpy()
+    lap("transalnet_in_process")
+    sal_rate = steady_rate(torch, forward, 1)
+    prof = profile_scoring(torch, types.SimpleNamespace(
+        score_arrays=lambda a, b: forward()), None, None, reps=3,
+        host_top=10)
+    slip_rate = steady_rate(torch, lambda: slip.encode_image(x_slip),
+                            DUAL_EMBED_BATCH)
+    text_rate = steady_rate(torch, lambda: slip.encode_text(captions),
+                            DUAL_EMBED_BATCH)
+    albef_rate = steady_rate(torch, lambda: albef.encode_image(x_albef),
+                             DUAL_EMBED_BATCH)
+    itm_rate = steady_rate(torch, lambda: itm(x_albef[:1], itm_caps),
+                           ITM_CAPTIONS)
+    lap("rates_and_profile")
+    rates = {"transalnet_images_per_s": sal_rate,
+             "slip_image_embeddings_per_s": slip_rate,
+             "slip_texts_per_s": text_rate,
+             "albef_image_embeddings_per_s": albef_rate,
+             "itm_pairs_per_s": itm_rate}
+    emit("saliency", step="rates", **{k: v[0] for k, v in rates.items()},
+         calls={k: v[1] for k, v in rates.items()},
+         seconds_timed={k: v[2] for k, v in rates.items()},
+         batch={"transalnet": 1, "slip": DUAL_EMBED_BATCH,
+                "albef": DUAL_EMBED_BATCH, "itm_captions": ITM_CAPTIONS,
+                "itm_tokens": ITM_TOKENS},
+         transalnet_profile=prof, card=card)
+
+    # Card checks: float32, TF32 off; the CPU runs the same modules.
+    errs = {"transalnet": float(np.abs(card_map - cpu_map).max())}
+    scale = {"transalnet": float(np.abs(cpu_map).max())}
+    crop = postprocess_crop(card_map, src.shape[:2])
+    slip32 = ClipViT(dtype=torch.float32)
+    slip32.load_state_dict(slip.vit.state_dict())
+    xs, xa = x_slip[:2].cpu(), x_albef[:1].cpu()
+    out_of = {}
+    for where in (TRAIN_DEVICE, "cpu"):
+        s = SlipDualEncoder(copy.deepcopy(slip32), slip.image_proj,
+                            text_encoder=copy.deepcopy(slip.text_encoder),
+                            tokenizer=slip.tokenizer, device=where)
+        a = AlbefDualEncoder(copy.deepcopy(albef.vit), albef.vision_proj,
+                             bert=copy.deepcopy(albef.bert),
+                             text_proj=albef.text_proj, tokenizer=wordpiece,
+                             device=where)
+        f = AlbefItmScorer(copy.deepcopy(fusion),
+                           lambda px, a=a: albef_tokens(torch, a.vit, px),
+                           wordpiece, device=where)
+        out_of[where] = {"slip_image": s.encode_image(xs),
+                         "slip_text": s.encode_text(captions[:4]),
+                         "albef_image": a.encode_image(xa),
+                         "albef_text": a.encode_text(captions[:4]),
+                         "itm_p_match": torch.from_numpy(f(xa, captions[:4]))}
+    for k, ref in out_of["cpu"].items():
+        errs[k] = float((out_of[TRAIN_DEVICE][k].cpu() - ref).abs().max())
+        scale[k] = float(ref.abs().max())
+    if (any(errs[k] > 1e-3 * scale[k] for k in errs)
+            or crop.shape != src.shape[:2]):
+        raise AssertionError(f"saliency card vs CPU: {errs} (scale {scale})")
+    lap("card_vs_cpu")
+    emit("saliency", step="f32_card_vs_cpu", max_abs_err=errs, scale=scale,
+         tolerance="1e-3 of the largest value",
+         transalnet_map_std=float(cpu_map.std()), seconds=lap.seconds)
+    return launches
+
+
 # Stack frame bytes of each head-kernel instance (dtype 0 f32, 1 bf16,
 # 2 f16; KT SR images an item) at four stages (ptxas -v, H100 build of
 # csrc/fused_head.cu before the limit went to 12).  Twelve stage
@@ -4457,7 +4785,7 @@ def main() -> int:
                      ("finetune", run_finetune), ("sweeps", run_sweeps),
                      ("vit", run_vit), ("nr_train", run_nr_train),
                      ("iqa", run_iqa), ("text", run_text),
-                     ("explain", run_explain)):
+                     ("explain", run_explain), ("saliency", run_saliency)):
         t0 = time.perf_counter()
         runs[path] = fn(torch, np, card)
         seconds[path] = time.perf_counter() - t0
@@ -4466,10 +4794,12 @@ def main() -> int:
     # (the CLIP tower's stride-1 blocks are the ImageNet ones, batch 64).
     # The sweeps path's passes run the train path's tower shapes, timed
     # for it in check_kernels; the finetune path trains the tower as the
-    # module and runs no kernel (its run checks that).
+    # module and runs no kernel (its run checks that), and neither does
+    # the saliency path (plain XLA in the JAX package; its run checks
+    # that every count stayed 0).
     for name in BOTTLENECK:
         summary[(name, "wperlay")] = summary[(name, "global")]
-    del runs["finetune"]
+    del runs["finetune"], runs["saliency"]
     for path, launches in runs.items():
         missing = [k for k, v in launches.items() if v <= 0]
         if missing:

@@ -25,7 +25,8 @@ mirrors the JAX package's module paths so each counterpart is easy to find:
 * ``train.partition``        — srsem/train/partition.py
 * ``utils.convert``          — weights from JAX params / torchvision / CLIP
 * ``explain``                — srsem/explain (Grad-CAM, overlap, targets,
-  embedders, tagger, IQA, visual; saliency, dual encoders, fusion: A12)
+  embedders, tagger, IQA, visual, TranSalNet saliency, the SLIP and
+  ALBEF dual encoders, the ALBEF fusion encoder and ITM head)
 * ``decompose``              — srsem/decompose (SpLiCE, ADMM, greedy)
 * ``eval.approaches``        — srsem/eval/approaches.py (approach drivers)
 

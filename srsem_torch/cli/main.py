@@ -2,9 +2,9 @@
 ``score-groups``, ``score-maps-groups``, ``serve``, ``sweep-dataset``,
 ``train-global``, ``eval-global``, ``train-clu``, ``sweep-global``,
 ``sweep-clu``, ``folder-metrics``, ``train-nr-iqa``, ``pseudo-c2c``,
-``pseudo-captions``, ``maps-build``, ``convert``, ``info`` and
-``visualize`` subcommands of srsem/cli/main.py so far, and the global
-``--profile DIR``).
+``pseudo-captions``, ``maps-build``, ``convert``, ``info``,
+``visualize`` and ``saliency`` subcommands of srsem/cli/main.py, all 19,
+and the global ``--profile DIR``).
 
     python -m srsem_torch score pairs.csv --backbone resnet50 [--device cpu]
     python -m srsem_torch score pairs.csv --backbone resnet50_clip \
@@ -32,10 +32,12 @@
     python -m srsem_torch convert vit.pt --kind clip_vit --out vit.msgpack
     python -m srsem_torch info [--native] [--devices]
     python -m srsem_torch visualize overlay --image IMG --map MAP.npy --out o.png
+    python -m srsem_torch saliency --images IMG_DIR --out SaliencyMaps \
+        --checkpoint transalnet.msgpack [--device cpu]
     python -m srsem_torch --profile DIR score-groups GT_DIR SR_DIR...
 
-Flags follow srsem/cli/main.py (:957-1072, :1119-1205, :1206-1246 and
-:1297-1328), plus
+Flags follow srsem/cli/main.py (:957-1072, :1119-1205, :1206-1246,
+:1275-1295 and :1297-1328), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path) and
 ``--no-fused-tower`` / ``--no-fused-decoder`` (the port runs its Hopper
 kernels by default; the fused tower serves the frozen base tower only, so
@@ -49,12 +51,13 @@ for CLU maps their ``batch_stats``, over the model, as the JAX CLI's
 param tree (``.msgpack``, ``convert``'s output, the port's or the JAX
 CLI's) or a torchvision ``resnet50`` / OpenAI-CLIP / timm or HF CLIP ViT
 state dict (``.pt``).  ``convert`` writes the bytes ``srsem convert``
-writes for the tower, head and text kinds (``resnet50``,
-``resnet50_clip``, ``clip_vit``, ``hf_clip_vit``, ``global_head``,
-``clu_decoder``, ``lpips``, ``hf_clip_text``, ``clip_text``,
-``minilm``).  Without either, the weights are seeded random ones.  The training commands train
-the head or decoder, and with ``--set enc_ft=True`` (global) or ``--set
-lora_rank=R`` / ``lora_rank='full'`` (CLU) the tower
+writes for all 14 kinds (``resnet50``, ``resnet50_clip``, ``clip_vit``,
+``hf_clip_vit``, ``global_head``, ``clu_decoder``, ``lpips``,
+``hf_clip_text``, ``clip_text``, ``minilm``, ``slip``, ``albef``,
+``albef_fusion``, ``transalnet``).  Without either, the weights are
+seeded random ones.  The training commands train the head or decoder,
+and with ``--set enc_ft=True`` (global) or ``--set lora_rank=R`` /
+``lora_rank='full'`` (CLU) the tower
 (srsem_torch/train/loop.py), and write the JAX package's checkpoint
 layout.  Their fast paths amortize the frozen tower: ``train-clu
 --cached-diffs`` (srsem_torch/train/diffcache.py) and ``--thresholds``
@@ -676,11 +679,6 @@ def cmd_maps_build(args) -> int:
     return 0
 
 
-#: ``srsem convert``'s kinds not ported yet, with their ROADMAP items.
-UNPORTED_CONVERT_KINDS = {"slip": "A12", "albef": "A12",
-                          "albef_fusion": "A12", "transalnet": "A12"}
-
-
 def cmd_convert(args) -> int:
     """Convert torch pretrained or reference-trained checkpoints to the
     JAX package's param trees, with the bytes ``srsem convert`` writes: a
@@ -692,10 +690,6 @@ def cmd_convert(args) -> int:
     from srsem_torch.utils import convert as cv
 
     kind = args.kind
-    if kind in UNPORTED_CONVERT_KINDS:
-        raise NotImplementedError(
-            f"convert --kind {kind} needs a module that is not ported yet "
-            f"(ROADMAP {UNPORTED_CONVERT_KINDS[kind]})")
     if args.image_size is not None and args.image_size <= 0:
         raise SystemExit(f"--image-size must be positive, got {args.image_size}")
     sd = _torch_load(args.input)
@@ -722,13 +716,24 @@ def cmd_convert(args) -> int:
         from srsem_torch.pseudo.text_embed import convert_hf_minilm
 
         tree = convert_hf_minilm(sd)
+    elif kind == "albef":
+        tree = cv.convert_albef(sd, image_size=args.image_size or 384,
+                                patch=args.patch)
+    elif kind == "albef_fusion":
+        # The full retrieval checkpoint: the itm_head from the same dict.
+        from srsem_torch.explain.fusion import convert_albef_fusion
+
+        itm = {k: v for k, v in sd.items() if k.startswith("itm_head.")}
+        tree = convert_albef_fusion(sd, itm_sd=itm or None)
     else:
         tree = {"resnet50": cv.convert_torch_resnet50,
                 "resnet50_clip": cv.convert_clip_resnet50,
                 "clip_vit": cv.convert_clip_vit,
                 "hf_clip_vit": cv.convert_hf_clip_vit,
                 "hf_clip_text": cv.convert_hf_clip_text,
-                "clip_text": cv.convert_clip_text}[kind](sd)
+                "clip_text": cv.convert_clip_text,
+                "slip": cv.convert_slip,
+                "transalnet": cv.convert_transalnet}[kind](sd)
     with open(args.out, "wb") as f:
         f.write(msgpack_serialize(cv.jax_key_order(tree)))
     print(json.dumps({"kind": kind, "out": args.out,
@@ -782,6 +787,44 @@ def cmd_info(args) -> int:
                        "devices": [torch.cuda.get_device_name(i)
                                    for i in range(count)]}
     print(json.dumps(out))
+    return 0
+
+
+def cmd_saliency(args) -> int:
+    """The ``SaliencyMaps/`` .npy tree of an image folder
+    (srsem_torch/explain/saliency.py), which eval/approaches.py's overlap
+    metrics read.  Weights from ``convert --kind transalnet`` (the msgpack,
+    read by srsem_torch/train/checkpoint.py), or seeded random ones only
+    behind ``--random-init`` (``torch.Generator().manual_seed(0)``: JAX's
+    ``PRNGKey(0)`` draw cannot be rebuilt here)."""
+    import torch
+
+    from srsem_torch.device import resolve_device
+    from srsem_torch.explain.saliency import (TranSalNetDense,
+                                              generate_saliency_maps)
+    from srsem_torch.train.checkpoint import msgpack_restore
+    from srsem_torch.utils.convert import load_transalnet
+
+    device = resolve_device(args.device)
+    model = TranSalNetDense((args.height, args.width))
+    if args.checkpoint:
+        with open(args.checkpoint, "rb") as f:
+            tree = msgpack_restore(f.read())
+        load_transalnet(model, {"params": tree["params"],
+                                "batch_stats": tree.get("batch_stats", {})})
+    elif args.random_init:
+        model.reset_parameters(torch.Generator().manual_seed(0))
+    else:
+        raise SystemExit(
+            "saliency needs --checkpoint (convert --kind transalnet) or an "
+            "explicit --random-init for smoke runs")
+    n = generate_saliency_maps(model, args.images, args.out,
+                               image_size=(args.height, args.width),
+                               geometry=args.geometry,
+                               channel_order=args.channel_order,
+                               device=device)
+    print(json.dumps({"images_dir": args.images, "out": args.out,
+                      "written": n}))
     return 0
 
 
@@ -1262,24 +1305,50 @@ def main(argv=None) -> int:
                             "hf_clip_text", "hf_clip_vit", "clip_text",
                             "slip", "minilm", "lpips", "transalnet",
                             "albef", "albef_fusion",
-                            "global_head", "clu_decoder"],
-                   help="slip, albef, albef_fusion and transalnet are not "
-                        "ported and raise, naming their ROADMAP item")
+                            "global_head", "clu_decoder"])
     p.add_argument("--shared-head", action="store_true",
                    help="for global_head: the checkpoint is the singleLin "
                         "shared ViT head (w_layer Sequential) rather than "
                         "a per-layer w_layers ModuleList")
     p.add_argument("--image-size", type=int, default=None,
-                   help="checked positive, as the JAX CLI does (its "
-                        "resnet50_clip tree does not depend on it)")
+                   help="for albef: the pos-embed target resolution "
+                        "(default 384); checked positive, as the JAX CLI "
+                        "does (its resnet50_clip tree does not depend on "
+                        "it)")
     p.add_argument("--patch", type=int, default=16,
-                   help="for albef (not ported)")
+                   help="for albef: the ViT patch size the checkpoint was "
+                        "trained with (pos-embed grid = image-size/patch; "
+                        "default 16, the reference's deit-base/16)")
     p.add_argument("--tower", default=None,
                    help="for lpips: the torchvision AlexNet/VGG16 state "
                         "dict of the tower")
     p.add_argument("--lpips-net", default="alex", choices=["alex", "vgg"])
     p.add_argument("--out", default="converted.msgpack")
     p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("saliency", help="write the SaliencyMaps .npy tree "
+                       "for an image folder (TranSalNet-Dense; reference "
+                       "compute_metrics.py:130-134)")
+    p.add_argument("--images", required=True, help="input image folder")
+    p.add_argument("--out", required=True, help="output SaliencyMaps dir")
+    p.add_argument("--checkpoint", default=None,
+                   help="converted TranSalNet msgpack (convert --kind "
+                        "transalnet)")
+    p.add_argument("--random-init", action="store_true",
+                   help="allow random-init weights (smoke/shape runs only)")
+    p.add_argument("--height", type=int, default=288)
+    p.add_argument("--width", type=int, default=384)
+    p.add_argument("--geometry", choices=("pad", "resize"), default="pad",
+                   help="'pad' (default) = reference data_process.py "
+                        "aspect-preserving pad + crop-back to source "
+                        "resolution; 'resize' = distorting bicubic, maps "
+                        "saved at height×width")
+    p.add_argument("--channel-order", choices=("bgr", "rgb"), default="bgr",
+                   help="'bgr' matches the reference's cv2.imread input "
+                        "(upstream TranSalNet checkpoints)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.set_defaults(fn=cmd_saliency)
 
     p = sub.add_parser(
         "info", help="environment diagnostic: versions, host, nvcc, native "

@@ -114,17 +114,23 @@ class MiniLMEncoder(nn.Module):
         return pooled / pooled.norm(dim=-1, keepdim=True)
 
     def reset_parameters(self, generator=None):
-        """Normal(0, 0.02) weights and embeddings (BERT's init), zero
-        biases, unit LayerNorms, from ``generator``."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Linear, nn.Embedding)):
-                    m.weight.normal_(0.0, 0.02, generator=generator)
-                    if getattr(m, "bias", None) is not None:
-                        m.bias.zero_()
-                elif isinstance(m, nn.LayerNorm):
-                    m.reset_parameters()
-        return self
+        """BERT's init (``reset_bert_parameters``).  Returns ``self``."""
+        return reset_bert_parameters(self, generator)
+
+
+def reset_bert_parameters(model: nn.Module, generator=None) -> nn.Module:
+    """BERT's init of ``model``, from ``generator``: normal(0, 0.02)
+    weights and embeddings, zero biases, unit LayerNorms.  Returns
+    ``model``."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.reset_parameters()
+    return model
 
 
 def _hf_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:

@@ -38,12 +38,20 @@
 
 The ``convert`` command's producers, ``convert_torch_resnet50``,
 ``convert_clip_resnet50``, ``convert_clip_vit``, ``convert_hf_clip_vit``,
-``convert_global_head`` and ``convert_clu_decoder``, build the nested
-float32 numpy trees srsem/utils/convert.py's functions of those names
-build, without flax; in ``jax_key_order`` the port's msgpack writer gives
-the bytes ``srsem convert`` writes.  The port's own
-``state_dict()`` is in the torchvision / OpenAI-CLIP / timm /
-reference-head and reference-decoder layouts, which they read.
+``convert_global_head``, ``convert_clu_decoder``, ``convert_slip``,
+``convert_transalnet`` and ``convert_albef``, build the nested float32
+numpy trees srsem/utils/convert.py's functions of those names build,
+without flax; in ``jax_key_order`` the port's msgpack writer gives the
+bytes ``srsem convert`` writes.  The port's own ``state_dict()`` is in the
+torchvision / OpenAI-CLIP / timm / reference-head and reference-decoder
+layouts, which they read.
+
+The saliency and dual-encoder trees go into the port's modules through
+``load_transalnet``, ``load_slip``, ``load_albef`` and
+``load_albef_fusion``: the ViT through ``jax_vit_state_dict``, the CLIP
+text tower through ``load_jax_clip_text``, and the modules named after
+the JAX tree's paths (TranSalNetDense, MiniLMEncoder, AlbefFusionEncoder)
+through ``jax_module_state_dict``.
 """
 
 from __future__ import annotations
@@ -752,3 +760,235 @@ def convert_clip_text(sd: Mapping[str, Any]) -> Dict:
                                    "bias": _f32(sd[f"{tp}.mlp.{mlp}.bias"])}
         tree[f"resblocks.{i}"] = block
     return tree
+
+
+def _linear(flat: Dict, path: tuple, sd: Mapping, prefix: str) -> None:
+    """A torch Linear ``prefix`` as a Dense's (in, out) kernel and bias."""
+    flat[path + ("kernel",)] = _f32(sd[f"{prefix}.weight"]).T
+    flat[path + ("bias",)] = _f32(sd[f"{prefix}.bias"])
+
+
+def _layer_norm(flat: Dict, path: tuple, sd: Mapping, prefix: str) -> None:
+    """A torch LayerNorm (or BN affine) ``prefix`` as scale and bias."""
+    flat[path + ("scale",)] = _f32(sd[f"{prefix}.weight"])
+    flat[path + ("bias",)] = _f32(sd[f"{prefix}.bias"])
+
+
+def convert_slip(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Meta SLIP checkpoint (a timm ViT under ``visual.``, an OpenAI text
+    transformer, ``image_projection`` / ``text_projection``) →
+    ``{"vit": ClipViT params, "image_projection": (width, embed),
+    "text": ClipTextEncoder params}``."""
+    sd = {k.replace("module.", ""): v for k, v in sd.items()}
+    text = {k: v for k, v in sd.items()
+            if k.startswith(("token_embedding", "positional_embedding",
+                             "transformer.", "ln_final", "text_projection"))}
+    return {"vit": convert_clip_vit(_prefixed(sd, "visual.")),
+            "image_projection": _f32(sd["image_projection"]),
+            "text": convert_clip_text(text)}
+
+
+def convert_transalnet(sd: Mapping[str, Any]) -> Dict:
+    """The reference's TranSalNet-Dense state dict (TranSalNet_Dense.py:
+    44-143) → ``{"params", "batch_stats"}`` of TranSalNetDense:
+    ``encoder.encoder.{i}`` (densenet161's features without norm5: 0
+    conv0, 1 norm0, 4/6/8/10 denseblock1-4, 5/7/9 transition1-3) →
+    ``encoder.*``; ``decoder.conv{k}`` / ``decoder.batchnorm{k}`` →
+    ``d{k}_conv`` / ``d{k}_bn``; ``decoder.TransEncoder{k}`` →
+    ``TransEncoder{k}``, its query/key/value Linears concatenated along the
+    output axis into ``attn_qkv`` in q, k, v order."""
+    params: Dict[tuple, np.ndarray] = {}
+    stats: Dict[tuple, np.ndarray] = {}
+
+    def bn(path: tuple, prefix: str) -> None:
+        _layer_norm(params, path, sd, prefix)  # scale and bias
+        stats[path + ("mean",)] = _f32(sd[f"{prefix}.running_mean"])
+        stats[path + ("var",)] = _f32(sd[f"{prefix}.running_var"])
+
+
+    enc = "encoder.encoder"
+    params[("encoder", "conv0", "kernel")] = _hwio(sd[f"{enc}.0.weight"])
+    bn(("encoder", "norm0"), f"{enc}.1")
+    for b, idx, layers in ((1, 4, 6), (2, 6, 12), (3, 8, 36), (4, 10, 24)):
+        for n in range(1, layers + 1):
+            tp = f"{enc}.{idx}.denselayer{n}"
+            jp = ("encoder", f"denseblock{b}", f"denselayer{n}")
+            bn(jp + ("norm1",), f"{tp}.norm1")
+            params[jp + ("conv1", "kernel")] = _hwio(sd[f"{tp}.conv1.weight"])
+            bn(jp + ("norm2",), f"{tp}.norm2")
+            params[jp + ("conv2", "kernel")] = _hwio(sd[f"{tp}.conv2.weight"])
+    for t, idx in ((1, 5), (2, 7), (3, 9)):
+        jp = ("encoder", f"transition{t}")
+        bn(jp + ("norm",), f"{enc}.{idx}.norm")
+        params[jp + ("conv", "kernel")] = _hwio(sd[f"{enc}.{idx}.conv.weight"])
+
+    for k in (1, 2, 3):
+        tp, jp = f"decoder.TransEncoder{k}", (f"TransEncoder{k}",)
+        params[jp + ("patch_embeddings", "kernel")] = _hwio(
+            sd[f"{tp}.patch_embeddings.weight"])
+        params[jp + ("patch_embeddings", "bias")] = _f32(
+            sd[f"{tp}.patch_embeddings.bias"])
+        params[jp + ("position_embeddings",)] = _f32(
+            sd[f"{tp}.position_embeddings"])
+        for i in range(2):
+            lp = f"{tp}.transformer_encoder.layer.{i}"
+            ljp = jp + (f"layer{i}",)
+            _layer_norm(params, ljp + ("attention_norm",), sd,
+                        f"{lp}.attention_norm")
+            params[ljp + ("attn_qkv", "kernel")] = np.concatenate(
+                [_f32(sd[f"{lp}.attn.{m}.weight"]).T
+                 for m in ("query", "key", "value")], axis=1)
+            params[ljp + ("attn_qkv", "bias")] = np.concatenate(
+                [_f32(sd[f"{lp}.attn.{m}.bias"])
+                 for m in ("query", "key", "value")])
+            _linear(params, ljp + ("attn_out",), sd, f"{lp}.attn.out")
+            _layer_norm(params, ljp + ("ffn_norm",), sd, f"{lp}.ffn_norm")
+            _linear(params, ljp + ("ffn_fc1",), sd, f"{lp}.ffn.fc1")
+            _linear(params, ljp + ("ffn_fc2",), sd, f"{lp}.ffn.fc2")
+        _layer_norm(params, jp + ("encoder_norm",), sd,
+                    f"{tp}.transformer_encoder.encoder_norm")
+
+    for k in range(1, 8):
+        params[(f"d{k}_conv", "kernel")] = _hwio(sd[f"decoder.conv{k}.weight"])
+        params[(f"d{k}_conv", "bias")] = _f32(sd[f"decoder.conv{k}.bias"])
+        if k < 7:
+            bn((f"d{k}_bn",), f"decoder.batchnorm{k}")
+    return {"params": unflatten_dict(params),
+            "batch_stats": unflatten_dict(stats)}
+
+
+def convert_albef(sd: Mapping[str, Any], image_size: int = 384,
+                  patch: int = 16) -> Dict:
+    """ALBEF retrieval/grounding checkpoint (reference albef/
+    model_wrapper.py:57-72) → ``{"vit", "vision_proj", "text",
+    "text_proj"}``: ``visual_encoder.*`` (DeiT-style, fused qkv, no
+    pre-norm) as ClipViT params with the positional table bicubic-
+    interpolated (``align_corners=False``, albef/vit.py:178-202) to the
+    ``image_size // patch`` grid; the biased projections as {"kernel",
+    "bias"}; ``text_encoder[.bert].*`` without its cross-attention as
+    MiniLMEncoder params.  Momentum copies (``*_m``) and queues are
+    ignored."""
+    import torch.nn.functional as F
+
+    from srsem_torch.pseudo.text_embed import convert_hf_minilm
+
+    vit_sd = _prefixed(sd, "visual_encoder.")
+    flat: Dict[tuple, np.ndarray] = {}
+    flat[("patch_embed", "kernel")] = _hwio(vit_sd["patch_embed.proj.weight"])
+    flat[("patch_embed", "bias")] = _f32(vit_sd["patch_embed.proj.bias"])
+    width = _f32(vit_sd["cls_token"]).shape[-1]
+    flat[("cls_token",)] = _f32(vit_sd["cls_token"]).reshape(1, 1, -1)
+    pos = _f32(vit_sd["pos_embed"]).reshape(1, -1, width)
+    new_side = image_size // patch
+    old_side = int(round(float(pos.shape[1] - 1) ** 0.5))
+    if old_side != new_side:
+        grid = torch.from_numpy(pos[:, 1:].reshape(
+            1, old_side, old_side, width)).permute(0, 3, 1, 2)
+        grid = F.interpolate(grid, size=(new_side, new_side), mode="bicubic",
+                             align_corners=False)
+        grid = grid.permute(0, 2, 3, 1).reshape(1, new_side * new_side,
+                                                width).numpy()
+        pos = np.concatenate([pos[:, :1], grid], axis=1)
+    flat[("pos_embed",)] = pos
+    flat[("norm", "scale")] = _f32(vit_sd["norm.weight"])
+    flat[("norm", "bias")] = _f32(vit_sd["norm.bias"])
+    for l in range(_n_layers(vit_sd, r"blocks\.(\d+)\.")):
+        tp = f"blocks.{l}"
+        for ln in ("norm1", "norm2"):
+            flat[(tp, ln, "scale")] = _f32(vit_sd[f"{tp}.{ln}.weight"])
+            flat[(tp, ln, "bias")] = _f32(vit_sd[f"{tp}.{ln}.bias"])
+        for lin in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+            flat[(tp, lin, "kernel")] = _f32(vit_sd[f"{tp}.{lin}.weight"]).T
+            flat[(tp, lin, "bias")] = _f32(vit_sd[f"{tp}.{lin}.bias"])
+
+    out: Dict[str, Any] = {"vit": unflatten_dict(flat)}
+    for proj in ("vision_proj", "text_proj"):
+        if f"{proj}.weight" in sd:
+            out[proj] = {"kernel": _f32(sd[f"{proj}.weight"]).T,
+                         "bias": _f32(sd[f"{proj}.bias"])}
+    text = {k: v for k, v in _prefixed(sd, "text_encoder.").items()
+            if "crossattention" not in k}
+    text = {(k[len("bert."):] if k.startswith("bert.") else k): v
+            for k, v in text.items()}
+    if text:
+        out["text"] = convert_hf_minilm({k: _f32(v) for k, v in text.items()
+                                         if not k.startswith("cls.")})
+    return out
+
+
+# ---- the A12 trees into the port's modules -----------------------------
+
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+               "mean": "running_mean", "var": "running_var"}
+
+
+def jax_module_state_dict(params: Mapping[str, Any],
+                          batch_stats: Optional[Mapping[str, Any]] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """A JAX tree whose module paths, joined by dots, are the port
+    module's names (TranSalNetDense, MiniLMEncoder, AlbefFusionEncoder) →
+    its state dict: ``kernel`` → ``weight`` (HWIO → OIHW, (in, out) →
+    (out, in)), ``scale`` / ``embedding`` → ``weight``, BN ``mean`` /
+    ``var`` → ``running_mean`` / ``running_var``; other leaves keep their
+    names."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats or {}):
+        for (*mod, leaf), value in flatten_dict(tree).items():
+            t = _tensor(value)
+            if leaf == "kernel":
+                t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
+            sd[".".join([*mod, _LEAF_NAMES.get(leaf, leaf)])] = t.contiguous()
+    return sd
+
+
+def _load_module(model: nn.Module, sd: Dict[str, torch.Tensor]) -> nn.Module:
+    """``sd`` into ``model`` strictly; BN ``num_batches_tracked`` counters,
+    which the JAX trees lack, keep the model's."""
+    own = {k: v for k, v in model.state_dict().items()
+           if k.endswith("num_batches_tracked")}
+    model.load_state_dict({**own, **sd}, strict=True)
+    return model
+
+
+def load_transalnet(model: nn.Module, variables: Mapping[str, Any]):
+    """``convert --kind transalnet``'s ``{"params", "batch_stats"}`` into
+    a TranSalNetDense (its ``image_size`` must give the tree's positional
+    tables).  Strict.  Returns ``model``."""
+    return _load_module(model, jax_module_state_dict(
+        variables["params"], variables.get("batch_stats")))
+
+
+def load_slip(encoder, tree: Mapping[str, Any]):
+    """``convert --kind slip``'s ``{"vit", "image_projection", "text"}``
+    into a SlipDualEncoder: the tower, the projection and, when the
+    encoder has one, the text tower.  Returns ``encoder``."""
+    from srsem_torch.pseudo.clip_text import load_jax_clip_text
+
+    load_clip_vit(encoder.vit, jax_vit_state_dict(tree["vit"]))
+    encoder.image_proj = _tensor(tree["image_projection"]).to(
+        encoder.image_proj.device)
+    if encoder.text_encoder is not None:
+        load_jax_clip_text(encoder.text_encoder, tree["text"])
+    return encoder
+
+
+def load_albef(encoder, tree: Mapping[str, Any]):
+    """``convert --kind albef``'s ``{"vit", "vision_proj", "text",
+    "text_proj"}`` into an AlbefDualEncoder: the tower and ``vision_proj``,
+    and, when the encoder has a BERT, the text tower and ``text_proj``.
+    Returns ``encoder``."""
+    from srsem_torch.explain.dual_encoders import _as_proj
+
+    load_clip_vit(encoder.vit, jax_vit_state_dict(tree["vit"]))
+    encoder.vision_proj = _as_proj(tree["vision_proj"], encoder.device)
+    if encoder.bert is not None:
+        _load_module(encoder.bert, jax_module_state_dict(tree["text"]))
+        encoder.text_proj = _as_proj(tree["text_proj"], encoder.device)
+    return encoder
+
+
+def load_albef_fusion(encoder: nn.Module, params: Mapping[str, Any]):
+    """``convert --kind albef_fusion``'s tree (``convert_albef_fusion``)
+    into an AlbefFusionEncoder of its sizes.  Strict.  Returns
+    ``encoder``."""
+    return _load_module(encoder, jax_module_state_dict(params))

@@ -1,13 +1,16 @@
 """The port's ``convert`` command (srsem_torch/cli/main.py, the producers in
 srsem_torch/utils/convert.py) against the JAX CLI's ``srsem convert`` on
-the same torch files: for every ported kind the same bytes (a msgpack tower
-file, or a checkpoint directory for the head and decoder kinds); every
-kind not ported yet raises, naming its ROADMAP item.  And ``serve
---backbone vit_clip --head stages_vit`` over stdio on the CPU, its scores
-against the grouped scorer's in process on the same seeded model.
+the same torch files: the same bytes (a msgpack tree file, or a checkpoint
+directory for the head and decoder kinds), the four kinds of the saliency
+and dual-encoder slice among them.  ``saliency`` against the JAX CLI's on
+a converted TranSalNet checkpoint (the same files and meta marker, maps
+within 1e-4, the same JSON line), and with ``--random-init``.  And
+``serve --backbone vit_clip --head stages_vit`` over stdio on the CPU, its
+scores against the grouped scorer's in process on the same seeded model.
 """
 
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -20,12 +23,16 @@ from PIL import Image
 
 from srsem.cli.main import main as jax_main
 from srsem_torch.backbones.resnet import make_backbone
-from srsem_torch.cli.main import UNPORTED_CONVERT_KINDS
 from srsem_torch.cli.main import main as port_main
 from srsem_torch.config import BackboneConfig, GlobalModelConfig, LocalModelConfig
 from srsem_torch.eval.grouped import GroupedPairScorer
 from srsem_torch.models.global_models import TokenHeadAggregator, make_global_model
 from srsem_torch.models.local_models import make_local_model
+from srsem_torch.pseudo.clip_text import ClipTextEncoder
+from test_albef_convert import TorchDeit, _albef_checkpoint
+from test_fusion import TorchFusionBert
+from test_fusion import _state_dict as fusion_state_dict
+from test_torch_port_saliency import mirror_state_dict as transalnet_state_dict
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
 from test_torch_port_vit import _hf_state_dict, _timm_state_dict
 
@@ -53,6 +60,26 @@ def _inputs(kind: str):
         return _timm_state_dict(2), []
     if kind == "hf_clip_vit":
         return _hf_state_dict(3), []
+    if kind == "slip":
+        g = torch.Generator().manual_seed(8)
+        sd = {f"visual.{k}": v for k, v in _timm_state_dict(7).items()}
+        sd.update(ClipTextEncoder(vocab_size=100, width=64, layers=2,
+                                  heads=4, context=16, embed_dim=24)
+                  .reset_parameters(g).state_dict())
+        sd["image_projection"] = torch.randn(96, 24, generator=g)
+        return sd, []
+    if kind == "albef":  # grid 4 at patch 8 → 6: the bicubic table
+        torch.manual_seed(9)
+        return (_albef_checkpoint(None, TorchDeit(grid=4).eval())[0],
+                ["--image-size", "48", "--patch", "8"])
+    if kind == "albef_fusion":  # a retrieval checkpoint: the ITM head too
+        torch.manual_seed(10)
+        sd, itm = fusion_state_dict(TorchFusionBert())
+        return {**{f"text_encoder.bert.{k}": v for k, v in sd.items()},
+                **{f"itm_head.{k}": v for k, v in itm.items()},
+                "visual_encoder.cls_token": torch.zeros(1, 1, 8)}, []
+    if kind == "transalnet":
+        return transalnet_state_dict(), []
     if kind in ("global_head", "global_head_shared"):
         head = TokenHeadAggregator(96, 3, shared=kind.endswith("shared"))
         head.reset_parameters(torch.Generator().manual_seed(4))
@@ -65,7 +92,9 @@ def _inputs(kind: str):
 
 @pytest.mark.parametrize("kind", ["resnet50", "resnet50_clip", "clip_vit",
                                   "hf_clip_vit", "global_head",
-                                  "global_head_shared", "clu_decoder"])
+                                  "global_head_shared", "clu_decoder",
+                                  "slip", "albef", "albef_fusion",
+                                  "transalnet"])
 def test_convert_writes_jax_bytes(kind, capsys):
     """The files go to a directory removed at the end: a full ResNet-50's
     input and outputs are about 0.45 GB."""
@@ -88,19 +117,62 @@ def test_convert_writes_jax_bytes(kind, capsys):
     assert out["port"] == out["jax"]
 
 
-def test_unported_kinds_name_their_item(tmp_path):
+def test_convert_rejects_nonpositive_image_size(tmp_path):
     src = tmp_path / "in.pt"
     torch.save({"w": torch.zeros(1)}, src)
-    assert UNPORTED_CONVERT_KINDS == {
-        "slip": "A12", "albef": "A12", "albef_fusion": "A12",
-        "transalnet": "A12"}
-    for kind, item in UNPORTED_CONVERT_KINDS.items():
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            port_main(["convert", str(src), "--kind", kind, "--out",
-                       str(tmp_path / "x")])
-    with pytest.raises(SystemExit):
-        port_main(["convert", str(src), "--kind", "resnet50",
-                   "--image-size", "0"])
+    for kind in ("resnet50", "albef"):
+        with pytest.raises(SystemExit):
+            port_main(["convert", str(src), "--kind", kind,
+                       "--image-size", "0"])
+
+
+def test_cli_saliency_matches_jax(tmp_path, capsys):
+    """``convert --kind transalnet`` then ``saliency --checkpoint`` at 64 x
+    64 over two images of mixed aspect (one a dotted stem), in the JAX CLI
+    and in the port's: the same JSON line, file names and meta marker,
+    maps within 1e-4.  ``--random-init`` (the port's seeded draw) writes
+    source-shaped maps in [0, 1]; neither flag exits."""
+    src, ckpt = tmp_path / "t.pt", tmp_path / "t.msgpack"
+    torch.save(transalnet_state_dict(), src)
+    assert port_main(["convert", str(src), "--kind", "transalnet", "--out",
+                      str(ckpt)]) == 0
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    rng = np.random.default_rng(3)
+    for name, hw in (("wide.png", (30, 70)), ("b.v2.jpg", (70, 30))):
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            imgs / name)
+    out = tmp_path / "SaliencyMaps"
+    argv = ["saliency", "--images", str(imgs), "--out", str(out),
+            "--height", "64", "--width", "64"]
+    capsys.readouterr()
+    runs = {}
+    for name, main, extra in (("jax", jax_main, []),
+                              ("port", port_main, ["--device", "cpu"])):
+        assert main(argv + ["--checkpoint", str(ckpt)] + extra) == 0
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        runs[name] = (line, {p.name: p.read_bytes() if p.suffix == ".json"
+                             else np.load(p) for p in out.iterdir()})
+        shutil.rmtree(out)
+    assert runs["port"][0] == runs["jax"][0] == {
+        "images_dir": str(imgs), "out": str(out), "written": 2}
+    got, want = runs["port"][1], runs["jax"][1]
+    assert sorted(got) == sorted(want) == [
+        ".srsem_saliency_meta.json", "b.v2.npy", "wide.npy"]
+    meta = ".srsem_saliency_meta.json"
+    assert got[meta] == want[meta]
+    for name in ("b.v2.npy", "wide.npy"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    assert got["wide.npy"].shape == (30, 70)
+
+    assert port_main(argv + ["--random-init", "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["written"] == 2
+    for name, hw in (("wide.npy", (30, 70)), ("b.v2.npy", (70, 30))):
+        sal = np.load(out / name)
+        assert sal.shape == hw and 0 <= sal.min() and sal.max() <= 1
+    with pytest.raises(SystemExit, match="--random-init"):
+        port_main(argv + ["--device", "cpu"])
 
 
 def test_converted_vit_scores_through_backbone_checkpoint(tmp_path, capsys):

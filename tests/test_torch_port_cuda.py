@@ -794,3 +794,114 @@ def test_admm_and_greedy_on_card_match_cpu(cuda_device):
     idx = {dev: [int(i) for i in GreedyDecomposer(
         concepts, rank=8, device=dev)(v[0])[2]] for dev in ("cuda", "cpu")}
     assert idx["cuda"] == idx["cpu"]
+
+
+def _random_bn(model, seed):
+    """Random BN affine parameters and running statistics in ``model``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(0.5 + torch.rand(c, generator=g))
+                m.bias.copy_(torch.rand(c, generator=g) - 0.5)
+                m.running_mean.copy_(torch.rand(c, generator=g) - 0.5)
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return model
+
+
+@pytest.mark.cuda
+def test_transalnet_on_card_matches_cpu(cuda_device):
+    """TranSalNet-Dense at 288x384 in float32 (TF32 off), seeded weights
+    and random BN statistics: the eval map on the card against the CPU
+    within 1e-3 of its largest value, and one train-mode forward's
+    running statistics within 1e-4 of their largest."""
+    import copy
+
+    from srsem_torch.explain.saliency import TranSalNetDense
+
+    model = _random_bn(TranSalNetDense().reset_parameters(
+        torch.Generator().manual_seed(21)), 21).requires_grad_(False)
+    x = torch.rand(2, 288, 384, 3, generator=torch.Generator().manual_seed(22))
+    out, stats = {}, {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        m = copy.deepcopy(model).to(dev)
+        out[name] = m(x.to(dev)).cpu()
+        m(x.to(dev), train=True)
+        stats[name] = {k: v.cpu() for k, v in m.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))}
+    assert out["cpu"].shape == (2, 288, 384)
+    tol = 1e-3 * float(out["cpu"].abs().max())
+    assert float((out["card"] - out["cpu"]).abs().max()) <= tol
+    for k, ref in stats["cpu"].items():
+        err = float((stats["card"][k] - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (k, err)
+
+
+@pytest.mark.cuda
+def test_dual_encoders_and_itm_on_card_match_cpu(cuda_device):
+    """Full-width SLIP (a float32 ViT-B/16 at 224 and the CLIP text
+    tower), ALBEF (its float32 DeiT tower at 384 and BERT-base) and the
+    fusion encoder's ITM (one image's 577 tokens against four captions) on
+    the card against the CPU in float32 (TF32 off), within 1e-3 of each
+    output's largest value."""
+    import copy
+
+    from srsem_torch.backbones.vit import ClipViT
+    from srsem_torch.explain.dual_encoders import (AlbefDualEncoder,
+                                                   SlipDualEncoder,
+                                                   albef_bert, albef_vit)
+    from srsem_torch.explain.fusion import AlbefFusionEncoder, AlbefItmScorer
+    from srsem_torch.pseudo.clip_text import ClipTextEncoder
+
+    g = torch.Generator().manual_seed(23)
+    slip_vit = ClipViT(dtype=torch.float32)
+    slip_vit.reset_parameters(g)
+    text = ClipTextEncoder(embed_dim=512).reset_parameters(g)
+    a_vit = albef_vit()
+    a_vit.reset_parameters(g)
+    bert = albef_bert().reset_parameters(g)
+    fusion = AlbefFusionEncoder().reset_parameters(g)
+    proj = torch.randn(768, 256, generator=g) / 28.0
+    slip_proj = torch.randn(768, 512, generator=g) / 28.0
+    rng = np.random.default_rng(24)
+    clip_ids = rng.integers(1, 49000, (2, 77))
+    clip_ids[:, 20] = 49407
+    tokens = {"input_ids": rng.integers(1000, 30000, (4, 30)),
+              "attention_mask": np.ones((4, 30), np.int64)}
+    tokens["attention_mask"][1, 12:] = 0
+    xs = torch.randn(2, 224, 224, 3, generator=g)
+    xa = torch.randn(1, 384, 384, 3, generator=g)
+    out = {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        slip = SlipDualEncoder(copy.deepcopy(slip_vit), slip_proj,
+                               text_encoder=copy.deepcopy(text),
+                               tokenizer=lambda t: clip_ids[:len(t)],
+                               device=dev)
+        albef = AlbefDualEncoder(copy.deepcopy(a_vit), (proj, proj[0]),
+                                 bert=copy.deepcopy(bert), text_proj=proj,
+                                 tokenizer=lambda t: tokens, device=dev)
+
+        def vit_tokens(px, v=albef.vit):
+            # The tower's final LayerNorm over every token.
+            taps = {}
+            hook = v.blocks[-1].register_forward_hook(
+                lambda mod, inp, o: taps.update(t=o[0] + o[1]))
+            v(px)
+            hook.remove()
+            return torch.nn.functional.layer_norm(
+                taps["t"], (768,), v.norm.weight, v.norm.bias, v.norm.eps)
+
+        itm = AlbefItmScorer(copy.deepcopy(fusion), vit_tokens,
+                             lambda t: tokens, device=dev)
+        with torch.no_grad():
+            out[name] = {"slip_image": slip.encode_image(xs).cpu(),
+                         "slip_text": slip.encode_text(["a", "b"]).cpu(),
+                         "albef_image": albef.encode_image(xa).cpu(),
+                         "albef_text": albef.encode_text(["a"] * 4).cpu(),
+                         "itm": torch.from_numpy(itm(xa.to(dev),
+                                                     ["a"] * 4))}
+    assert out["cpu"]["itm"].shape == (4,)
+    for k, ref in out["cpu"].items():
+        err = float((out["card"][k] - ref).abs().max())
+        assert err <= 1e-3 * float(ref.abs().max()), (k, err)
