@@ -222,7 +222,30 @@ Phases (each prints one JSON line; any failure exits non-zero):
              on this path); images/s, embeddings/s, texts/s and ITM
              pairs/s in the steady state, a profile of one TranSalNet
              image; card vs CPU (1e-3 of each output's largest).
-18. result — a ``timing`` line (seconds of each phase), the card line,
+18. mesh   — the port's mesh (srsem_torch/core/meshes.py): a one-rank
+             NCCL process group in this process, whose mesh runs every
+             collective over one rank: float32 (TF32 off) scores, maps,
+             grouped scores and one global and one CLU train step through
+             the mesh against the no-mesh path from the same weights
+             (rel 1e-6; the applied gradients 1e-5 of the largest;
+             trained leaves 2e-4, two Adam steps); the mesh
+             path in bf16 with the counts reset just before and read
+             just after: one global batch of 64, one CLU batch of 32, a
+             global train step at batch 5 and a CLU step at batch 80 (one
+             head launch, 60 + 12 bottleneck calls, the CLU batch's
+             decoder calls); pairs/s at batch 64 beside the no-mesh
+             path's, two steady windows each, in turns.  Then two
+             spawned ranks on the one card
+             over gloo (NCCL refuses two ranks on one device), data = 2:
+             a float32 CLU train step at batch 8 with 7 real rows (the
+             decoder's BN statistics over both ranks) and a grouped
+             batch of G = 3 (padded to 4), K = 2, each rank's launches
+             counted, against the same work on one rank run here
+             meanwhile (rel 1e-5; gradients 1e-4 of the largest;
+             trained leaves 2e-4).  With several
+             cards, NCCL over all of them; with one, a line says it did
+             not run.
+19. result — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
              the paths that use it, worst bf16 error, and times summed
              over one scored batch's launches of each path at that
@@ -233,7 +256,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
              images, times ``SWEEP_PASSES``), vit (one scored batch),
              nr_train (its four float32 passes of 8, timed in float32),
              iqa (the clu and the global path's passes), text (the
-             global path's), explain (its 22 batch-1 passes); finetune
+             global path's), explain (its 22 batch-1 passes), mesh (a
+             global and a CLU scored batch and the train path's two
+             steps); finetune
              and saliency launch none and have no entry; the head's
              entry, ``fused_stage_score``
              after the TPU kernel it replaces, counts the whole-head
@@ -247,6 +272,7 @@ tensor cores, 67 TFLOP/s float32 outside them.
 from __future__ import annotations
 
 import copy
+import datetime
 import json
 import subprocess
 import sys
@@ -4706,6 +4732,371 @@ HEAD_STACK_FRAMES = {(0, 1): 8, (0, 2): 0, (0, 4): 16, (0, 8): 8,
 HEAD_STEPS = (2048, 1536)
 
 
+# ---- the mesh phase -----------------------------------------------------------
+
+# The two-rank run's CLU train step: a batch of 8 at 224 px, 7 real rows
+# (rank 0 holds four, rank 1 three and a padded one); its grouped batch:
+# G = 3 groups (padded to 4) of K = 2.
+MESH_CLU_BATCH, MESH_GROUPS = 8, (3, 2)
+MESH_TIMEOUT = 300.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_models(torch, np, dtype: str):
+    """The mesh phase's seeded full-width models at 224 px in ``dtype``:
+    the flagship global scorer (ImageNet tower, stages_cnn depth 3) and
+    the CLU map model (CLIP tower; its decoder in ``dtype`` too)."""
+    from srsem_torch.config import (
+        BackboneConfig,
+        GlobalModelConfig,
+        LocalModelConfig,
+    )
+
+    gcfg = GlobalModelConfig(backbone=BackboneConfig(
+        kind="resnet50", image_size=IMAGE, compute_dtype=dtype),
+        head="stages_cnn", depth=3)
+    lcfg = LocalModelConfig(backbone=BackboneConfig(
+        kind="resnet50_clip", image_size=IMAGE, compute_dtype=dtype),
+        decoder_dtype=dtype)
+    return (gcfg, seeded_model(torch, np, gcfg), lcfg,
+            seeded_clu(torch, np, lcfg))
+
+
+def mesh_step(torch, np, model, is_map: bool, batch, mesh):
+    """One train step of ``model`` (the frozen tower through the kernels)
+    on ``batch`` over ``mesh`` (None: no mesh): the loss, the trained
+    leaves and BN statistics (JAX layout, flattened), and the gradients
+    the step applied (summed over the data axis)."""
+    from srsem_torch.core.meshes import shard_batch
+    from srsem_torch.train.loop import batch_to_device, build_training
+    from srsem_torch.train.partition import flatten_dict, trainable_predicate
+    from srsem_torch.utils.convert import jax_trainable_params
+
+    dev = torch.device(TRAIN_DEVICE) if mesh is None else mesh.device
+    steps, _ = build_training(model, is_map, trainable_predicate(), 1e-4,
+                              dev, mesh=mesh)
+    ((a, b), y), mask = batch
+    loss = steps.train_step(*(batch_to_device(batch, dev) if mesh is None
+                              else shard_batch(mesh, (a, b, y, mask))))
+    params, stats = jax_trainable_params(model)
+    grads = {n: p.grad.float().cpu().numpy()
+             for n, p in model.named_parameters() if p.grad is not None}
+    return float(loss), flatten_dict(params), flatten_dict(stats), grads
+
+
+def mesh_work(torch, np, mesh, models=None) -> dict:
+    """The two-rank run's work, float32 (TF32 off), on ``mesh`` (None:
+    the one-rank reference): a CLU train step with the decoder's BN
+    statistics over the data axis, and a padded grouped batch; each
+    kernel's launches in it, and its seconds.  ``models``: the float32
+    ``mesh_models`` (None: built here)."""
+    from srsem_torch.eval.grouped import GroupedPairScorer
+
+    laps = Laps()
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    gcfg, gm, lcfg, lm = models or mesh_models(torch, np, "float32")
+    laps("models")
+    ((a, b), y), mask = host_batch(np, MESH_CLU_BATCH, True, 31)
+    mask[-1] = 0.0
+    loss, params, stats, grads = mesh_step(torch, np, lm, True,
+                                           (((a, b), y), mask), mesh)
+    laps("clu_step")
+    g, k = MESH_GROUPS
+    rng = np.random.default_rng(32)
+    gt = rng.integers(0, 256, (g, IMAGE, IMAGE, 3), dtype=np.uint8)
+    sr = rng.integers(0, 256, (g, k, IMAGE, IMAGE, 3), dtype=np.uint8)
+    kw = {"device": TRAIN_DEVICE} if mesh is None else {"mesh": mesh}
+    grouped = GroupedPairScorer(gcfg, gm, k=k, batch_size=g, **kw)
+    scores = grouped.score_arrays(gt, sr).float().cpu().numpy()
+    torch.cuda.synchronize()
+    laps("grouped")
+    return {"loss": loss, "params": params, "stats": stats, "grads": grads,
+            "grouped": scores, "seconds": laps.seconds,
+            "launches": {n: fn.launches for n, fn in wrappers.items()
+                         if fn.launches}}
+
+
+def mesh_rank(rank: int, world: int, store: str, backend: str, out: str):
+    """A spawned rank of the mesh phase: ``mesh_work`` over a data mesh
+    of ``world`` ranks (gloo: every rank on card 0)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    started = time.perf_counter()
+    sys.path.insert(0, str(REPO))
+    from srsem_torch.core.meshes import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = create_mesh(device="cuda")
+        ready = time.perf_counter() - started
+        result = mesh_work(torch, np, mesh)
+        result["seconds"] = {"start": ready, **result["seconds"]}
+        result["mesh"] = repr(mesh)
+        torch.save(result, f"{out}/{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh(torch, backend: str, world: int, meanwhile=None):
+    """``mesh_rank`` on ``world`` spawned ranks; their results, and what
+    ``meanwhile()`` returns, run here while the ranks run.  Ranks still
+    running after ``MESH_TIMEOUT`` seconds are killed, and the phase
+    fails."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(mesh_rank, nprocs=world, join=False,
+                                 start_method="spawn",
+                                 args=(world, f"{tmp}/store", backend, tmp))
+        try:
+            here = meanwhile() if meanwhile else None
+            deadline = time.monotonic() + MESH_TIMEOUT
+            while not ctx.join(timeout=5.0):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{backend} ranks still running "
+                                         f"after {MESH_TIMEOUT} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        return [torch.load(f"{tmp}/{r}.pt", weights_only=False)
+                for r in range(world)], here
+
+
+def compare_mesh(np, got: dict, want: dict) -> dict:
+    """The largest differences of a mesh run's ``mesh_work`` from the
+    one-rank run's: the loss relative; the applied gradients relative to
+    the largest of them (a bias feeding a train-mode BatchNorm has a zero
+    gradient whose float32 noise has no scale of its own), so a sum over
+    the data axis that was averaged or skipped shows (0.5 or more), and
+    the leaf where they differ most; the trained leaves
+    absolute (Adam's first step is about lr whatever the gradient, so a
+    near-zero gradient's rounding can move a leaf by up to 2e-4); the BN
+    statistics and grouped scores relative."""
+    rel = lambda x, w: float(np.abs(x - w).max()  # noqa: E731
+                             / max(np.abs(w).max(), 1e-12))
+    if set(got["grads"]) != set(want["grads"]):
+        raise AssertionError(f"gradients of {sorted(got['grads'])}, want "
+                             f"{sorted(want['grads'])}")
+    scale = max(float(np.abs(w).max()) for w in want["grads"].values())
+    diff = {k: float(np.abs(got["grads"][k] - w).max())
+            for k, w in want["grads"].items()}
+    worst = max(diff, key=diff.get)
+    out = {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+           "grads_rel": diff[worst] / scale, "grads_worst": worst,
+           "params_abs": max(float(np.abs(got["params"][k]
+                                          - want["params"][k]).max())
+                             for k in want["params"]),
+           "stats_rel": max((rel(got["stats"][k], want["stats"][k])
+                             for k in want["stats"]), default=0.0)}
+    if "grouped" in want:
+        out["grouped_rel"] = rel(got["grouped"], want["grouped"])
+    return out
+
+
+def check_mesh_launches(launches: dict) -> None:
+    """The mesh path's launches: one head launch (the global batch), six
+    tower passes (two a scored batch, one a train step), and the CLU
+    batch's decoder calls."""
+    want = {"fused_stage_score": 1,
+            "fused_bottleneck": 6 * PASS_CALLS["fused_bottleneck"],
+            "fused_bottleneck_tiled": 6 * PASS_CALLS["fused_bottleneck_tiled"]}
+    if any(launches[k] != v for k, v in want.items()) or not (
+            launches["fused_decoder_level"] > 0
+            and launches["fused_decoder_level_tiled"] > 0):
+        raise AssertionError(f"mesh path launched {launches}; want {want} "
+                             "and decoder launches")
+
+
+def run_mesh(torch, np, card: str):
+    """Phase 18 (mesh); returns {kernel name: launches in the one-rank
+    NCCL mesh run}."""
+    import torch.distributed as dist
+
+    from srsem_torch.core.meshes import create_mesh
+    from srsem_torch.eval.grouped import GroupedPairScorer
+    from srsem_torch.eval.scorer import PairScorer
+
+    laps = Laps()
+    # One rank over NCCL, in this process: every collective of the path
+    # runs, over one rank.
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = create_mesh(device="cuda")
+        if not (mesh.distributed and mesh.shape == {"data": 1, "model": 1}):
+            raise AssertionError(f"one-rank mesh {mesh}")
+        # float32, TF32 off: the scorers and a train step of each slice
+        # through the mesh against the no-mesh path, the same weights.
+        rng = np.random.default_rng(33)
+        a = rng.integers(0, 256, (6, IMAGE, IMAGE, 3), dtype=np.uint8)
+        b = rng.integers(0, 256, (6, IMAGE, IMAGE, 3), dtype=np.uint8)
+        gt = rng.integers(0, 256, (3, IMAGE, IMAGE, 3), dtype=np.uint8)
+        sr = rng.integers(0, 256, (3, 2, IMAGE, IMAGE, 3), dtype=np.uint8)
+        out = {}
+        models = mesh_models(torch, np, "float32")
+        for name, m in (("mesh", mesh), ("plain", None)):
+            kw = {"device": TRAIN_DEVICE} if m is None else {"mesh": m}
+            gcfg, gm, lcfg, lm = copy.deepcopy(models)
+            res = {
+                "pair": PairScorer(gcfg, gm, batch_size=6, **kw
+                                   ).score_arrays(a, b),
+                "maps": PairScorer(lcfg, lm, batch_size=6,
+                                   model_kind="local", **kw
+                                   ).score_arrays(a, b),
+                "grouped": GroupedPairScorer(gcfg, gm, k=2, batch_size=3,
+                                             **kw).score_arrays(gt, sr)}
+            res = {k: v.float().cpu().numpy() for k, v in res.items()}
+            res["global_step"] = mesh_step(
+                torch, np, gm, False, host_batch(np, TRAIN_BATCH, False, 34),
+                m)
+            res["clu_step"] = mesh_step(
+                torch, np, lm, True, host_batch(np, MESH_CLU_BATCH, True,
+                                                35), m)
+            out[name] = res
+        errs = {}
+        for key in ("pair", "maps", "grouped"):
+            g, w = out["mesh"][key], out["plain"][key]
+            errs[key] = float(np.abs(g - w).max() / np.abs(w).max())
+        step_keys = ("loss", "params", "stats", "grads")
+        for key in ("global_step", "clu_step"):
+            errs[key] = compare_mesh(
+                np, dict(zip(step_keys, out["mesh"][key])),
+                dict(zip(step_keys, out["plain"][key])))
+        bad = [k for k in ("pair", "maps", "grouped") if errs[k] > 1e-6]
+        bad += [k for k in ("global_step", "clu_step")
+                if errs[k]["loss_rel"] > 1e-6 or errs[k]["grads_rel"] > 1e-5
+                or errs[k]["params_abs"] > 2e-4
+                or errs[k]["stats_rel"] > 1e-6]
+        if bad:
+            raise AssertionError(f"one-rank NCCL mesh vs no mesh: {bad}: "
+                                 f"{errs}")
+        emit("mesh", step="one_rank_nccl_vs_no_mesh_f32", errors=errs,
+             tolerance="scores/maps/loss/BN stats rel 1e-6, gradients rel "
+                       "1e-5 of the largest, trained leaves abs 2e-4 (two "
+                       "Adam steps of 1e-4)")
+        laps("f32")
+        del out
+        f32_models = models
+
+        # The mesh path, bf16 (the serving dtype): the global and the CLU
+        # scorer, one global train step at batch 5 and one CLU train step
+        # at batch 80, the counts reset just before and read just after.
+        models = mesh_models(torch, np, "bfloat16")
+        gcfg, gm, lcfg, lm = models
+        _, g_train, _, l_train = copy.deepcopy(models)
+        pair = PairScorer(gcfg, gm, batch_size=BATCH, mesh=mesh)
+        maps = PairScorer(lcfg, lm, batch_size=CLU_BATCH, model_kind="local",
+                          mesh=mesh)
+        a64 = rng.integers(0, 256, (BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)
+        b64 = rng.integers(0, 256, (BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)
+        g5 = host_batch(np, TRAIN_BATCH, False, 36)
+        c80 = host_batch(np, CLU_TRAIN_BATCH, True, 37)
+        from srsem_torch.ops import fused_bottleneck as fb
+        from srsem_torch.ops import fused_decoder as fd
+        from srsem_torch.ops import fused_head as fh
+
+        wrappers = {"fused_stage_score": fh.fused_global_score,
+                    "fused_bottleneck": fb.fused_bottleneck,
+                    "fused_bottleneck_tiled": fb.fused_bottleneck_tiled,
+                    "fused_decoder_level": fd.fused_decoder_level,
+                    "fused_decoder_level_tiled": fd.fused_decoder_level_tiled}
+        for fn in wrappers.values():
+            fn.launches = 0
+        scores = pair.score_arrays(a64, b64)
+        maps_out = maps.score_arrays(a64[:CLU_BATCH], b64[:CLU_BATCH])
+        losses = [mesh_step(torch, np, g_train, False, g5, mesh)[0],
+                  mesh_step(torch, np, l_train, True, c80, mesh)[0]]
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        check_mesh_launches(launches)
+        if not (torch.isfinite(scores).all() and torch.isfinite(maps_out).all()
+                and np.isfinite(losses).all()):
+            raise AssertionError(f"mesh path outputs not finite: {losses}")
+        emit("mesh", step="mesh_path", launches=launches, losses=losses,
+             mesh=repr(mesh))
+        laps("path")
+
+        # pairs/s at batch 64, bf16: the one-rank mesh path beside the
+        # no-mesh path, each steady over RATE_WINDOW_S, in turns.
+        plain = PairScorer(gcfg, gm, batch_size=BATCH)
+        rates = {"mesh": [], "no_mesh": []}
+        for _ in range(2):
+            for key, sc in (("mesh", pair), ("no_mesh", plain)):
+                rates[key].append(steady_rate(
+                    torch, lambda: sc.score_arrays(a64, b64), BATCH)[0])
+        best = {k: max(v) for k, v in rates.items()}
+        spread = max((max(v) - min(v)) / max(v) for v in rates.values())
+        emit("mesh", step="throughput", batch=BATCH, dtype="bfloat16",
+             image=IMAGE, pairs_per_s=best, runs=rates,
+             window_s=RATE_WINDOW_S,
+             mesh_over_no_mesh=best["mesh"] / best["no_mesh"],
+             spread=spread, card=card)
+        del pair, maps, plain, models, gm, lm, g_train, l_train
+        laps("throughput")
+    finally:
+        dist.destroy_process_group()
+
+    # Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    # device), spawned, against the one-rank run of the same work (run
+    # here meanwhile).
+    torch.cuda.empty_cache()
+    ranks, one = spawn_mesh(torch, "gloo", 2,
+                            lambda: mesh_work(torch, np, None, f32_models))
+    # The gradients to 1e-4: the ranks' two-pass BN statistics and the
+    # one rank's F.batch_norm round differently in float32 (2.3e-5 measured on
+    # the H100; 1e-13 apart in float64, tests/test_torch_port_mesh.py).
+    for r, got in enumerate(ranks):
+        errs = compare_mesh(np, got, one)
+        if (errs["loss_rel"] > 1e-5 or errs["grads_rel"] > 1e-4
+                or errs["stats_rel"] > 1e-5
+                or errs["grouped_rel"] > 1e-5 or errs["params_abs"] > 2e-4
+                or not got["launches"]):
+            raise AssertionError(f"two-rank gloo rank {r} vs one rank: "
+                                 f"{errs}, launches {got['launches']}")
+        emit("mesh", step="two_ranks_gloo_one_card", rank=r,
+             mesh=got["mesh"], launches=got["launches"],
+             one_rank_launches=one["launches"], errors=errs,
+             tolerance="loss, BN stats, grouped scores rel 1e-5; gradients "
+                       "rel 1e-4 of the largest; trained leaves abs 2e-4 "
+                       "(two Adam steps of 1e-4)",
+             loss=got["loss"], one_rank_loss=one["loss"],
+             seconds=got["seconds"], one_rank_seconds=one["seconds"])
+    laps("two_ranks")
+
+    count = torch.cuda.device_count()
+    if count > 1:
+        for r, got in enumerate(spawn_mesh(torch, "nccl", count)[0]):
+            errs = compare_mesh(np, got, one)
+            if (errs["loss_rel"] > 1e-5 or errs["grads_rel"] > 1e-4
+                    or errs["grouped_rel"] > 1e-5):
+                raise AssertionError(f"NCCL rank {r} of {count}: {errs}")
+            emit("mesh", step="nccl_every_card", rank=r, world=count,
+                 errors=errs, launches=got["launches"])
+    else:
+        emit("mesh", step="nccl_every_card", ran=False, count=count,
+             reason="one card: NCCL over several cards needs several")
+    laps("multi_card")
+    emit("mesh", step="seconds", **laps.seconds)
+    return launches
+
+
 def check_head_build(log: str) -> list:
     """Each fused_head_kernel instance's registers, stack frame and spills
     from nvcc's ``-Xptxas -v`` log; fails if a stack frame grew, or if the
@@ -4785,7 +5176,8 @@ def main() -> int:
                      ("finetune", run_finetune), ("sweeps", run_sweeps),
                      ("vit", run_vit), ("nr_train", run_nr_train),
                      ("iqa", run_iqa), ("text", run_text),
-                     ("explain", run_explain), ("saliency", run_saliency)):
+                     ("explain", run_explain), ("saliency", run_saliency),
+                     ("mesh", run_mesh)):
         t0 = time.perf_counter()
         runs[path] = fn(torch, np, card)
         seconds[path] = time.perf_counter() - t0
@@ -4799,6 +5191,16 @@ def main() -> int:
     # that every count stayed 0).
     for name in BOTTLENECK:
         summary[(name, "wperlay")] = summary[(name, "global")]
+    # The mesh path runs one global and one CLU scored batch and one train
+    # step of each slice: the global, clu and train paths' shapes.
+    summary[("fused_stage_score", "mesh")] = summary[("fused_stage_score",
+                                                      "global")]
+    for name in BOTTLENECK:
+        summary[(name, "mesh")] = combine(summary[(name, "global")],
+                                          summary[(name, "clu")],
+                                          summary[(name, "train")])
+    for name in ("fused_decoder_level", "fused_decoder_level_tiled"):
+        summary[(name, "mesh")] = summary[(name, "clu")]
     del runs["finetune"], runs["saliency"]
     for path, launches in runs.items():
         missing = [k for k, v in launches.items() if v <= 0]

@@ -5,6 +5,10 @@ is).  It imports torch, numpy and PIL only — never jax, flax or srsem — and
 mirrors the JAX package's module paths so each counterpart is easy to find:
 
 * ``config``                 — srsem/core/config.py (copied)
+* ``core.meshes``            — srsem/core/meshes.py (create_mesh over
+  ``torch.distributed`` ranks, shard_batch, replicate, gather_batch)
+* ``parallel.sharding``      — srsem/parallel/sharding.py (column-parallel
+  tower convs over the model axis)
 * ``data.preprocess``        — srsem/data/preprocess.py
 * ``ops.image``              — srsem/ops/image.py (resizes, pos-embed)
 * ``backbones.resnet``       — srsem/backbones/resnet.py (ImageNet, CLIP)
@@ -31,7 +35,11 @@ mirrors the JAX package's module paths so each counterpart is easy to find:
 * ``eval.approaches``        — srsem/eval/approaches.py (approach drivers)
 
 Public functions keep the JAX layout (NHWC).  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``cuda`` unless the caller passes ``device="cpu"``.  Where the JAX package
+runs one program over a ``(data, model)`` mesh, the port runs one process
+a card under ``torchrun`` over the same mesh (``core.meshes``); one
+process without a process group runs on a 1x1 mesh that does no
+collective.
 """
 
 from srsem_torch.config import (  # noqa: F401

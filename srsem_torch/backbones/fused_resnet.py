@@ -61,21 +61,33 @@ FROZEN_BASE_ONLY = ("fused_tower serves the frozen base tower only — it "
                     "folds BN into conv weights and carries no LoRA deltas")
 
 
+#: The refusal of a fused tower for a tower sharded over the model axis.
+SHARDED_TOWER = ("fused_tower folds whole conv weights; a tower sharded "
+                 "over the model axis runs as its module")
+
+
 #: The towers the fused tower serves.
 RESNET_KINDS = ("resnet50", "resnet50_clip")
 
 
 def resolve_fused_tower(requested: Optional[bool], frozen_base: bool,
-                        kind: str) -> bool:
+                        kind: str, sharded: bool = False) -> bool:
     """Whether to run the fused tower: ``requested``, or when None exactly
     when the tower is the frozen base tower (no LoRA factors, no
     gradients) of a ResNet.  ``True`` for any other tower raises JAX's
     ``ValueError``: the ViT has no bottleneck, and the folded weights
-    carry no LoRA delta and would go stale under training."""
+    carry no LoRA delta and would go stale under training.  A tower
+    ``sharded`` over the model axis (srsem_torch/parallel/sharding.py)
+    holds slices of its convs, which the kernels cannot fold: it runs as
+    its module, and ``True`` raises."""
     if kind not in RESNET_KINDS:
         if requested:
             raise ValueError(f"fused_tower needs a ResNet backbone, got "
                              f"{kind!r}")
+        return False
+    if sharded:
+        if requested:
+            raise ValueError(SHARDED_TOWER)
         return False
     if requested is None:
         return frozen_base

@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from srsem_torch.core.meshes import gather_shards
 from srsem_torch.ops.image import interpolate_pos_embed
 from srsem_torch.ops.lora import init_lora_, lora_delta
 
@@ -158,9 +159,23 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1,
 
 def conv_nchw(x: torch.Tensor, conv: LoraConv2d) -> torch.Tensor:
     """``conv`` applied in the input's dtype: the float32 kernel (with its
-    LoRA delta) cast per call."""
-    return F.conv2d(x, conv.kernel().to(x.dtype), None, conv.stride,
-                    conv.padding)
+    LoRA delta) cast per call.  A conv sharded over the model axis
+    (srsem_torch/parallel/sharding.py) gathers its output channels."""
+    y = F.conv2d(x, conv.kernel().to(x.dtype), None, conv.stride,
+                 conv.padding)
+    mesh = getattr(conv, "model_mesh", None)
+    if mesh is None:
+        return y
+    return gather_shards(y, 1, mesh).contiguous(
+        memory_format=torch.channels_last)
+
+
+def dense(m: nn.Linear, t: torch.Tensor) -> torch.Tensor:
+    """``m`` applied in ``t``'s dtype; a sharded ``m`` gathers its output
+    features."""
+    y = F.linear(t, m.weight.to(t.dtype), m.bias.to(t.dtype))
+    mesh = getattr(m, "model_mesh", None)
+    return y if mesh is None else gather_shards(y, -1, mesh)
 
 
 class ImageNetBottleneck(nn.Module):
@@ -296,7 +311,6 @@ class AttentionPool2d(nn.Module):
         tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
         pos = interpolate_pos_embed(self.positional_embedding, (h, w))
         tokens = tokens + pos.to(dt)
-        dense = lambda m, t: F.linear(t, m.weight.to(dt), m.bias.to(dt))  # noqa: E731
         hd = c // self.num_heads
         split = lambda t: t.reshape(n, t.shape[1], self.num_heads, hd)  # noqa: E731
         q = split(dense(self.q_proj, tokens[:, :1]))

@@ -65,6 +65,16 @@ layout.  Their fast paths amortize the frozen tower: ``train-clu
 ``sweep-global --shared-tower`` / ``--cached-diffs`` / ``--cached-stats``
 / ``--closed-form`` (srsem_torch/train/statcache.py) and ``sweep-clu
 --shared-thresholds``.
+
+Under ``torchrun`` (one process a card) the commands run over a mesh of
+the world's ranks (srsem_torch/core/meshes.py): ``serve``, ``score*``,
+``eval-global`` and ``sweep-dataset`` shard each batch over all of them,
+the training and sweep commands over every rank on the data axis
+(``train-global`` / ``train-clu``: ``--train-set mesh.data_axis=N``), and
+only rank 0 writes files and prints.  One process runs as before.
+
+    torchrun --nproc-per-node 2 -m srsem_torch train-global study.csv ROOT
+    torchrun --nproc-per-node 2 -m srsem_torch serve < requests.jsonl
 """
 
 from __future__ import annotations
@@ -76,6 +86,14 @@ import json
 import os
 import sys
 from typing import Any, Dict, List
+
+
+def _is_main() -> bool:
+    """``core.meshes.is_main``: the rank that writes files and prints
+    (imported here, as this module imports no torch at its top)."""
+    from srsem_torch.core.meshes import is_main
+
+    return is_main()
 
 
 def _parse_sets(pairs: List[str]) -> Dict[str, Any]:
@@ -173,6 +191,8 @@ def cmd_score(args) -> int:
                         fused_tower=args.fused_tower,
                         fast_jpeg=args.fast_jpeg, device=args.device)
     scores = scorer.score_paths(pairs)
+    if not _is_main():
+        return 0
     fields = list(rows[0].keys()) if rows else [args.col_a, args.col_b]
     with open(args.out, "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=fields + ["score"])
@@ -225,6 +245,8 @@ def cmd_score_groups(args) -> int:
                                fused_tower=args.fused_tower,
                                fast_jpeg=args.fast_jpeg, device=args.device)
     rows = scorer.score_folder_set(args.gt_folder, args.sr_folders)
+    if not _is_main():
+        return 0
     nan = _write_rows(args.out, rows)
     print(json.dumps({"groups": len(rows), "sr_models": len(args.sr_folders),
                       "nan_groups": nan, "device": str(scorer.device),
@@ -254,7 +276,10 @@ def cmd_score_maps_groups(args) -> int:
                               fused_decoder=args.fused_decoder,
                               fast_jpeg=args.fast_jpeg, device=args.device)
     rows = scorer.score_folder_set(args.gt_folder, args.sr_folders,
-                                   maps_dir=args.maps_dir)
+                                   maps_dir=args.maps_dir if _is_main()
+                                   else None)
+    if not _is_main():
+        return 0
     nan = _write_rows(args.out, rows)
     print(json.dumps({"groups": len(rows), "sr_models": len(args.sr_folders),
                       "nan_groups": nan, "device": str(scorer.device),
@@ -299,9 +324,11 @@ def cmd_sweep_dataset(args) -> int:
         rows = scorer.score_folders(args.gt_folder, sr_folder)
         out = args.out_template.format(
             folder=sr_folder.rstrip("/").split("/")[-1])
-        nan = _write_rows(out, rows, key="image")
-        summary[sr_folder] = {"pairs": len(rows), "nan": nan, "out": out}
-    print(json.dumps({**summary, "device": str(scorer.device)}))
+        if _is_main():
+            nan = _write_rows(out, rows, key="image")
+            summary[sr_folder] = {"pairs": len(rows), "nan": nan, "out": out}
+    if _is_main():
+        print(json.dumps({**summary, "device": str(scorer.device)}))
     return 0
 
 
@@ -337,7 +364,9 @@ def cmd_train_global(args) -> int:
     ds = UserStudyScores(args.csv, args.root, pre)
     result = train_global(cfg, tcfg, *split_loaders(ds, tcfg),
                           **_train_kw(args))
-    print(json.dumps({"val_metrics": result.val_metrics, "steps": result.step}))
+    if _is_main():
+        print(json.dumps({"val_metrics": result.val_metrics,
+                          "steps": result.step}))
     return 0
 
 
@@ -375,6 +404,8 @@ def cmd_eval_global(args) -> int:
     scorer = PairScorer(cfg, model, batch_size=args.batch_size,
                         fused_tower=args.fused_tower, device=args.device)
     scores = scorer.score_paths(pairs)
+    if not _is_main():
+        return 0
     valid = ~np.isnan(scores)
     print(json.dumps({"n": int(valid.sum()),
                       "srcc": srcc(scores[valid], labels[valid]),
@@ -423,6 +454,8 @@ def cmd_train_clu(args) -> int:
 
         results = train_local_sweep_shared_tower(
             thresholds, cfg, tcfg, train_loader, val_loader, **kw)
+        if not _is_main():
+            return 0
         if tcfg.checkpoint_dir:
             for r in results:
                 save_checkpoint(os.path.join(tcfg.checkpoint_dir, r["name"]),
@@ -436,6 +469,8 @@ def cmd_train_clu(args) -> int:
 
         result = train_local_cached_diffs(cfg, tcfg, train_loader, val_loader,
                                           **kw)
+        if not _is_main():
+            return 0
         if tcfg.checkpoint_dir:
             save_checkpoint(tcfg.checkpoint_dir, tcfg.epochs, {
                 "trainable": result["trainable"],
@@ -444,7 +479,9 @@ def cmd_train_clu(args) -> int:
                           "train_loss": result["train_loss"]}))
         return 0
     result = train_local(cfg, tcfg, train_loader, val_loader, **kw)
-    print(json.dumps({"val_metrics": result.val_metrics, "steps": result.step}))
+    if _is_main():
+        print(json.dumps({"val_metrics": result.val_metrics,
+                          "steps": result.step}))
     return 0
 
 
@@ -467,13 +504,16 @@ def cmd_sweep_global(args) -> int:
         results = run_global_sweep_amortized(
             args.csv, args.root, mode, backbone=args.backbone, l2=args.l2,
             **_train_kw(args))
-        print(json.dumps([{"name": r["name"], "val_srcc": r["val_srcc"],
-                           "val_mse": r["val_mse"]} for r in results]))
+        if _is_main():
+            print(json.dumps([{"name": r["name"], "val_srcc": r["val_srcc"],
+                               "val_mse": r["val_mse"]} for r in results]))
         return 0
     results = run_sweep(
         make_global_train_fn(args.csv, args.root, backbone=args.backbone,
                              **_train_kw(args)),
-        GLOBAL_SWEEP, summary_path=args.summary)
+        GLOBAL_SWEEP, summary_path=args.summary if _is_main() else None)
+    if not _is_main():
+        return 0
     print(json.dumps([{"name": r["name"],
                        "val_srcc": r.get("srcc"),
                        "val_mse": r.get("mse")} for r in results]))
@@ -489,10 +529,12 @@ def cmd_sweep_clu(args) -> int:
     for spec in args.limit_axis:
         key, _, raw = spec.partition("=")
         axes[key] = [ast.literal_eval(raw) if raw != "None" else None]
-    results = run_clu_sweep(args.csv, axes, summary_path=args.summary,
+    results = run_clu_sweep(args.csv, axes,
+                            summary_path=args.summary if _is_main() else None,
                             shared_thresholds=args.shared_thresholds,
                             **_train_kw(args))
-    print(json.dumps({"points": len(results)}))
+    if _is_main():
+        print(json.dumps({"points": len(results)}))
     return 0
 
 
@@ -774,6 +816,14 @@ def cmd_info(args) -> int:
         "env": {k: os.environ[k] for k in ("CUDA_VISIBLE_DEVICES",
                                            "CUDA_HOME")
                 if k in os.environ},
+        # torchrun's world, read from its environment (no process group
+        # starts here); the default mesh puts every rank on the data axis.
+        "distributed": {
+            "rank": int(os.environ.get("RANK", "0")),
+            "local_rank": int(os.environ.get("LOCAL_RANK", "0")),
+            "world": int(os.environ.get("WORLD_SIZE", "1")),
+            "mesh": {"data": int(os.environ.get("WORLD_SIZE", "1")),
+                     "model": 1}},
     }
     if args.native:
         from srsem_torch import native

@@ -31,10 +31,17 @@ Serving mechanics:
   into one device call (``linger_ms`` collection window); concurrent HTTP
   requests coalesce the same way through a dynamic batcher
   (:meth:`ScoreService.handle_concurrent`).
-* One card, no mesh.  Every (K, G) bucket's scorer shares ONE PairScorer
-  core a model, so the folded tower (or the ViT module), the packed head
-  and the folded decoder exist once on the card whatever the number of
-  buckets.
+* Every (K, G) bucket's scorer shares ONE PairScorer core a model, so
+  the folded tower (or the ViT module), the packed head and the folded
+  decoder exist once on the card whatever the number of buckets.
+* Over a mesh (``mesh=None`` is the rank-local 1x1 mesh, as JAX's
+  one-device default; ``serve`` under ``torchrun`` passes the world's),
+  ``group_batch`` and every ladder bucket divide the data axis.  Rank 0
+  runs stdio or HTTP and the collector; for each device batch it
+  broadcasts the bucket, then scatters each rank its slice of the groups
+  (``_device_call``).  The other ranks run ``follow``: they score their
+  slice through the same kernels until rank 0's shutdown message, and the
+  results are gathered on every rank.
 * Device calls (and their ``.cpu()``) run under the service lock; host
   decode runs in a thread pool and through a decoded-image LRU.
 """
@@ -54,6 +61,14 @@ from typing import Dict, List, Optional, Sequence, TextIO
 
 import numpy as np
 
+from srsem_torch.core.meshes import (
+    Mesh,
+    broadcast_object,
+    create_mesh,
+    gather_batch,
+    scatter_batch,
+    world,
+)
 from srsem_torch.device import DeviceLike
 from srsem_torch.eval.grouped import (
     GroupedMapScorer,
@@ -80,12 +95,27 @@ class ScoreService:
     def __init__(self, cfg, model, group_batch: int = 8,
                  num_workers: int = 16, fast_jpeg: bool = False,
                  map_cfg=None, map_model=None, linger_ms: float = 2.0,
-                 decode_cache: int = 256, device: DeviceLike = None):
+                 decode_cache: int = 256, device: DeviceLike = None,
+                 mesh: Optional[Mesh] = None):
         check_grouped_head(cfg.head)
         if group_batch < 1:
             raise ValueError(f"group_batch must be >= 1, got {group_batch}")
         self.cfg = cfg
         self.group_batch = group_batch
+        # Resolved once: the ladder depends on the data axis.
+        self.mesh = (mesh if mesh is not None
+                     else create_mesh(1, 1, device=device))
+        ndev = self.mesh.shape.get("data", 1)
+        if group_batch % ndev != 0:
+            raise ValueError(
+                f"group_batch={group_batch} does not shard evenly over the "
+                f"data={ndev} mesh axis — every compiled (G, K) bucket must "
+                f"be mesh-divisible; round group_batch up to a multiple of "
+                f"{ndev}")
+        # Rank 0 of a world of several ranks leads them (``follow``).
+        self._leads = (self.mesh.distributed and world()[1] > 1
+                       and self.mesh.is_main)
+        self._released = False
         self._buckets = self._build_ladder()
         self.num_workers = num_workers
         self.fast_jpeg = fast_jpeg
@@ -94,7 +124,7 @@ class ScoreService:
         self.decode_cache = max(0, int(decode_cache))  # <=0 disables
         # The shared cores: the model's weights folded onto the card once.
         self._core = PairScorer(cfg, model, batch_size=group_batch,
-                                fast_jpeg=fast_jpeg, device=device)
+                                fast_jpeg=fast_jpeg, mesh=self.mesh)
         self.device = self._core.device
         self._map_core = None
         if map_cfg is not None:
@@ -102,7 +132,7 @@ class ScoreService:
                                         batch_size=group_batch,
                                         model_kind="local",
                                         fast_jpeg=fast_jpeg,
-                                        device=self.device)
+                                        mesh=self.mesh)
         self._scorers: Dict[tuple, GroupedPairScorer] = {}
         self._map_scorers: Dict[tuple, GroupedMapScorer] = {}
         self._lock = threading.Lock()
@@ -128,12 +158,14 @@ class ScoreService:
             self.stats[key] += n
 
     def _build_ladder(self) -> List[int]:
-        """Batch-shape buckets: powers of two below group_batch, then
-        group_batch.  A lone request pays a G = 1 call, not the full padded
-        (group_batch, K) one."""
+        """Batch-shape buckets: the powers of two below group_batch that
+        divide the data axis, then group_batch.  A lone request pays the
+        smallest such call, not the full padded (group_batch, K) one."""
+        ndev = self.mesh.shape.get("data", 1)
         out, g = [], 1
         while g < self.group_batch:
-            out.append(g)
+            if g % ndev == 0:
+                out.append(g)
             g *= 2
         out.append(self.group_batch)
         return out
@@ -197,18 +229,49 @@ class ScoreService:
         size = self.cfg.backbone.image_size
         for k in ks:
             for g in self._ladder():
-                sc = self.scorer(k, g)
-                with self._lock:
-                    sc.score_arrays(np.zeros((g, size, size, 3), np.uint8),
-                                    np.zeros((g, k, size, size, 3), np.uint8)
-                                    ).cpu()
+                self._device_call(False, k, g,
+                                  np.zeros((g, size, size, 3), np.uint8),
+                                  np.zeros((g, k, size, size, 3), np.uint8))
                 if self._map_core is not None:
                     msize = self.map_cfg.backbone.image_size
-                    msc = self.map_scorer(k, g)
-                    with self._lock:
-                        msc.score_arrays(
-                            np.zeros((g, msize, msize, 3), np.uint8),
-                            np.zeros((g, k, msize, msize, 3), np.uint8)).cpu()
+                    self._device_call(
+                        True, k, g, np.zeros((g, msize, msize, 3), np.uint8),
+                        np.zeros((g, k, msize, msize, 3), np.uint8))
+
+    # ---- the mesh: one device batch over every rank -------------------------
+
+    def _device_call(self, maps: bool, k: int, g: int, gt: np.ndarray,
+                     sr: np.ndarray) -> np.ndarray:
+        """One padded (G, K) batch → float32 scores (or maps) on the host.
+        Leading a world of ranks, rank 0 broadcasts the bucket and scatters
+        each rank its slice of the groups; every rank scores its slice and
+        the result is gathered."""
+        sc = self.map_scorer(k, g) if maps else self.scorer(k, g)
+        with self._lock:
+            if not self._leads:
+                return sc.score_arrays(gt, sr).float().cpu().numpy()
+            broadcast_object(self.mesh, (maps, k, g))
+            return self._slice_scored(sc, gt, sr).float().cpu().numpy()
+
+    def _slice_scored(self, sc, gt: Optional[np.ndarray],
+                      sr: Optional[np.ndarray]):
+        """This rank's slice of rank 0's batch, scored and gathered."""
+        size = sc.preprocess.size
+        g, k = sc.batch_size, sc.k
+        mine_gt = scatter_batch(self.mesh, gt, (g, size, size, 3))
+        mine_sr = scatter_batch(self.mesh, sr, (g, k, size, size, 3))
+        return gather_batch(self.mesh, sc.score_local(mine_gt, mine_sr))
+
+    def follow(self) -> None:
+        """The loop of a rank above 0: score this rank's slice of each
+        device batch rank 0 leads, until rank 0 closes its service."""
+        while True:
+            msg = broadcast_object(self.mesh)
+            if msg is None:
+                return
+            maps, k, g = msg
+            sc = self.map_scorer(k, g) if maps else self.scorer(k, g)
+            self._slice_scored(sc, None, None)
 
     def close(self) -> None:
         self._closed = True
@@ -228,6 +291,10 @@ class ScoreService:
                     except cf.InvalidStateError:
                         pass  # already resolved (raced the put-side guard)
         self._pool.shutdown(wait=False)
+        with self._lock:
+            if self._leads and not self._released:
+                self._released = True
+                broadcast_object(self.mesh, None)  # the followers' shutdown
 
     # ---- cross-request dynamic batching ------------------------------------
 
@@ -395,8 +462,8 @@ class ScoreService:
                             ok[i, m] = True
             self._count("device_batches")
             self._count("batched_pairs", int(ok.sum()))
-            with self._lock:
-                result = sc.score_arrays(gt, sr).float().cpu().numpy()
+            result = self._device_call(sc.pairs.model_kind == "local", k, g,
+                                       gt, sr)
             yield chunk, ok, result
             start += len(chunk)
 
@@ -696,7 +763,8 @@ def serve_http(service: ScoreService, port: int, host: str = "127.0.0.1"):
 
 def run_serve(args) -> int:
     """CLI entry: build the models once (seeded weights, then the given
-    checkpoints), then serve over stdio or HTTP."""
+    checkpoints), then serve over stdio or HTTP.  Under ``torchrun`` the
+    service spans the world's mesh: rank 0 serves, the others follow."""
     import torch
 
     from srsem_torch.cli.main import _load_backbone, _load_checkpoint
@@ -728,6 +796,10 @@ def run_serve(args) -> int:
             map_cfg, generator=torch.Generator().manual_seed(0))
         _load_checkpoint(map_model, args.clu_checkpoint)
 
+    # Several ranks shard the padded (G, K) batch over the data mesh; one
+    # process stays on the rank-local mesh (the same behavior).
+    mesh = (create_mesh(device=args.device)
+            if int(os.environ.get("WORLD_SIZE", "1")) > 1 else None)
     service = ScoreService(cfg, model, group_batch=args.group_batch,
                            num_workers=args.num_workers,
                            fast_jpeg=args.fast_jpeg,
@@ -735,7 +807,13 @@ def run_serve(args) -> int:
                            linger_ms=(2.0 if args.linger_ms is None
                                       else args.linger_ms),
                            decode_cache=args.decode_cache,
-                           device=args.device)
+                           device=args.device, mesh=mesh)
+    if mesh is not None and not mesh.is_main:
+        try:
+            service.follow()
+        finally:
+            service.close()
+        return 0
     try:
         if args.warmup_k:
             service.warmup(args.warmup_k)

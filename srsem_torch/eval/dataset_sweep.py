@@ -18,6 +18,11 @@ the card.  Folder convention as the reference's KonIQ SR layout
 (reference: qwen_caps_embedding_script.py:59-76): a GT folder and an SR
 folder with matching stems.  ``score_folders`` returns a list of row dicts
 (the card's machine has no pandas).
+
+Over a mesh (``mesh=None``: ``create_mesh()``) the batch rounds up to a
+multiple of the data axis, each rank scores its slice of the pairs (or
+of the groups, padded with zero rows) and both results are gathered on
+every rank and trimmed.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from srsem_torch.core.meshes import Mesh, replicate, sharded_call
 from srsem_torch.device import DeviceLike
 from srsem_torch.eval.scorer import PairScorer
 from srsem_torch.models.global_models import CONV_HEADS, grouped_diff_pyramid
@@ -58,7 +64,7 @@ class DualScorer:
                  decode_backend: str = "pil",
                  fused_tower: Optional[bool] = None,
                  fused_decoder: bool = True, fast_jpeg: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         gb, lb = global_cfg.backbone, local_cfg.backbone
         if (gb.kind, gb.image_size) != (lb.kind, lb.image_size):
             raise ValueError(
@@ -67,7 +73,6 @@ class DualScorer:
         if global_cfg.head not in CONV_HEADS:
             raise ValueError(f"DualScorer scores the conv heads {CONV_HEADS}, "
                              f"got {global_cfg.head!r}")
-        self.batch_size = batch_size
         self.num_workers = num_workers
         self.decode_backend = decode_backend
         # The shared core: folded tower, packed head, preprocess, decode.
@@ -76,11 +81,13 @@ class DualScorer:
                                 num_workers=num_workers,
                                 decode_backend=decode_backend,
                                 fused_tower=fused_tower, fast_jpeg=fast_jpeg,
-                                device=device)
+                                device=device, mesh=mesh)
+        self.mesh = self.pairs.mesh
+        self.batch_size = self.pairs.batch_size
         self.device = self.pairs.device
         self.preprocess = self.pairs.preprocess
         self.local = local_model.eval()
-        self.local.decoder.to(self.device)
+        replicate(self.mesh, self.local.decoder.to(self.device))
         self.fused_decoder = fused_decoder
         with torch.no_grad():
             self._decoder_folded = (fold_decoder(self.local)
@@ -99,6 +106,10 @@ class DualScorer:
                    ) -> Tuple[Tensor, Tensor]:
         """uint8 NHWC batch pair → ((N,) float32 scores, (N, H, W) maps) on
         the device, from one tower pass of each image."""
+        return sharded_call(self.mesh, self._score_both, a_u8, b_u8)
+
+    def _score_both(self, a_u8: np.ndarray, b_u8: np.ndarray
+                    ) -> Tuple[Tensor, Tensor]:
         sc, lm = self.pairs, self.local
         a, b = sc.normalize(a_u8), sc.normalize(b_u8)
         _, taps_a = sc.tower(a)
@@ -116,6 +127,10 @@ class DualScorer:
                            ) -> Tuple[Tensor, Tensor]:
         """(G,H,W,3) GT + (G,K,H,W,3) SR uint8 → ((G,K) scores, (G,K,H,W)
         maps) on the device, with one shared GT tower pass per group."""
+        return sharded_call(self.mesh, self._score_groups, gt_u8, sr_u8)
+
+    def _score_groups(self, gt_u8: np.ndarray, sr_u8: np.ndarray
+                      ) -> Tuple[Tensor, Tensor]:
         sc, lm = self.pairs, self.local
         g, k = sr_u8.shape[:2]
         gt = sc.normalize(gt_u8)

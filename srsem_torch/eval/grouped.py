@@ -16,6 +16,11 @@ pass: 1 + K passes instead of 2K.
 
 ``score_folder_set`` returns a list of row dicts (the card's machine has no
 pandas); the CLI writes them with ``csv``.
+
+Over a mesh (the shared PairScorer's) the group dimension is padded to a
+multiple of the data axis, each rank scores its slice of the groups
+(``score_local``: one GT pass and one SR pass) and the result is gathered
+on every rank and trimmed (``core.meshes.sharded_call``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from srsem_torch.core.meshes import Mesh, sharded_call
 from srsem_torch.data.preprocess import IMG_EXTENSIONS
 from srsem_torch.device import DeviceLike
 from srsem_torch.eval.scorer import PairScorer
@@ -140,15 +146,17 @@ class GroupedPairScorer:
     def __init__(self, cfg, model, k: int, batch_size: int = 32,
                  num_workers: int = 16, fused_tower: Optional[bool] = None,
                  fast_jpeg: bool = False, device: DeviceLike = None,
-                 pairs: Optional[PairScorer] = None):
+                 pairs: Optional[PairScorer] = None,
+                 mesh: Optional[Mesh] = None):
         check_grouped_head(cfg.head)
         self.k = k
-        self.batch_size = batch_size
         self.num_workers = num_workers
         self.pairs = pairs or PairScorer(
             cfg, model, batch_size=batch_size, fused_tower=fused_tower,
-            fast_jpeg=fast_jpeg, device=device)
+            fast_jpeg=fast_jpeg, device=device, mesh=mesh)
         _check_shared(self.pairs, model, "global")
+        n_data = self.pairs.mesh.shape["data"]
+        self.batch_size = ((batch_size + n_data - 1) // n_data) * n_data
         self.preprocess = self.pairs.preprocess
         self.device = self.pairs.device
 
@@ -156,6 +164,11 @@ class GroupedPairScorer:
     def score_arrays(self, gt_u8: np.ndarray, sr_u8: np.ndarray) -> torch.Tensor:
         """(G,H,W,3) GT + (G,K,H,W,3) SR uint8 → (G,K) float32 scores on
         the scorer's device.  G and K come from the input's shape."""
+        return sharded_call(self.pairs.mesh, self.score_local, gt_u8, sr_u8)
+
+    @torch.inference_mode()
+    def score_local(self, gt_u8: np.ndarray, sr_u8: np.ndarray) -> torch.Tensor:
+        """``score_arrays`` of this rank's groups, with no collective."""
         sc = self.pairs
         g, kk = sr_u8.shape[:2]
         gt = sc.normalize(gt_u8)
@@ -200,14 +213,16 @@ class GroupedMapScorer:
                  fused_tower: Optional[bool] = None,
                  fused_decoder: bool = True,
                  fast_jpeg: bool = False, device: DeviceLike = None,
-                 pairs: Optional[PairScorer] = None):
+                 pairs: Optional[PairScorer] = None,
+                 mesh: Optional[Mesh] = None):
         self.k = k
-        self.batch_size = batch_size
         self.pairs = pairs or PairScorer(
             cfg, model, batch_size=batch_size, model_kind="local",
             fused_tower=fused_tower, fused_decoder=fused_decoder,
-            fast_jpeg=fast_jpeg, device=device)
+            fast_jpeg=fast_jpeg, device=device, mesh=mesh)
         _check_shared(self.pairs, model, "local")
+        n_data = self.pairs.mesh.shape["data"]
+        self.batch_size = ((batch_size + n_data - 1) // n_data) * n_data
         self.preprocess = self.pairs.preprocess
         self.device = self.pairs.device
 
@@ -215,6 +230,11 @@ class GroupedMapScorer:
     def score_arrays(self, gt_u8: np.ndarray, sr_u8: np.ndarray) -> torch.Tensor:
         """(G,H,W,3) GT + (G,K,H,W,3) SR uint8 → (G,K,H,W) maps on the
         scorer's device."""
+        return sharded_call(self.pairs.mesh, self.score_local, gt_u8, sr_u8)
+
+    @torch.inference_mode()
+    def score_local(self, gt_u8: np.ndarray, sr_u8: np.ndarray) -> torch.Tensor:
+        """``score_arrays`` of this rank's groups, with no collective."""
         sc = self.pairs
         g, kk = sr_u8.shape[:2]
         gt = sc.normalize(gt_u8)

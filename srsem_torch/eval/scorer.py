@@ -34,7 +34,12 @@ towers run as two passes (a, then b).  After the tower, by model:
   ``fused_decoder`` is on (the default, None, turns it on for a CluUnet),
   else through the module's ``decode_from_diffs``.
 
-One card, no mesh: multi-GPU waits for ROADMAP A9b.
+Over a mesh (srsem_torch/core/meshes.py; ``mesh=None`` means
+``create_mesh()``, the ``torchrun`` world, or the rank-local 1x1 mesh
+without one), ``batch_size`` rounds up to a multiple of the data axis,
+each rank scores its slice of a batch (padded with zero rows to that
+multiple) through the same kernels, and the result is gathered on every
+rank and trimmed.
 """
 
 from __future__ import annotations
@@ -50,8 +55,15 @@ from srsem_torch.backbones.fused_resnet import (
     fused_apply,
     resolve_fused_tower,
 )
+from srsem_torch.core.meshes import (
+    DATA_AXIS,
+    Mesh,
+    create_mesh,
+    replicate,
+    sharded_call,
+)
 from srsem_torch.data.preprocess import Preprocess
-from srsem_torch.device import DeviceLike, resolve_device
+from srsem_torch.device import DeviceLike
 from srsem_torch.models.global_models import KERNEL_HEADS
 from srsem_torch.models.local_models import (
     CluUnet,
@@ -61,6 +73,7 @@ from srsem_torch.models.local_models import (
     squared_diff_pyramid,
 )
 from srsem_torch.ops.fused_head import fused_global_score, pack_head
+from srsem_torch.parallel.sharding import is_sharded, require_sharded
 
 
 class PairScorer:
@@ -84,8 +97,10 @@ class PairScorer:
         fused_decoder: Optional[bool] = None,
         fast_jpeg: bool = False,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh or create_mesh(device=device)
+        self.device = self.mesh.device
         if model_kind not in ("global", "local"):
             raise ValueError(f"model_kind must be 'global' or 'local', got "
                              f"{model_kind!r}")
@@ -106,14 +121,17 @@ class PairScorer:
                     "srsem_torch info --native`) or use the default PIL "
                     "backend")
         self.cfg = cfg
-        self.model = model.to(self.device).eval()
+        require_sharded(self.mesh, model)
+        self.model = replicate(self.mesh, model.to(self.device).eval())
         self.model_kind = model_kind
-        self.batch_size = batch_size
+        # The batch dim shards over `data`; round up so it divides evenly.
+        n_data = self.mesh.shape[DATA_AXIS]
+        self.batch_size = ((batch_size + n_data - 1) // n_data) * n_data
         self.num_workers = num_workers
         self.decode_backend = decode_backend
         self.fused_tower = resolve_fused_tower(
             fused_tower, getattr(cfg, "lora_rank", None) is None,
-            cfg.backbone.kind)
+            cfg.backbone.kind, is_sharded(model.backbone))
         self.is_clu = isinstance(model, CluUnet)
         if model_kind == "local" and not self.is_clu:
             raise ValueError(f"model_kind='local' scores a CluUnet, got "
@@ -161,7 +179,13 @@ class PairScorer:
     @torch.inference_mode()
     def score_arrays(self, a_u8: np.ndarray, b_u8: np.ndarray) -> torch.Tensor:
         """Score a uint8 NHWC batch pair; returns (N,) float32 scores or
-        (N, H, W) maps on the scorer's device."""
+        (N, H, W) maps on the scorer's device (on a mesh: each rank
+        scores its slice, and every rank gets the whole result)."""
+        return sharded_call(self.mesh, self.score_local, a_u8, b_u8)
+
+    @torch.inference_mode()
+    def score_local(self, a_u8: np.ndarray, b_u8: np.ndarray) -> torch.Tensor:
+        """``score_arrays`` of this rank's rows, with no collective."""
         a, b = self.normalize(a_u8), self.normalize(b_u8)
         emb_a, taps_a = self.tower(a)
         emb_b, taps_b = self.tower(b)

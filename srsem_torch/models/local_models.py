@@ -28,7 +28,10 @@ train=True)`` run the decoder's BatchNorms on batch statistics and update
 their running statistics, as the JAX package's ``TorchBatchNorm``
 (srsem/ops/batchnorm.py) does: torch momentum 0.1 (flax's 0.9), the
 biased batch variance to normalize, the Bessel-corrected one into
-``running_var``.
+``running_var``.  On a mesh (``sync_batch_norm``) the batch statistics
+are the global batch's, summed over the mesh's ``data`` axis as jit's
+psums make them in JAX; the backward sums the two gradient reductions
+the same way.
 
 Tower training (``lora_rank``): an int puts LoRA factors of that rank on
 every tower conv (srsem_torch/ops/lora.py), and ``"full"`` trains the
@@ -59,6 +62,7 @@ from srsem_torch.backbones.resnet import (
     to_nhwc,
 )
 from srsem_torch.config import BackboneConfig, LocalModelConfig
+from srsem_torch.core.meshes import DATA_AXIS, Mesh, all_reduce
 from srsem_torch.ops.fused_bottleneck import fold_bn_into_conv
 from srsem_torch.ops.fused_decoder import (
     fused_decoder_level,
@@ -84,12 +88,64 @@ DEFAULT_FUSE_LEVELS: Tuple[int, ...] = (0, 1, 2)
 DEFAULT_TILED_LEVEL_ROWS: Dict[int, int] = {0: 7, 1: 7}
 
 
-def _batch_norm(x: Tensor, bn: nn.BatchNorm2d, train: bool = False) -> Tensor:
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BN of float32 NCHW ``x`` with the statistics of the
+    global batch, summed over the mesh's data axis: the mean, then the
+    biased variance about it (JAX's two passes).  Returns ``(y, mean,
+    var, count)``; only ``y`` carries gradients.  The backward sums the
+    per-channel ``sum(dy)`` and ``sum(dy * xhat)`` over the data axis for
+    the input's gradient, and returns the rank's own sums for the weight
+    and bias (the train step sums those over ``data``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mesh: Mesh, eps: float):
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        first = all_reduce(mesh, torch.cat(
+            [x.sum(dim=dims), x.new_full((1,), x.numel() // c)]))
+        count = first[c]
+        mean = first[:c] / count
+        centered = x - mean.view(1, -1, 1, 1)
+        var = all_reduce(mesh, (centered * centered).sum(dim=dims)) / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = centered * invstd.view(1, -1, 1, 1)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.mesh, ctx.count = mesh, count
+        ctx.mark_non_differentiable(mean, var, count)
+        return (xhat * weight.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1),
+                mean, var, count)
+
+    @staticmethod
+    def backward(ctx, gy, *_):
+        xhat, weight, invstd = ctx.saved_tensors
+        c = xhat.shape[1]
+        dims = (0, 2, 3)
+        local = torch.cat([gy.sum(dim=dims), (gy * xhat).sum(dim=dims)])
+        total = all_reduce(ctx.mesh, local) / ctx.count
+        view = lambda v: v.view(1, -1, 1, 1)  # noqa: E731
+        dx = view(weight * invstd) * (gy - view(total[:c])
+                                      - xhat * view(total[c:]))
+        return dx, local[c:], local[:c], None, None
+
+
+def _batch_norm(x: Tensor, bn: nn.BatchNorm2d, train: bool = False,
+                mesh: Optional[Mesh] = None) -> Tensor:
     """BN in float32: running statistics, or with ``train`` the batch's
     (biased variance), updating the running statistics in place with
-    momentum 0.1 and the unbiased variance (torch's BatchNorm2d)."""
-    return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                        bn.weight, bn.bias, train, 0.1, bn.eps)
+    momentum 0.1 and the unbiased variance (torch's BatchNorm2d).  With
+    ``train`` on a ``mesh`` whose data axis has more than one rank, the
+    batch is the global one (``_SyncBatchNorm``)."""
+    if not (train and mesh is not None and mesh.distributed
+            and mesh.shape[DATA_AXIS] > 1):
+        return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
+                            bn.weight, bn.bias, train, 0.1, bn.eps)
+    y, mean, var, count = _SyncBatchNorm.apply(x.float(), bn.weight,
+                                               bn.bias, mesh, bn.eps)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+        bn.running_var.mul_(0.9).add_(var * (count / (count - 1)),
+                                      alpha=0.1)
+    return y
 
 
 class DecoderBlock(nn.Sequential):
@@ -114,6 +170,8 @@ class DecoderBlock(nn.Sequential):
         super().__init__(*layers)
         self.final_kernel = final_kernel
         self.dtype = dtype
+        #: The mesh whose data axis the train-mode BN statistics span.
+        self.mesh: Optional[Mesh] = None
 
     def forward(self, d: Tensor, u: Optional[Tensor] = None,
                 train: bool = False) -> Tensor:
@@ -125,11 +183,11 @@ class DecoderBlock(nn.Sequential):
         if u is not None:
             x = x + F.conv2d(u.to(dt), w[:, cd:], None, 1, 1)
         x = F.relu(_batch_norm(x + conv1.bias.to(dt).view(1, -1, 1, 1),
-                               bn1, train)).to(dt)
+                               bn1, train, self.mesh)).to(dt)
         x = F.conv2d(x, conv2.weight.to(dt), conv2.bias.to(dt), 1,
                      conv2.padding)
         if isinstance(self[4], nn.BatchNorm2d):
-            x = _batch_norm(x, self[4], train)
+            x = _batch_norm(x, self[4], train, self.mesh)
         return F.relu(x.to(dt))
 
 
@@ -195,6 +253,12 @@ class CluUnet(nn.Module):
                     m.bias.zero_()
                 elif isinstance(m, nn.BatchNorm2d):
                     m.reset_parameters()
+
+    def sync_batch_norm(self, mesh: Optional[Mesh]) -> None:
+        """Take the decoder's train-mode BN statistics over ``mesh``'s
+        data axis (None: this rank's batch)."""
+        for block in self.decoder:
+            block.mesh = mesh
 
     @property
     def tower_trains(self) -> bool:

@@ -20,6 +20,13 @@ The closed form is one (D+1)x(D+1) ``torch.linalg.solve`` in float32 with
 TF32 off.  The JAX package keeps a bounded cache of jitted solves (64
 entries, FIFO, under a lock) so that repeated fits skip re-tracing; eager
 PyTorch traces nothing, so here the solve is a plain function.
+
+On a mesh the cache keeps JAX's layout (srsem/train/statcache.py:123):
+the batch-index axis whole on every rank, the batch axis sliced by data
+rank; each rank runs the tower on its slice and Adam steps as
+``train.steps`` does.  The ridge solve runs on the statistics gathered
+whole on every rank (``gathered``), as JAX's solve reads the replicated
+arrays.
 """
 
 from __future__ import annotations
@@ -32,23 +39,24 @@ import numpy as np
 import torch
 
 from srsem_torch.config import GlobalModelConfig, TrainConfig
-from srsem_torch.device import DeviceLike, resolve_device
+from srsem_torch.core.meshes import Mesh, replicate
+from srsem_torch.device import DeviceLike
 from srsem_torch.models.global_models import (
     conv_head_from_stats,
     conv_head_params,
     token_head_params,
 )
-from srsem_torch.train.loop import batch_to_device
+from srsem_torch.train.diffcache import gather_rows
+from srsem_torch.train.loop import batch_to_device, training_mesh
 from srsem_torch.train.multisweep import (
     SweepPoint,
-    adam_step,
     global_results,
     labels_for,
     pair_taps,
     point_heads,
     sweep_tower,
 )
-from srsem_torch.train.steps import masked_mse
+from srsem_torch.train.steps import adam_step, masked_mse
 from srsem_torch.utils.convert import conv_head_from_params
 
 Tensor = torch.Tensor
@@ -75,17 +83,18 @@ class StatCache:
 
 
 def build_stat_cache(tower, tap_names: Sequence[str], loader,
-                     device: torch.device) -> StatCache:
+                     device: torch.device,
+                     mesh: Optional[Mesh] = None) -> StatCache:
     """One frozen-tower pass over ``loader`` into a stat cache on
     ``device``: per tap the mean over every axis but the batch and the
     features of the float32 squared diff (spatial for conv taps, tokens
-    for ViT taps)."""
+    for ViT taps); on a ``mesh``, of this rank's slice of every batch."""
     tap_names = list(tap_names)
     stats: Dict[str, List[Tensor]] = {nm: [] for nm in tap_names}
     ys: List[Tensor] = []
     masks: List[Tensor] = []
     for batch in loader:
-        a, b, y, mask = batch_to_device(batch, device)
+        a, b, y, mask = batch_to_device(batch, device, mesh)
         taps_a, taps_b = pair_taps(tower, a, b, tap_names)
         for nm in tap_names:
             d = (taps_a[nm].float() - taps_b[nm].float()) ** 2
@@ -98,6 +107,17 @@ def build_stat_cache(tower, tap_names: Sequence[str], loader,
         raise ValueError("loader must yield fixed-size (padded) batches")
     return StatCache(stats={nm: torch.stack(v) for nm, v in stats.items()},
                      y=torch.stack(ys), mask=torch.stack(masks))
+
+
+def gathered(mesh: Optional[Mesh], cache: StatCache) -> StatCache:
+    """``cache`` with every rank's slice of its batches: the whole cache
+    on every rank."""
+    if mesh is None or not mesh.distributed:
+        return cache
+    return StatCache(stats={nm: gather_rows(mesh, v)
+                            for nm, v in cache.stats.items()},
+                     y=gather_rows(mesh, cache.y),
+                     mask=gather_rows(mesh, cache.mask))
 
 
 @contextlib.contextmanager
@@ -196,15 +216,18 @@ def fit_token_head_closed_form(cache: StatCache, names: Sequence[str],
 
 
 def _stat_caches(points, cfg, tcfg, train_loader, val_loader,
-                 backbone_params, device, fused_tower):
+                 backbone_params, mesh, fused_tower):
     """``(generator, train cache, val cache)`` over the points' tap union,
     from one frozen tower built from ``backbone_params`` or the
-    generator."""
+    generator; the validation cache gathered whole."""
     gen = torch.Generator().manual_seed(tcfg.seed)
-    tower = sweep_tower(cfg, backbone_params, gen, device, fused_tower)
+    tower = sweep_tower(cfg, backbone_params, gen, mesh.device, fused_tower,
+                        mesh)
     union = sorted({n for p in points for n in p.tap_names(cfg.backbone.kind)})
-    return (gen, build_stat_cache(tower, union, train_loader, device),
-            build_stat_cache(tower, union, val_loader, device))
+    dev = mesh.device
+    return (gen, build_stat_cache(tower, union, train_loader, dev, mesh),
+            gathered(mesh, build_stat_cache(tower, union, val_loader, dev,
+                                            mesh)))
 
 
 def _predict(head, cache: StatCache, names) -> Tensor:
@@ -222,16 +245,20 @@ def solve_global_sweep_closed_form(
     backbone_params=None,
     device: DeviceLike = None,
     fused_tower: Optional[bool] = None,
+    mesh: Optional[Mesh] = None,
 ) -> List[Dict]:
     """The global sweep solved instead of trained: one tower pass builds
     the stat cache, then every grid point is one ridge solve
-    (``fit_conv_head_closed_form``).  The result contract of
+    (``fit_conv_head_closed_form``) over the whole cache, on every rank of
+    ``mesh`` (None: ``tcfg.mesh`` over the ranks).  The result contract of
     ``train_global_sweep_cached_stats``, with ``train_loss`` the solve's
     pre-ReLU train MSE; no epochs."""
-    dev = resolve_device(device)
+    mesh = training_mesh(tcfg, mesh, device)
+    dev = mesh.device
     _, cache, val_cache = _stat_caches(points, cfg, tcfg, train_loader,
-                                       val_loader, backbone_params, dev,
+                                       val_loader, backbone_params, mesh,
                                        fused_tower)
+    cache = gathered(mesh, cache)
     keep = val_cache.mask.cpu().numpy() > 0
     heads, losses, preds = [], [], []
     for p in points:
@@ -257,8 +284,10 @@ def train_global_sweep_cached_stats(
     backbone_params=None,
     device: DeviceLike = None,
     fused_tower: Optional[bool] = None,
+    mesh: Optional[Mesh] = None,
 ) -> List[Dict]:
-    """The global sweep trained entirely from per-layer diff statistics.
+    """The global sweep trained entirely from per-layer diff statistics,
+    over ``mesh`` (None: ``tcfg.mesh`` over the ranks).
 
     The contract of ``train_global_sweep_cached_diffs`` (one summary a
     point), the same head math (``conv_head_from_stats`` is the
@@ -266,19 +295,21 @@ def train_global_sweep_cached_stats(
     cache ~400x smaller.  ``closed_form_init`` starts each point at its
     pre-ReLU ridge optimum instead of the random init; Adam then refines
     through the output ReLU."""
-    dev = resolve_device(device)
+    mesh = training_mesh(tcfg, mesh, device)
+    dev = mesh.device
     kind = cfg.backbone.kind
     gen, cache, val_cache = _stat_caches(points, cfg, tcfg, train_loader,
-                                         val_loader, backbone_params, dev,
+                                         val_loader, backbone_params, mesh,
                                          fused_tower)
     names = [p.tap_names(kind) for p in points]
     if closed_form_init:
+        whole = gathered(mesh, cache)
         heads = [conv_head_from_params(fit_conv_head_closed_form(
-            cache, nm, label_transform=p.label_transform)["params"])
+            whole, nm, label_transform=p.label_transform)["params"])
             for p, nm in zip(points, names)]
     else:
         heads = point_heads(points, kind, gen)
-    heads = [h.to(dev) for h in heads]
+    heads = replicate(mesh, [h.to(dev) for h in heads])
     opts = [torch.optim.Adam(h.parameters(), lr=tcfg.lr) for h in heads]
 
     losses = torch.zeros(len(points))
@@ -288,7 +319,7 @@ def train_global_sweep_cached_stats(
             losses = torch.stack([
                 adam_step(opt, masked_mse(
                     conv_head_from_stats(h, [cache.stats[n][idx] for n in nm]),
-                    labels_for(p, y), mask))
+                    labels_for(p, y), mask, mesh), mesh)
                 for p, h, opt, nm in zip(points, heads, opts, names)])
     losses = losses.cpu().numpy()
 

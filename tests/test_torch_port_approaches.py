@@ -15,6 +15,7 @@ Host-array images go to ``device``, tensors keep theirs.  64 px, float32,
 the CPU."""
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +50,7 @@ from test_torch_port_explain import _ids
 from test_torch_port_lpips import _official
 from test_torch_port_text import CLIP
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 SIZE = 64
 TAP = "stages.2.2.act"  # a 4x4 map at 64 px
@@ -113,7 +115,7 @@ def setup(tmp_path_factory):
     lp_params = jax_convert_lpips(lins, alex, net="alex")
     jax_cam = jax.jit(lambda img, offsets: jax_image.apply(
         {"params": params}, img, tap_offsets=offsets))
-    return {
+    yield {
         "root": root, "load_img": load_img,
         "port": dict(
             suite=EmbedderSuite(port, load_img, splice=SpliceDecomposer(
@@ -131,6 +133,7 @@ def setup(tmp_path_factory):
             lpips=jax_make_lpips("alex", params=lp_params, image_size=SIZE),
             factories=[f for _, f in FACTORIES], mod=japp, kw={}),
     }
+    shutil.rmtree(root, ignore_errors=True)
 
 
 CAM_KEYS = ("gcam_", "hqgcam_")

@@ -26,6 +26,7 @@ from srsem.train.partition import partition_params as jax_partition_params
 from srsem.train.partition import trainable_predicate as jax_predicate
 from srsem_torch.train import checkpoint as tck
 from srsem_torch.train import partition as tpart
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 
 def _tree(seed=0):

@@ -34,6 +34,7 @@ from srsem_torch.cli.main import main as port_main
 from srsem_torch.config import BackboneConfig, GlobalModelConfig, LocalModelConfig
 from srsem_torch.models.global_models import make_global_model
 from srsem_torch.models.local_models import make_local_model
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 SIZE = 64
 

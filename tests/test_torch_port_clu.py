@@ -48,6 +48,7 @@ from srsem_torch.models.local_models import (
 )
 from srsem_torch.ops import fused_decoder as tfd
 from srsem_torch.utils.convert import load_jax_local_params
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -35,6 +35,7 @@ from test_fusion import _state_dict as fusion_state_dict
 from test_torch_port_saliency import mirror_state_dict as transalnet_state_dict
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
 from test_torch_port_vit import _hf_state_dict, _timm_state_dict
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -20,6 +20,7 @@ import torch
 from srsem_torch.ops import fused_bottleneck as tfb
 from srsem_torch.ops import fused_decoder as tfd
 from srsem_torch.ops import fused_head as tfh
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 
 @pytest.fixture
@@ -905,3 +906,72 @@ def test_dual_encoders_and_itm_on_card_match_cpu(cuda_device):
     for k, ref in out["cpu"].items():
         err = float((out["card"][k] - ref).abs().max())
         assert err <= 1e-3 * float(ref.abs().max()), (k, err)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_matches_no_mesh(cuda_device):
+    """A one-rank NCCL process group's mesh on the card (float32, TF32
+    off): a scored batch of the global and of the CLU scorer, and one CLU
+    train step, run every collective of the mesh path over one rank and
+    equal the no-mesh path (scores, maps and the loss rtol 1e-6; the
+    gradients the step applied within 1e-5 of the largest, as a bias
+    feeding a train-mode BatchNorm has a zero gradient of float32 noise;
+    the trained decoder within 2·lr: a decoder gradient's rounding can
+    flip a near-zero sign)."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from srsem_torch.core.meshes import create_mesh
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.train.partition import flatten_dict, trainable_predicate
+    from srsem_torch.train.loop import build_training
+    from srsem_torch.utils.convert import jax_trainable_params
+
+    gcfg, gm, lcfg, lm = _serving_models(64)
+    twin = copy.deepcopy(lm)
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    b = rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    batch = (torch.randn(4, 64, 64, 3, device=cuda_device, generator=g),
+             torch.randn(4, 64, 64, 3, device=cuda_device, generator=g),
+             torch.rand(4, 64, 64, device=cuda_device, generator=g),
+             torch.tensor([1.0, 1.0, 1.0, 0.0], device=cuda_device))
+
+    def run(model, mesh):
+        kw = {"mesh": mesh} if mesh is not None else {}
+        scores = PairScorer(gcfg, gm, batch_size=3, **kw).score_arrays(a, b)
+        maps = PairScorer(lcfg, model, batch_size=3, model_kind="local",
+                          **kw).score_arrays(a, b)
+        steps = build_training(model, True, trainable_predicate(), 1e-4,
+                               cuda_device, mesh=mesh)[0]
+        loss = float(steps.train_step(*batch))
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return scores.cpu(), maps.cpu(), loss, flatten_dict(
+            jax_trainable_params(model)[0]), grads
+
+    want = run(twin, None)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = create_mesh(device="cuda")
+        assert mesh.distributed and mesh.shape == {"data": 1, "model": 1}
+        got = run(lm, mesh)
+    finally:
+        dist.destroy_process_group()
+    for g_, w_ in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g_, w_, rtol=1e-6, atol=1e-6)
+    assert abs(got[2] - want[2]) <= 1e-6 * abs(want[2])
+    assert got[4].keys() == want[4].keys() and want[4]
+    scale = max(float(w.abs().max()) for w in want[4].values())
+    for key, w in want[4].items():
+        assert float((got[4][key] - w).abs().max()) <= 1e-5 * scale, key
+    for key in want[3]:
+        np.testing.assert_allclose(got[3][key], want[3][key], rtol=0,
+                                   atol=2e-4, err_msg=str(key))

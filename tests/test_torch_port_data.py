@@ -10,6 +10,7 @@ within the JAX test's rtol 1e-5 / atol 1e-6.
 """
 
 import pickle
+import shutil
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from srsem_torch.data import loader as pld
 from srsem_torch.data.preprocess import Preprocess
 from srsem_torch.ops.npimage import resize_bilinear_np
 from srsem_torch.train import metrics as pmetrics
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +48,8 @@ def study(tmp_path_factory):
         "img_names,userStudyScores\n" + "\n".join(scores) + "\n")
     (root / "answers.csv").write_text(
         "Super Resolution Image,Answer\n" + "\n".join(answers) + "\n")
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ from srsem_torch.eval.dataset_sweep import DualScorer
 from srsem_torch.eval.scorer import PairScorer
 from srsem_torch.models.global_models import make_global_model
 from srsem_torch.models.local_models import make_local_model
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 REPO = Path(__file__).resolve().parents[1]
 BB = BackboneConfig(kind="resnet50_clip", image_size=64,

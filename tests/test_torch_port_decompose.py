@@ -22,6 +22,7 @@ from srsem_torch.decompose.admm import admm_lasso, precompute_factors
 from srsem_torch.decompose.greedy import MODES, GreedyDecomposer
 from srsem_torch.decompose.splice import SpliceDecomposer
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 VOCAB = [f"w{i}" for i in range(50)]
 

@@ -37,6 +37,7 @@ from test_torch_port_train_cli import (  # noqa: F401 — fixtures
     TRAIN_SETS,
     files,
 )
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 CPU = ["--device", "cpu"]
 WM = 0.125

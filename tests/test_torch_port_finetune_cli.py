@@ -33,6 +33,7 @@ from test_torch_port_fast_cli import (  # noqa: F401 — fixture
 from test_torch_port_sweep_cli import small_points  # noqa: F401 — fixture
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
 from test_torch_port_train_cli import files  # noqa: F401 — fixture
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 
 @pytest.mark.parametrize("argv", [

@@ -39,6 +39,7 @@ from srsem_torch.backbones.resnet import ImageNetResNet50
 from srsem_torch.eval.lpips import LPIPS
 from srsem_torch.utils.convert import load_backbone_params
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 
 def _save(path, arr):

@@ -34,6 +34,7 @@ from srsem_torch.eval.grouped import GroupedPairScorer
 from srsem_torch.eval.scorer import PairScorer
 from srsem_torch.models.global_models import make_global_model
 from srsem_torch.utils.convert import load_jax_global_params
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 REPO = Path(__file__).resolve().parents[1]
 CFG = GlobalModelConfig(backbone=BackboneConfig(

@@ -20,6 +20,7 @@ from srsem_torch.data.contrastive import (
 )
 from srsem_torch.data.datasets import ImpaintMapsDataset
 from srsem_torch.data.preprocess import Preprocess
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 
 def _save(rng, path, w, h, gray=False):

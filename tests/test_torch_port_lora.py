@@ -52,6 +52,7 @@ from srsem_torch.utils.convert import (
     load_jax_local_params,
 )
 from test_torch_port_train import _random_bn, _two_threads  # noqa: F401
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 SIZE, RANK = 64, 4
 FROZEN_ONLY = "fused_tower serves the frozen base tower only"

@@ -27,6 +27,7 @@ from srsem_torch.config import BackboneConfig, GlobalModelConfig
 from srsem_torch.data.preprocess import Preprocess, decode_image
 from srsem_torch.eval.scorer import PairScorer
 from srsem_torch.models.global_models import make_global_model
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 CFG = GlobalModelConfig(backbone=BackboneConfig(
     kind="resnet50", image_size=32, compute_dtype="float32"), depth=1)
@@ -88,7 +89,8 @@ def files(tmp_path_factory):
     Image.fromarray(smooth.clip(0, 255).astype(np.uint8)).save(out["big"],
                                                               quality=92)
     out["bad"].write_bytes(b"\xff\xd8 junk, not a JPEG")
-    return {k: str(v) for k, v in out.items()}
+    yield {k: str(v) for k, v in out.items()}
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def test_builds_into_the_ports_build_dir(built):

@@ -26,6 +26,7 @@ from srsem_torch.eval.nr_iqa import (
 )
 from srsem_torch.train.nr_iqa import degrade, load_nr_iqa_head, train_nr_iqa
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 SIZE, SEED = 64, 3
 

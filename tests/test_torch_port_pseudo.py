@@ -38,6 +38,7 @@ from srsem_torch.pseudo.clip_text import ClipDualEncoder
 from srsem_torch.pseudo.text_embed import HashingTextEmbedder, MiniLMEncoder
 from srsem_torch.utils.convert import jax_tower_params, load_backbone_params
 from test_torch_port_train import _random_bn, _two_threads  # noqa: F401
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 SIZE = 64
 CAPS = {"0": "a red car on the road", "1": "a photo of a dog",

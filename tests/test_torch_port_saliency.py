@@ -17,6 +17,7 @@ job's maps within 1e-4.
 
 import copy
 import json
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from srsem_torch.utils.convert import (
 )
 from test_saliency import _TorchMirror
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 SIZE = (64, 64)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -220,7 +222,8 @@ def image_dir(tmp_path_factory):
         Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
             root / name)
     (root / "notes.txt").write_text("not an image")
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("geometry", ["pad", "resize"])

@@ -49,6 +49,7 @@ from srsem_torch.config import BackboneConfig, GlobalModelConfig, LocalModelConf
 from srsem_torch.eval.grouped import GroupedMapScorer, GroupedPairScorer
 from srsem_torch.models.global_models import make_global_model
 from srsem_torch.models.local_models import make_local_model
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 REPO = Path(__file__).resolve().parents[1]
 CFG = GlobalModelConfig(backbone=BackboneConfig(
@@ -125,7 +126,8 @@ def paths(tmp_path_factory):
     bad = d / "corrupt.png"
     bad.write_bytes(b"not an image")
     out["bad"] = str(bad)
-    return out
+    yield out
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def _service(model, **kw):

@@ -25,6 +25,7 @@ from test_torch_port_train_cli import (  # noqa: F401 — fixtures
     files,
     jax_init,
 )
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 
 @pytest.fixture()

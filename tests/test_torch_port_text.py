@@ -31,6 +31,7 @@ from srsem_torch.pseudo.text_embed import (
 from srsem_torch.pseudo.tokenizer import ClipBpeTokenizer, WordPieceTokenizer
 from srsem_torch.utils.convert import convert_clip_text
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 WORDS = ["a", "photo", "of", "dog", "##s", "cat", "un", "##related", "red",
          "blue", "car", "on", "the", "road", "cafe", "sky", "tree", ".", ","]

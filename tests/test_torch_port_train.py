@@ -43,6 +43,7 @@ from srsem_torch.train.loop import run_training, train_global
 from srsem_torch.train.partition import flatten_dict, trainable_predicate
 from srsem_torch.train.steps import masked_mse
 from srsem_torch.utils.convert import jax_trainable_params, load_jax_local_params
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 SIZE, LR = 64, 1e-4
 

@@ -19,6 +19,7 @@ parameters atol 2·n_steps·lr; eval-global on the same checkpoint within
 
 import json
 import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,7 @@ from srsem_torch.train.checkpoint import restore_checkpoint
 from srsem_torch.train.partition import flatten_dict
 from srsem_torch.utils.convert import load_jax_global_params, load_jax_local_params
 from test_torch_port_train import _two_threads  # noqa: F401 — fixture
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 SIZE, LR = 64, 1e-4
 SETS = ["--set", f"backbone.image_size={SIZE}",
@@ -106,7 +108,8 @@ def files(tmp_path_factory):
     (root / "answers.csv").write_text(
         "Super Resolution Image,Answer\n" + "\n".join(answers) + "\n")
     (root / "pairs.csv").write_text("\n".join(pairs) + "\n")
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture()

@@ -28,6 +28,7 @@ from test_torch_port_train import (  # noqa: F401 — a fixture
     _train_both,
     _variables,
 )
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 
 @pytest.mark.parametrize("head,depth", [("wperlay_cnn", 2),

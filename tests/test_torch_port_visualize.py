@@ -8,6 +8,7 @@ initialized."""
 
 import json
 import pickle
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -18,6 +19,7 @@ from PIL import Image
 
 from srsem.cli.main import main as jax_main
 from srsem_torch.cli.main import main as port_main
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -40,7 +42,8 @@ def inputs(tmp_path_factory):
     np.save(root / "sim.npy", rng.random((3, 3), dtype=np.float32))
     (root / "w.json").write_text(json.dumps({"dog": 0.5, "cat": -0.2,
                                              "sky": 0.9}))
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _kinds(r, out):

@@ -20,6 +20,7 @@ tests/test_torch_port_vit_heads.py::jax_variables.
 """
 
 import json
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +46,7 @@ from srsem_torch.utils.convert import load_jax_global_params
 from test_torch_port_finetune import LR, _check, _jax_step, _port_step
 from test_torch_port_train import _batches, _two_threads  # noqa: F401
 from test_torch_port_vit_heads import cfgs, jax_variables
+from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
 VIT_SETS = ["--set", "backbone.image_size=64",
             "--set", "backbone.compute_dtype=float32",
@@ -109,7 +111,8 @@ def study(tmp_path_factory):
         rows.append(f"m_{i}.png,{alpha!r}")
     (root / "scores.csv").write_text(
         "img_names,userStudyScores\n" + "\n".join(rows) + "\n")
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_vit_checkpoints_both_ways_and_eval_global(study, tmp_path, capsys):
