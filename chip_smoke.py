@@ -20,8 +20,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
              CUDA-event times in bf16 (the serving dtype) of the kernel,
              its plain version, a one-call PyTorch yardstick, and the
              card's bound; for the bottleneck also its plan and each of
-             its three launches' device time (torch.profiler).  The head
-             kernel is checked per stage (off the path), as the whole
+             its three launches' device time (torch.profiler).  float32
+             (TF32 off), the nr_train path's bottleneck and the CLU
+             model's default decoder (levels 0-2 at batch 32, ``clu_f32``
+             lines, off the counted clu path), is timed beside cuDNN's
+             float32 chain, with the route its launches took (3xTF32 on
+             wgmma, or the FMA conv), the 3xTF32 bound (three TF32
+             products an operation, TF32X3_FLOPS) and the FMA bound.
+             The head kernel is checked per stage (off the path), as the whole
              head in one launch at batch 64 (the path) and in its grouped
              form at G = 16, K = 4, each also for identical bits from two
              launches, with its device time; and so is wperlay_cnn's head
@@ -51,9 +57,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
              on exactly the corrupt row, the rest finite in [0.5, 1]) with
              the launch counts reset just before and read just after;
              float32 kernel-path maps against the plain module (TF32 off,
-             2e-3); score_arrays maps/s at batch 32; a profile of three
-             batches; ``python -m srsem_torch score-maps-groups`` (K = 2)
-             as a subprocess.
+             2e-3); score_arrays maps/s at batch 32; steady-state maps/s
+             (RATE_WINDOW_S) of this bf16 decoder path and of the default
+             LocalModelConfig(resnet50_clip) (bf16 tower, float32 decoder,
+             the 3xTF32 route), in turns; a profile of three batches of
+             each; ``python -m srsem_torch score-maps-groups`` (K = 2) as
+             a subprocess.
 6. heads   — wperlay_cnn (depth 11, 12 taps) on the full-width CLIP tower,
              bf16, with a trained head written by the port's checkpoint
              writer and read back bit-equal (a CluUnet's decoder and
@@ -284,7 +293,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
-F32_FLOPS = 67e12
+F32_FLOPS = 67e12  # the FMA pipe
+# float32-accurate work on the tensor cores by 3xTF32: three TF32
+# products (495 TFLOP/s) an operation.
+TF32X3_FLOPS = 495e12 / 3
 BATCH = 64
 CLU_BATCH = 32
 
@@ -821,7 +833,7 @@ def check_kernels(torch):
         plain = cuda_ms(torch, lambda: fb.plain_bottleneck(x, ws, row_tile),
                         3)
         # Yardstick: the cuDNN chain of three convs with the same folded
-        # weights, channels_last bf16.
+        # weights, channels_last, in the timed dtype (float32: TF32 off).
         xc = x.permute(0, 3, 1, 2)
         k1 = ws[0].t()[:, :, None, None].to(x.dtype)
         k2 = ws[2].permute(3, 2, 0, 1).contiguous().to(x.dtype)
@@ -839,11 +851,22 @@ def check_kernels(torch):
         flops = 2 * n * h * w_ * (c * wd + 9 * wd * wd + wd * c)
         nbytes = (2 * x.numel() * esz + esz * (2 * c * wd + 9 * wd * wd)
                   + 4 * (2 * wd + c))
-        bms, by = bound(nbytes, flops, BF16_TC_FLOPS if esz == 2
-                        else F32_FLOPS)
+        extra = {}
+        if esz == 2:
+            bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
+        else:
+            # The route the float32 launches took, and both pipes' bounds.
+            tplan = fb.kernel_plan(x, wd)
+            bms, by = bound(nbytes, flops, TF32X3_FLOPS
+                            if tplan.route == "wgmma_tf32x3" else F32_FLOPS)
+            extra = dict(route=tplan.route, timed_nts=list(tplan.nts),
+                         bound_tf32x3_ms=bound(nbytes, flops,
+                                               TF32X3_FLOPS)[0],
+                         bound_fma_ms=bound(nbytes, flops, F32_FLOPS)[0])
         emit("kernel", on_main_path=True, ms=ms, conv_ms=conv_ms,
              plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-             tflops=flops / ms / 1e9, timed_dtype=str(x.dtype), **line)
+             tflops=flops / ms / 1e9, timed_dtype=str(x.dtype), **extra,
+             **line)
         add(name, path, errs[str(torch.bfloat16)], ms, plain, lib, bms, by,
             count)
         if path == "train":  # the sweeps path's passes run these shapes
@@ -927,6 +950,36 @@ def check_kernels(torch):
                  tflops=flops / ms / 1e9, **line)
             add(name, "clu", errs[str(torch.bfloat16)], ms, plain, lib, bms,
                 by, count)
+
+            # The CLU model's default decoder dtype, float32 (checked above
+            # at this shape): the kernel, its plain version, cuDNN's
+            # float32 chain (TF32 off), and the 3xTF32 and FMA bounds.
+            d32, u32 = d.float(), u.float()
+            call = lambda: wrapper(d32, u32, *ws, final_kernel=fk, **kw)  # noqa: E731
+            ms32 = cuda_ms(torch, call, 5)
+            plain32 = cuda_ms(torch, lambda: fd.plain_decoder_level(
+                d32, u32, *ws, fk, row_tile), 2)
+            # chain() reads these names: the same convs in float32.
+            cl32 = lambda t: t.permute(3, 2, 0, 1).contiguous(  # noqa: E731
+                memory_format=torch.channels_last)
+            dc, uc = d32.permute(0, 3, 1, 2), u32.permute(0, 3, 1, 2)
+            k1d, k1u = cl32(ws[0]), cl32(ws[1])
+            k2w = cl32(ws[3] if fk == 3 else ws[3][None, None])
+            c1, c2 = ws[2], ws[4]
+            lib32 = cuda_ms(torch, chain, 5)
+            plan32 = fd.kernel_plan(fd.kernel_args(d32, u32, *ws, fk), fk)
+            nbytes32 = 2 * nbytes - 4 * (cm + co)
+            b3x, by32 = bound(nbytes32, flops, TF32X3_FLOPS)
+            emit("kernel", name=name, path="clu_f32", on_main_path=False,
+                 shape=[n, h, w_, cd, cu, cm, co], final_kernel=fk,
+                 timed_dtype="torch.float32", route=plan32.route,
+                 nts=list(plan32.nts), cuda_launches=plan32.launches,
+                 max_abs_err=errs[str(torch.float32)], ms=ms32,
+                 plain_ms=plain32, library_ms=lib32, bound_ms=b3x,
+                 bound_by=by32,
+                 bound_fma_ms=bound(nbytes32, flops, F32_FLOPS)[0],
+                 tflops=flops / ms32 / 1e9)
+            del d32, u32
 
     # The dual path runs the CLU path's tower and decoder shapes; the serve
     # path runs them too (its SR passes and its maps batch), beside its own
@@ -1372,6 +1425,28 @@ def run_clu_slice(torch, np, card: str):
         emit("clu", step="score_arrays_throughput", batch=CLU_BATCH,
              dtype="bfloat16", image=224, ms_per_batch=dt * 1e3,
              maps_per_s=CLU_BATCH / dt, card=card)
+        # The CLU model at its default configuration (LocalModelConfig(
+        # resnet50_clip): bf16 tower, float32 decoder), beside this bf16
+        # decoder path: steady-state maps/s at batch 32, in turns.
+        cfg_f32 = LocalModelConfig(backbone=BackboneConfig(
+            kind="resnet50_clip", image_size=224))
+        if (cfg_f32.decoder_dtype, cfg_f32.backbone.compute_dtype) != (
+                "float32", "bfloat16"):
+            raise AssertionError(f"LocalModelConfig defaults moved: {cfg_f32}")
+        scorer_f32 = PairScorer(cfg_f32, seeded_clu(torch, np, cfg_f32),
+                                batch_size=CLU_BATCH, model_kind="local")
+        rates = {}
+        for label, sc in (("bf16_decoder", scorer),
+                          ("default_f32_decoder", scorer_f32)):
+            rate, calls, secs = steady_rate(
+                torch, lambda: sc.score_arrays(a32, b32), CLU_BATCH)
+            rates[label] = {"maps_per_s": rate, "calls": calls,
+                            "seconds": secs}
+        emit("clu", step="default_config_throughput", batch=CLU_BATCH,
+             image=224, tower_dtype="bfloat16", rates=rates, card=card)
+        emit("clu", step="default_config_profile", card=card,
+             **profile_scoring(torch, scorer_f32, a32, b32))
+        del scorer_f32
         emit("clu", step="profile", card=card,
              **profile_scoring(torch, scorer, a32, b32))
 

@@ -39,15 +39,24 @@
 // two blocks share an SM and one's loads overlap the other's epilogue;
 // NT = 256 holds 128 accumulators a thread and runs alone.
 //
-// float32, and bf16 at other widths, take the same three launches through
-// the shared FMA conv (patches for all three convs).
+// float32 (every width a multiple of 32) takes the same three launches on
+// the tensor cores by 3xTF32 (conv_wgmma.cuh): three tf32 products a
+// k-step bound it at 3 x operations / 495 TFLOP/s (0.0212 ms for each of
+// train-nr-iqa's float32 shapes at batch 8, against 0.0521 ms on the 67
+// TFLOP/s FMA pipe).  Those shapes have few M tiles (7-25 at 14x14 and
+// 7x7), so the plan (pick_tf32) takes N tiles down to 32 wide to spread a
+// conv over more blocks; blocks of NT <= 64 run two to an SM, NT 128
+// alone.  Weights come split (hi rows over lo rows) from the wrapper's
+// packing.  bf16 at other widths, and float32 at widths that are not a
+// multiple of 32, take the same three launches through the shared FMA
+// conv (patches for all three convs).
 //
 // Layouts (what srsem_torch/ops/fused_bottleneck.py passes, in T; biases
 // float32):
 //   x, y : (N, H, W, C)        h1, h2 : (N, H, W, wd) scratch
 //   w1t : (wd, C)    w2t : (wd, 9*wd), k = (dy*3 + dx)*wd + c    w3t : (C, wd)
-
-#include <initializer_list>
+// and on the 3xTF32 route each w?t is its (2, rows, K) split: tf32 hi
+// over tf32 lo (srsem_torch/ops/tf32x3.py::split_tf32).
 
 #include "conv_wgmma.cuh"
 
@@ -55,15 +64,17 @@ namespace {
 
 using namespace conv;
 
-template <int NT>
-__global__ void __launch_bounds__(kTcThreads, NT == 256 ? 1 : 2)
+// Two blocks an SM up to NT 128 in bf16 and NT 64 in float32.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kTcThreads,
+                                  NT < (sizeof(T) == 4 ? 128 : 256) ? 2 : 1)
     fused_bottleneck_conv_wgmma(const __grid_constant__ CUtensorMap in0,
                                 const __grid_constant__ CUtensorMap in1,
                                 const __grid_constant__ CUtensorMap wmap,
                                 const __grid_constant__ CUtensorMap rmap,
                                 const __grid_constant__ CUtensorMap omap,
                                 const TcArgs p) {
-  conv_wgmma<NT, false>(&in0, &in1, &wmap, &rmap, &omap, p);
+  conv_wgmma<T, NT, false>(&in0, &in1, &wmap, &rmap, &omap, p);
 }
 
 template <typename T>
@@ -74,9 +85,9 @@ __global__ void __launch_bounds__(kThreads)
 
 struct BottleneckKernels {
   static constexpr bool kHead = false;
-  template <int NT, bool HEAD>
+  template <typename T, int NT, bool HEAD>
   static auto tc() {
-    return fused_bottleneck_conv_wgmma<NT>;
+    return fused_bottleneck_conv_wgmma<T, NT>;
   }
   template <typename T>
   static auto fma() {
@@ -84,11 +95,12 @@ struct BottleneckKernels {
   }
 };
 
-bool uses_tensor_cores(bool is_bf16, int c, int wd) {
-  return is_bf16 && c % 64 == 0 && wd % 64 == 0;
+Route route(bool is_bf16, int c, int wd) {
+  if (is_bf16) return c % 64 == 0 && wd % 64 == 0 ? kWgmmaBf16 : kFma;
+  return c % 32 == 0 && wd % 32 == 0 ? kWgmmaTf32x3 : kFma;
 }
 
-// Ring stages: two blocks of NT <= 128 fit an SM (3 x 24 KB at NT 64,
+// bf16 ring stages: two blocks of NT <= 128 fit an SM (3 x 24 KB at NT 64,
 // 3 x 32 KB at NT 128, 2 beside conv3's 32 KB of residual tiles); NT 256
 // runs alone with 4 x 48 KB (3 beside its 64 KB of residual tiles).
 int stages(int nt, bool res) {
@@ -96,7 +108,7 @@ int stages(int nt, bool res) {
   return nt == 128 && res ? 2 : 3;
 }
 
-// The N tile of a tensor-core conv with `tiles` M tiles and `steps`
+// The N tile of a bf16 tensor-core conv with `tiles` M tiles and `steps`
 // k-steps on `sms` SMs, by a wave model: the SM with the most blocks sets
 // the time, and a block's k-step costs NT tensor-core cycles (x 1.5 at NT
 // 64, whose products read more shared memory each); a block alone on its
@@ -108,7 +120,7 @@ int pick_nt(long long tiles, int cout, int steps, int sms, bool res) {
   int best = 0;
   double best_cost = 0.0;
   for (const int nt : {256, 128, 64}) {
-    if (cout % nt || (!res && nt > kChunk * steps)) continue;
+    if (cout % nt || (!res && nt > kChunk<bf16> * steps)) continue;
     const long long per_sm = (tc_blocks(tiles, cout, nt) + sms - 1) / sms;
     const double cost = static_cast<double>(per_sm) *
                         (nt == 64 ? 1.5 * nt : nt) *
@@ -122,14 +134,14 @@ int pick_nt(long long tiles, int cout, int steps, int sms, bool res) {
 }
 
 struct Plan {
-  bool tc;
+  Route route;
   Tiling tile[3];
 };
 
-Plan make_plan(int n, int h, int w, int c, int wd, bool tc, int sms) {
+Plan make_plan(int n, int h, int w, int c, int wd, Route r, int sms) {
   const Patch patch = pick_patch(h, w);
-  Plan plan{tc, {}};
-  if (!tc) {
+  Plan plan{r, {}};
+  if (r == kFma) {
     for (Tiling& t : plan.tile) t = {false, patch, BN, 0};
     return plan;
   }
@@ -137,19 +149,18 @@ Plan make_plan(int n, int h, int w, int c, int wd, bool tc, int sms) {
   for (int i = 0; i < 3; ++i) {
     Tiling& t = plan.tile[i];
     t = {i != 1, patch, 0, 0};
-    t.nt = pick_nt(m_tiles(t, n, h, w), cout[i], k[i] / kChunk, sms, i == 2);
-    t.stages = stages(t.nt, i == 2);
+    const long long tiles = m_tiles(t, n, h, w);
+    if (r == kWgmmaBf16) {
+      t.nt = pick_nt(tiles, cout[i], k[i] / kChunk<bf16>, sms, i == 2);
+      t.stages = stages(t.nt, i == 2);
+    } else {
+      const Tf32Tile f = pick_tf32(tiles, cout[i], k[i] / kChunk<float>, sms,
+                                   i == 2, true);
+      t.nt = f.nt;
+      t.stages = f.stages;
+    }
   }
   return plan;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return sms;
 }
 
 // Pixel counts fit an int (a flat tile's row), and so do offsets within
@@ -164,9 +175,10 @@ bool valid(int n, int h, int w, int c, int wd) {
 
 extern "C" {
 
-// 1 when (is_bf16, c, wd) take the tensor-core path, else 0 (FMA path).
+// The route (is_bf16, c, wd) take: 1 bf16 wgmma, 2 float32 wgmma by
+// 3xTF32 (w?t passed split), 0 the FMA conv.
 int srsem_bottleneck_uses_tensor_cores(int is_bf16, int c, int wd) {
-  return uses_tensor_cores(is_bf16 != 0, c, wd);
+  return route(is_bf16 != 0, c, wd);
 }
 
 // How a block runs on `sms` SMs (<= 0: the current device's): *launches
@@ -182,8 +194,7 @@ int srsem_bottleneck_plan(int n, int h, int w, int c, int wd, int is_bf16,
   if (!valid(n, h, w, c, wd)) return static_cast<int>(cudaErrorInvalidValue);
   if (sms <= 0) sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan plan =
-      make_plan(n, h, w, c, wd, uses_tensor_cores(is_bf16 != 0, c, wd), sms);
+  const Plan plan = make_plan(n, h, w, c, wd, route(is_bf16 != 0, c, wd), sms);
   const int cout[3] = {wd, wd, c};
   *launches = 3;
   for (int i = 0; i < 3; ++i) {
@@ -193,10 +204,11 @@ int srsem_bottleneck_plan(int n, int h, int w, int c, int wd, int is_bf16,
     bh[i] = t.flat ? 0 : t.patch.bh;
     bw[i] = t.flat ? 0 : t.patch.bw;
     nt[i] = t.nt;
-    blocks[i] = plan.tc ? tc_blocks(tiles, cout[i], t.nt)
-                        : tiles * ((cout[i] + BN - 1) / BN);
+    const bool tc = plan.route != kFma;
+    blocks[i] = tc ? tc_blocks(tiles, cout[i], t.nt)
+                   : tiles * ((cout[i] + BN - 1) / BN);
     const long long rows =
-        plan.tc ? (tiles + kConsumers - 1) / kConsumers * kConsumers : tiles;
+        tc ? (tiles + kConsumers - 1) / kConsumers * kConsumers : tiles;
     rows_ratio[i] = static_cast<double>(rows) * kPatch /
                     (static_cast<double>(n) * h * w);
   }
@@ -213,10 +225,10 @@ int srsem_fused_bottleneck(const void* x, const void* w1t, const void* b1,
                            void* stream) {
   if (!valid(n, h, w, c, wd)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool tc = uses_tensor_cores(is_bf16 != 0, c, wd);
-  const int sms = tc ? sm_count() : 1;
+  const Route r = route(is_bf16 != 0, c, wd);
+  const int sms = r != kFma ? sm_count() : 1;
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan plan = make_plan(n, h, w, c, wd, tc, sms);
+  const Plan plan = make_plan(n, h, w, c, wd, r, sms);
   const Conv convs[3] = {
       {x, c, nullptr, 0, 1, w1t, static_cast<const float*>(b1), wd, nullptr,
        h1, nullptr, nullptr, 0},
@@ -227,7 +239,9 @@ int srsem_fused_bottleneck(const void* x, const void* w1t, const void* b1,
   for (int i = 0; i < 3; ++i) {
     const Tiling& t = plan.tile[i];
     const int err =
-        tc ? launch_tc<BottleneckKernels>(convs[i], n, h, w, t, s)
+        r == kWgmmaBf16 ? launch_tc<BottleneckKernels, bf16>(convs[i], n, h, w, t, s)
+        : r == kWgmmaTf32x3
+            ? launch_tc<BottleneckKernels, float>(convs[i], n, h, w, t, s)
         : is_bf16
             ? launch_fma<BottleneckKernels, bf16>(convs[i], n, h, w, t.patch, s)
             : launch_fma<BottleneckKernels, float>(convs[i], n, h, w, t.patch,

@@ -41,19 +41,32 @@
 // stored; 8x8 at 56x56 and 112x112, none) by NT = n_tile(Cout) channels,
 // 256 at levels 1-2, through a ring of 4 stages (8 at NT 64).  Level 2's
 // two launches read about 6.1 GB from L2, against 17.7 GB for the
-// halo-grid kernel before.  float32, and bf16 at other widths (v2's
-// unpadded widths, small test shapes), take the same two-launch structure
-// on FMAs (fused_decoder_conv_fma); the 1x1 head is then a second, 1-tap
-// launch.
+// halo-grid kernel before.
 //
-// The plan (patch, launches, rows executed over useful) lives here only;
-// the Python wrapper asks for it (srsem_decoder_plan).
+// float32 (the CLU model's default decoder dtype), with every width a
+// multiple of 32, runs the same launches on the tensor cores by 3xTF32
+// (conv_wgmma.cuh): it is bound by 3 x operations / 495 TFLOP/s (2.87 /
+// 2.87 / 0.897 ms at levels 2 / 1 / 0, batch 32; 16.3 ms in all on the
+// 67 TFLOP/s FMA pipe).  The plan's wave model (pick_tf32) picks each
+// conv's N tile (128, 64 or 32; one block an SM, a ring of up to 8
+// stages); level 0 keeps its head in conv1's epilogue (one launch), in
+// float32.  conv1's and conv2's weights come split, hi rows over lo rows;
+// the head's do not.  bf16 at other widths (v2's unpadded widths, small
+// test shapes) and float32 at widths that are not a multiple of 32 (v2's
+// skip of 257: a row of 1028 bytes, which TMA cannot address; not padded
+// in float32) take the same two-launch structure on FMAs
+// (fused_decoder_conv_fma); the 1x1 head is then a second, 1-tap launch.
+//
+// The plan (route, patch, launches, N tiles, rows executed over useful)
+// lives here only; the Python wrapper asks for it (srsem_decoder_plan).
 //
 // Layouts (what srsem_torch/ops/fused_decoder.py passes, in T; biases
 // float32):
 //   d : (N, H, W, Cd)   u : (N, H, W, Cu) or null (Cu = 0)
 //   w1t : (Cm, 9*Cd + 9*Cu)   K-major, k = (dy*3 + dx)*C + c over d, then u
 //   w2t : (Co, 9*Cm) for final_kernel 3, (Co, Cm) for final_kernel 1
+//   (on the 3xTF32 route w1t and a 3x3 w2t are their (2, rows, K) split:
+//   tf32 hi over tf32 lo)
 //   h1 : (N, H, W, Cm) scratch (null when the level is one launch)
 //   y : (N, H, W, Co)
 
@@ -63,20 +76,23 @@ namespace {
 
 using namespace conv;
 
-__host__ inline bool uses_tensor_cores(bool is_bf16, int cd, int cu, int cm,
-                                       int co, int k2) {
-  return is_bf16 && cd % 64 == 0 && cu % 64 == 0 && cm % 64 == 0 &&
-         (k2 == 3 ? co % 64 == 0 : (cm == 64 || cm == 128 || cm == 256));
+Route route(bool is_bf16, int cd, int cu, int cm, int co, int k2) {
+  const int q = is_bf16 ? 64 : 32;
+  const bool head_ok = is_bf16 ? (cm == 64 || cm == 128 || cm == 256)
+                               : (cm == 32 || cm == 64 || cm == 128);
+  if (cd % q || cu % q || cm % q || (k2 == 3 ? co % q != 0 : !head_ok))
+    return kFma;
+  return is_bf16 ? kWgmmaBf16 : kWgmmaTf32x3;
 }
 
-// Output channels a tensor-core block computes: the widest tile.
+// Output channels a bf16 tensor-core block computes: the widest tile.
 inline int n_tile(int cout) {
   return cout % 256 == 0 ? 256 : (cout % 128 == 0 ? 128 : 64);
 }
 
 inline int tc_stages(int nt) { return nt == 256 ? 4 : (nt == 128 ? 6 : 8); }
 
-template <int NT, bool HEAD>
+template <typename T, int NT, bool HEAD>
 __global__ void __launch_bounds__(kTcThreads, 1)
     fused_decoder_conv_wgmma(const __grid_constant__ CUtensorMap in0,
                              const __grid_constant__ CUtensorMap in1,
@@ -84,7 +100,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                              const __grid_constant__ CUtensorMap rmap,
                              const __grid_constant__ CUtensorMap omap,
                              const TcArgs p) {
-  conv_wgmma<NT, HEAD>(&in0, &in1, &wmap, &rmap, &omap, p);
+  conv_wgmma<T, NT, HEAD>(&in0, &in1, &wmap, &rmap, &omap, p);
 }
 
 template <typename T>
@@ -95,9 +111,9 @@ __global__ void __launch_bounds__(kThreads)
 
 struct DecoderKernels {
   static constexpr bool kHead = true;
-  template <int NT, bool HEAD>
+  template <typename T, int NT, bool HEAD>
   static auto tc() {
-    return fused_decoder_conv_wgmma<NT, HEAD>;
+    return fused_decoder_conv_wgmma<T, NT, HEAD>;
   }
   template <typename T>
   static auto fma() {
@@ -105,52 +121,100 @@ struct DecoderKernels {
   }
 };
 
-// One launch of the level: conv1 (d, u -> out), or conv2 (h1 -> out).
-int launch(const Conv& c, int n, int h, int w, Patch patch, bool tc,
-           bool is_bf16, cudaStream_t s) {
-  if (tc) {
-    const int nt = n_tile(c.cout);
-    return launch_tc<DecoderKernels>(c, n, h, w,
-                                     {false, patch, nt, tc_stages(nt)}, s);
+// How a level runs: its route, patch, CUDA launches (1 for the tensor
+// cores' fused 1x1 head, else 2) and each launch's tensor-core tiling.
+struct Plan {
+  Route route;
+  Patch patch;
+  int launches;
+  Tiling conv[2];
+};
+
+bool valid(int n, int h, int w, int cd, int cu, int cm, int co, int k2) {
+  return n >= 1 && h >= 1 && w >= 1 && cd >= 1 && cu >= 0 && cm >= 1 &&
+         co >= 1 && (k2 == 1 || k2 == 3);
+}
+
+Plan make_plan(int n, int h, int w, int cd, int cu, int cm, int co, int k2,
+               bool is_bf16, int sms) {
+  const Route r = route(is_bf16, cd, cu, cm, co, k2);
+  const Patch patch = pick_patch(h, w);
+  Plan plan{r, patch, r != kFma && k2 == 1 ? 1 : 2, {}};
+  const int cout[2] = {cm, co}, k[2] = {9 * (cd + cu), k2 * k2 * cm};
+  for (int i = 0; i < plan.launches; ++i) {
+    Tiling& t = plan.conv[i];
+    t = {false, patch, 0, 0};
+    if (r == kWgmmaBf16) {
+      t.nt = n_tile(cout[i]);
+      t.stages = tc_stages(t.nt);
+    } else if (r == kWgmmaTf32x3) {
+      const Tf32Tile f =
+          plan.launches == 1
+              ? Tf32Tile{cm, tf32_stages(cm, false, 1)}
+              : pick_tf32(m_tiles(t, n, h, w), cout[i],
+                          k[i] / kChunk<float>, sms, false, false);
+      t.nt = f.nt;
+      t.stages = f.stages;
+    }
   }
-  return is_bf16 ? launch_fma<DecoderKernels, bf16>(c, n, h, w, patch, s)
-                 : launch_fma<DecoderKernels, float>(c, n, h, w, patch, s);
+  return plan;
+}
+
+// One launch of the level: conv1 (d, u -> out), or conv2 (h1 -> out).
+int launch(const Conv& c, int n, int h, int w, const Plan& plan, int i,
+           bool is_bf16, cudaStream_t s) {
+  const Tiling& t = plan.conv[i];
+  switch (plan.route) {
+    case kWgmmaBf16: return launch_tc<DecoderKernels, bf16>(c, n, h, w, t, s);
+    case kWgmmaTf32x3: return launch_tc<DecoderKernels, float>(c, n, h, w, t, s);
+    default:
+      return is_bf16
+                 ? launch_fma<DecoderKernels, bf16>(c, n, h, w, plan.patch, s)
+                 : launch_fma<DecoderKernels, float>(c, n, h, w, plan.patch, s);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when the shapes take the tensor-core path, else 0 (FMA path).
+// The route the shapes take: 1 bf16 wgmma, 2 float32 wgmma by 3xTF32
+// (w1t and a 3x3 w2t passed split), 0 the FMA conv.
 int srsem_decoder_uses_tensor_cores(int is_bf16, int cd, int cu, int cm,
                                     int co, int k2) {
-  return uses_tensor_cores(is_bf16 != 0, cd, cu, cm, co, k2);
+  return route(is_bf16 != 0, cd, cu, cm, co, k2);
 }
 
-// How a level runs: the patch (*bh x *bw output pixels a 64-row tile), the
-// CUDA launches it makes (*launches: 1 for the tensor cores' fused 1x1
-// head, else 2, and then the caller passes an h1 scratch), and the rows
-// the products compute over the output pixels (*rows_ratio >= 1; a
-// tensor-core block computes two patches).  Returns 0 or
-// cudaErrorInvalidValue.
+// How a level runs on the current device: the patch (*bh x *bw output
+// pixels a 64-row tile), the CUDA launches it makes
+// (*launches: 1 for the tensor cores' fused 1x1 head, else 2, and then the
+// caller passes an h1 scratch), nt[0], nt[1] the output channels a
+// tensor-core block of each launch computes (0: the FMA conv, or no second
+// launch), and the rows the products compute over the output pixels
+// (*rows_ratio >= 1; a tensor-core block computes two patches).  Returns
+// 0 or cudaErrorInvalidValue.
 int srsem_decoder_plan(int n, int h, int w, int cd, int cu, int cm, int co,
                        int k2, int is_bf16, int* bh, int* bw, int* launches,
-                       double* rows_ratio) {
-  if (n < 1 || h < 1 || w < 1 || cd < 1 || cu < 0 || cm < 1 || co < 1 ||
-      (k2 != 1 && k2 != 3))
+                       int* nt, double* rows_ratio) {
+  if (!valid(n, h, w, cd, cu, cm, co, k2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool tc = uses_tensor_cores(is_bf16 != 0, cd, cu, cm, co, k2);
-  const Patch patch = pick_patch(h, w);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan plan = make_plan(n, h, w, cd, cu, cm, co, k2, is_bf16 != 0, sms);
+  const Patch patch = plan.patch;
   const double patches = static_cast<double>(n) *
                          ((h + patch.bh - 1) / patch.bh) *
                          ((w + patch.bw - 1) / patch.bw);
   const double rows =
-      tc ? static_cast<double>(static_cast<long long>(patches + 1) / 2) *
-               (kConsumers * kPatch)
-         : patches * kPatch;
+      plan.route != kFma
+          ? static_cast<double>(static_cast<long long>(patches + 1) / 2) *
+                (kConsumers * kPatch)
+          : patches * kPatch;
   *bh = patch.bh;
   *bw = patch.bw;
-  *launches = tc && k2 == 1 ? 1 : 2;
+  *launches = plan.launches;
+  nt[0] = plan.conv[0].nt;
+  nt[1] = plan.conv[1].nt;
   *rows_ratio = rows / (static_cast<double>(n) * h * w);
   return 0;
 }
@@ -162,8 +226,7 @@ int srsem_fused_decoder(const void* d, const void* u, const void* w1t,
                         const void* b1, const void* w2t, const void* b2,
                         void* h1, void* y, int n, int h, int w, int cd, int cu,
                         int cm, int co, int k2, int is_bf16, void* stream) {
-  if (n < 1 || h < 1 || w < 1 || cd < 1 || cu < 0 || cm < 1 || co < 1 ||
-      (k2 != 1 && k2 != 3) || (cu > 0) != (u != nullptr))
+  if (!valid(n, h, w, cd, cu, cm, co, k2) || (cu > 0) != (u != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long cmax = cd > cu ? (cd > cm ? cd : cm) : (cu > cm ? cu : cm);
   if (static_cast<long long>(h) * w * (cmax > co ? cmax : co) > 0x7fffffffLL)
@@ -171,19 +234,21 @@ int srsem_fused_decoder(const void* d, const void* u, const void* w1t,
   const auto s = static_cast<cudaStream_t>(stream);
   const auto f1 = static_cast<const float*>(b1);
   const auto f2 = static_cast<const float*>(b2);
-  const Patch patch = pick_patch(h, w);
-  const bool tc = uses_tensor_cores(is_bf16 != 0, cd, cu, cm, co, k2);
-  if (tc && k2 == 1)
+  const bool bf = is_bf16 != 0;
+  const int sms = route(bf, cd, cu, cm, co, k2) == kWgmmaTf32x3 ? sm_count() : 1;
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan plan = make_plan(n, h, w, cd, cu, cm, co, k2, bf, sms);
+  if (plan.launches == 1)
     return launch({d, cd, u, cu, 3, w1t, f1, cm, nullptr, y, w2t, f2, co}, n,
-                  h, w, patch, tc, true, s);
+                  h, w, plan, 0, bf, s);
   if (h1 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int err =
       launch({d, cd, u, cu, 3, w1t, f1, cm, nullptr, h1, nullptr, nullptr, 0},
-             n, h, w, patch, tc, is_bf16 != 0, s);
+             n, h, w, plan, 0, bf, s);
   if (err != 0) return err;
   return launch({h1, cm, nullptr, 0, k2, w2t, f2, co, nullptr, y, nullptr,
                  nullptr, 0},
-                n, h, w, patch, tc, is_bf16 != 0, s);
+                n, h, w, plan, 1, bf, s);
 }
 
 }  // extern "C"

@@ -3,11 +3,13 @@
 // 128-byte-swizzled shared-memory tiles, and the host-side tensor-map
 // encoder.
 //
-// The tile layout every helper here assumes: a K-major bf16 tile of R rows
-// by 64 columns (128 bytes a row), 1024-byte aligned, as a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B and a 64-element inner box writes it.  Its
-// wgmma descriptor (smem_desc) has 8-row groups 1024 bytes apart; the k16
-// slice kk of the tile starts 32 * kk bytes in.
+// The tile layout every helper here assumes: a K-major tile of R rows by
+// 128 bytes (64 bf16 or 32 float32 columns), 1024-byte aligned, as a TMA
+// load with CU_TENSOR_MAP_SWIZZLE_128B and a 128-byte inner box writes it.
+// Its wgmma descriptor (smem_desc) is the same for both types: 8-row
+// groups 1024 bytes apart, and the 32-byte k slice kk (a bf16 k16 or a
+// tf32 k8) starts 32 * kk bytes in.  Element (row m, byte b) of the tile
+// lies at m * 128 + ((b / 16) ^ (m % 8)) * 16 + b % 16.
 //
 // The tensor-map encoder comes from the driver through the runtime's entry
 // point query, so a library that includes this header links no -lcuda.
@@ -301,14 +303,117 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t a,
     wgmma_m64n256k16(d, a, b, scale_d);
 }
 
+// ---- tf32 (float32 operands on the tensor cores) -----------------------------
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero: its 13 low bits are zero, so x - hi is exact in float32.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + e with hi = tf32(x), lo = tf32(x - hi) and |e| <= 2^-22 |x|
+// (the 3xTF32 split).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d (+)= A . B for a 64 x N x 8 slice in tf32: A from registers (a[0..3]
+// is row 16 * warp + lane / 4 (+8 for a[1], a[3]), column lane % 4 (+4 for
+// a[2], a[3]) of the slice, as mma.m16n8k8's tf32 fragment), B a K-major
+// float32 tile given by its descriptor; d as in the bf16 products.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_m64k8_tf32(float (&d)[N / 2],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  if constexpr (N == 32)
+    wgmma_m64n32k8_tf32(d, a, b, scale_d);
+  else if constexpr (N == 64)
+    wgmma_m64n64k8_tf32(d, a, b, scale_d);
+  else
+    wgmma_m64n128k8_tf32(d, a, b, scale_d);
+}
+
 // ---- host: tensor maps -----------------------------------------------------
 
-// A bf16 tensor map with 128-byte swizzle over `base`: dims innermost
-// first, byte strides of dims 1.. (multiples of 16), box in elements (the
-// innermost box 64 elements = 128 bytes).  Returns 0 or a cudaError_t.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box) {
+// A bf16 or float32 tensor map with 128-byte swizzle over `base`: dims
+// innermost first, byte strides of dims 1.. (multiples of 16), box in
+// elements (the innermost box 128 bytes: 64 bf16 or 32 float32).  Returns
+// 0 or a cudaError_t.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -330,7 +435,7 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      map, type, static_cast<cuuint32_t>(rank),
       const_cast<void*>(base), dims, strides, box, ones,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -15,7 +15,9 @@ launches the kernel for a CUDA tensor, runs the plain version
 (``bottleneck_tiles_plain``: the TPU kernels' tile loop, halo and h1
 masking) only for a CPU tensor, and counts its calls that launch the
 kernel in ``launches``.  Compute is in x's dtype with float32 sums, h1 and
-h2 rounded to it, as in the JAX kernels.
+h2 rounded to it, as in the JAX kernels.  float32 runs on the tensor cores
+by 3xTF32 (``ops/tf32x3.py``): a float32 ``Packed`` is a ``PackedTF32``,
+which also holds each matrix split into tf32 hi and lo.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from srsem_torch.ops import _build
+from srsem_torch.ops.tf32x3 import split_weights
 
 Tensor = torch.Tensor
 Weights = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]
@@ -76,16 +79,32 @@ class Packed:
     b3: Tensor
 
 
+@dataclass(frozen=True)
+class PackedTF32(Packed):
+    """A float32 ``Packed`` with each matrix also split for the 3xTF32
+    route: w1s (2, wd, C), w2s (2, wd, 9*wd), w3s (2, C, wd), tf32 hi over
+    lo (``split_weights``)."""
+
+    w1s: Tensor
+    w2s: Tensor
+    w3s: Tensor
+
+
 def pack_weights(weights: Weights, dtype: torch.dtype) -> Packed:
     """JAX-layout (w1, b1, w2, b2, w3, b3) in the kernel's layout, cast to
-    ``dtype`` (biases float32): one copy each."""
+    ``dtype`` (biases float32): one copy each; float32 also splits each
+    matrix once (a ``PackedTF32``)."""
     w1, b1, w2, b2, w3, b3 = weights
     wd = w1.shape[-1]
     mat = lambda t: t.to(dtype).contiguous()  # noqa: E731
     vec = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    return Packed(mat(w1.t()), vec(b1),
-                  mat(w2.permute(3, 0, 1, 2).reshape(wd, 9 * wd)), vec(b2),
-                  mat(w3.t()), vec(b3))
+    p = Packed(mat(w1.t()), vec(b1),
+               mat(w2.permute(3, 0, 1, 2).reshape(wd, 9 * wd)), vec(b2),
+               mat(w3.t()), vec(b3))
+    if dtype != torch.float32:
+        return p
+    return PackedTF32(*vars(p).values(), split_weights(p.w1t),
+                      split_weights(p.w2t), split_weights(p.w3t))
 
 
 def unpack_weights(p: Packed) -> Weights:
@@ -115,9 +134,12 @@ def _prepare(x: Tensor, weights: Union[Weights, Tuple[Packed]]) -> Packed:
     if len(weights) != 1 or not isinstance(weights[0], Packed):
         raise TypeError("weights: (w1, b1, w2, b2, w3, b3) or one Packed")
     p = weights[0]
+    if x.dtype == torch.float32 and not isinstance(p, PackedTF32):
+        raise TypeError("float32 x needs pack_weights(..., torch.float32)")
     wd = p.w1t.shape[0]
     want = {"w1t": (wd, c), "b1": (wd,), "w2t": (wd, 9 * wd), "b2": (wd,),
-            "w3t": (c, wd), "b3": (c,)}
+            "w3t": (c, wd), "b3": (c,), "w1s": (2, wd, c),
+            "w2s": (2, wd, 9 * wd), "w3s": (2, c, wd)}
     for name, t in vars(p).items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {want[name]}")
@@ -179,6 +201,8 @@ def _kernel() -> ctypes.CDLL:
     lib.srsem_fused_bottleneck.restype = ctypes.c_int
     lib.srsem_fused_bottleneck.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.srsem_bottleneck_uses_tensor_cores.restype = ctypes.c_int
+    lib.srsem_bottleneck_uses_tensor_cores.argtypes = [ctypes.c_int] * 3
     lib.srsem_bottleneck_plan.restype = ctypes.c_int
     lib.srsem_bottleneck_plan.argtypes = (
         [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 5
@@ -186,17 +210,29 @@ def _kernel() -> ctypes.CDLL:
     return lib
 
 
+# What fused_bottleneck.cu's and fused_decoder.cu's predicates return.
+ROUTES = ("fma", "wgmma_bf16", "wgmma_tf32x3")
+
+
 class Plan(NamedTuple):
     """fused_bottleneck.cu's ``srsem_bottleneck_plan``: ``launches`` CUDA
     launches, and per conv (1, 2, 3) its ``tilings`` ("flat": 64-row tiles
     of the pixel matrix; "BHxBW": patches), ``nts`` (output channels a
-    block), ``blocks`` and ``rows_ratio`` (rows computed over pixels)."""
+    block), ``blocks`` and ``rows_ratio`` (rows computed over pixels);
+    ``route``, one of ``ROUTES``: the bf16 or float32 (3xTF32) wgmma conv,
+    or the FMA conv (widths it does not take)."""
 
     launches: int
     tilings: Tuple[str, ...]
     nts: Tuple[int, ...]
     blocks: Tuple[int, ...]
     rows_ratio: Tuple[float, ...]
+    route: str
+
+
+def _route(x: Tensor, wd: int) -> str:
+    return ROUTES[_kernel().srsem_bottleneck_uses_tensor_cores(
+        int(x.dtype == torch.bfloat16), x.shape[-1], wd)]
 
 
 def kernel_plan(x: Tensor, wd: int, sms: int = 0) -> Plan:
@@ -211,7 +247,7 @@ def kernel_plan(x: Tensor, wd: int, sms: int = 0) -> Plan:
         raise ValueError(f"no bottleneck plan for x {tuple(x.shape)}, wd {wd}")
     return Plan(launches.value, tuple("flat" if flat[i] else f"{bh[i]}x{bw[i]}"
                                       for i in range(3)),
-                tuple(nt), tuple(blocks), tuple(ratio))
+                tuple(nt), tuple(blocks), tuple(ratio), _route(x, wd))
 
 
 def _launch(x: Tensor, p: Packed) -> Tensor:
@@ -219,11 +255,14 @@ def _launch(x: Tensor, p: Packed) -> Tensor:
     wd = p.w1t.shape[0]
     scratch = torch.empty(2, n, h, w, wd, dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
+    # The 3xTF32 route takes each matrix split, hi rows over lo rows.
+    w1, w2, w3 = ((p.w1s, p.w2s, p.w3s) if _route(x, wd) == "wgmma_tf32x3"
+                  else (p.w1t, p.w2t, p.w3t))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel().srsem_fused_bottleneck(
-            x.data_ptr(), p.w1t.data_ptr(), p.b1.data_ptr(), p.w2t.data_ptr(),
-            p.b2.data_ptr(), p.w3t.data_ptr(), p.b3.data_ptr(),
+            x.data_ptr(), w1.data_ptr(), p.b1.data_ptr(), w2.data_ptr(),
+            p.b2.data_ptr(), w3.data_ptr(), p.b3.data_ptr(),
             scratch[0].data_ptr(), scratch[1].data_ptr(), y.data_ptr(),
             n, h, w, c, wd, int(x.dtype == torch.bfloat16), stream)
     if err != 0:

@@ -35,7 +35,9 @@ Layouts are the JAX package's: NHWC activations, (3, 3, Cin, Cout) HWIO
 conv kernels, a (Cm, Co) or (1, 1, Cm, Co) 1x1 ``w2``.  The kernel computes
 in d's dtype (float32 or bfloat16) with float32 accumulation; weights are
 cast to d's dtype and biases to float32, h1 is rounded to d's dtype, and
-the output is in d's dtype, as in the JAX kernel.
+the output is in d's dtype, as in the JAX kernel.  float32 runs on the
+tensor cores by 3xTF32 (``ops/tf32x3.py``), its conv weights split into
+tf32 hi and lo at each call.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from srsem_torch.ops import _build
-from srsem_torch.ops.fused_bottleneck import _KERNEL_DTYPES
+from srsem_torch.ops.fused_bottleneck import _KERNEL_DTYPES, ROUTES
+from srsem_torch.ops.tf32x3 import split_weights
 
 Tensor = torch.Tensor
 Prepared = Tuple[Tensor, Optional[Tensor], Tensor, Optional[Tensor], Tensor,
@@ -104,8 +107,8 @@ def _prepare(d: Tensor, u: Optional[Tensor], w1d: Tensor,
 
 def pad_skip(args: Prepared, channels: int) -> Prepared:
     """Zero-pad the skip diff ``d`` to ``channels`` channels, with zero rows
-    in w1d: the level's result is exact.  The kernel's tensor cores take
-    only multiples of 64 (v2's extra pixel channel makes Cd odd)."""
+    in w1d: the level's result is exact.  The kernel's bf16 tensor cores
+    take only multiples of 64 (v2's extra pixel channel makes Cd odd)."""
     d, u, w1d, *rest = args
     pad = channels - d.shape[-1]
     return (F.pad(d, (0, pad)), u, F.pad(w1d, (0, 0, 0, pad)), *rest)
@@ -169,7 +172,7 @@ def _kernel() -> ctypes.CDLL:
     lib.srsem_decoder_uses_tensor_cores.argtypes = [ctypes.c_int] * 6
     lib.srsem_decoder_plan.restype = ctypes.c_int
     lib.srsem_decoder_plan.argtypes = ([ctypes.c_int] * 9
-                                       + [ctypes.POINTER(ctypes.c_int)] * 3
+                                       + [ctypes.POINTER(ctypes.c_int)] * 4
                                        + [ctypes.POINTER(ctypes.c_double)])
     return lib
 
@@ -183,16 +186,23 @@ def _widths(args: Prepared):
 def kernel_args(d: Tensor, u: Optional[Tensor], w1d: Tensor,
                 w1u: Optional[Tensor], b1: Tensor, w2: Tensor, b2: Tensor,
                 final_kernel: int) -> Prepared:
-    """``_prepare``'s arguments as the kernel takes them: a skip diff whose
-    channels are not a multiple of 64 is padded (``pad_skip``) when the
-    padded widths take the tensor cores."""
+    """``_prepare``'s arguments as the kernel takes them: a bf16 skip diff
+    whose channels are not a multiple of 64 is padded (``pad_skip``) when
+    the padded widths take the bf16 tensor cores.  float32 is not padded:
+    Cd = 257 stays on the FMA conv."""
     args = _prepare(d, u, w1d, w1u, b1, w2, b2, final_kernel)
     cd, cu, cm, co = _widths(args)
     wide = cd + -cd % 64
-    if wide != cd and _kernel().srsem_decoder_uses_tensor_cores(
-            int(d.dtype == torch.bfloat16), wide, cu, cm, co, final_kernel):
+    if wide != cd and _route(d.dtype, (wide, cu, cm, co),
+                             final_kernel) == "wgmma_bf16":
         args = pad_skip(args, wide)
     return args
+
+
+def _route(dtype: torch.dtype, widths, final_kernel: int) -> str:
+    """The route (``ROUTES``) fused_decoder.cu takes for these widths."""
+    return ROUTES[_kernel().srsem_decoder_uses_tensor_cores(
+        int(dtype == torch.bfloat16), *widths, final_kernel)]
 
 
 class Plan(NamedTuple):
@@ -201,29 +211,35 @@ class Plan(NamedTuple):
     patch of ``bh`` x ``bw`` pixels; ``launches`` CUDA launches (2: conv1
     into an h1 scratch, then conv2; 1: conv1 with the 1x1 head in its
     epilogue); ``rows_ratio`` = rows the products compute over output
-    pixels (>= 1)."""
+    pixels (>= 1); ``route``, one of ``ROUTES``; ``nts``, the output
+    channels a tensor-core block of each launch computes (0: the FMA
+    conv, or no second launch)."""
 
     bh: int
     bw: int
     launches: int
     rows_ratio: float
+    route: str
+    nts: Tuple[int, int]
 
 
 def kernel_plan(args: Prepared, final_kernel: int) -> Plan:
-    """The plan the kernel launches with for ``kernel_args``' arguments."""
+    """The plan the kernel launches with for ``kernel_args``' arguments on
+    the current card."""
     d = args[0]
     n, h, w, _ = d.shape
     cd, cu, cm, co = _widths(args)
     bh, bw, launches = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    ratio = ctypes.c_double()
+    nt, ratio = (ctypes.c_int * 2)(), ctypes.c_double()
     err = _kernel().srsem_decoder_plan(
         n, h, w, cd, cu, cm, co, final_kernel, int(d.dtype == torch.bfloat16),
-        ctypes.byref(bh), ctypes.byref(bw), ctypes.byref(launches),
+        ctypes.byref(bh), ctypes.byref(bw), ctypes.byref(launches), nt,
         ctypes.byref(ratio))
     if err != 0:
         raise ValueError(f"no decoder plan for d {tuple(d.shape)}, cu {cu}, "
                          f"cm {cm}, co {co}, final_kernel {final_kernel}")
-    return Plan(bh.value, bw.value, launches.value, ratio.value)
+    return Plan(bh.value, bw.value, launches.value, ratio.value,
+                _route(d.dtype, (cd, cu, cm, co), final_kernel), tuple(nt))
 
 
 def _k_major(parts, dtype: torch.dtype) -> Tensor:
@@ -247,6 +263,10 @@ def _launch(args: Prepared, final_kernel: int, plan: Plan) -> Tensor:
     w1t = _k_major([w1d.reshape(-1, cm)]
                    + ([] if w1u is None else [w1u.reshape(-1, cm)]), dt)
     w2t = _k_major([w2.reshape(-1, co)], dt)
+    if plan.route == "wgmma_tf32x3":  # hi rows over lo rows; not the head's
+        w1t = split_weights(w1t)
+        if plan.launches == 2:
+            w2t = split_weights(w2t)
     h1 = (torch.empty(n, h, w, cm, dtype=dt, device=d.device)
           if plan.launches == 2 else None)
     y = torch.empty(n, h, w, co, dtype=dt, device=d.device)

@@ -247,10 +247,11 @@ def _flat_tile(x2, q, chunk):
     return xp[64 * q:64 * q + 64, 64 * chunk:64 * chunk + 64]
 
 
-def _flat_gemm(x2, wt):
+def _flat_gemm(x2, wt, mm=torch.matmul):
     """A 1x1 conv's products over flat tiles in float32: per 64-row tile,
     the sum over 64-channel chunks of the A box times the K-major weights
-    ``wt`` (Cout, C); the last tile's rows past the pixels are dropped."""
+    ``wt`` (Cout, C), each product by ``mm``; the last tile's rows past the
+    pixels are dropped."""
     m, c = x2.shape
     tiles = -(-m // 64)
     out = torch.zeros(tiles * 64, wt.shape[0])
@@ -258,8 +259,8 @@ def _flat_gemm(x2, wt):
         for chunk in range(-(-c // 64)):
             width = min(64, c - 64 * chunk)
             a = _flat_tile(x2, q, chunk)[:, :width].float()
-            out[64 * q:64 * q + 64] += (
-                a @ wt[:, 64 * chunk:64 * chunk + width].float().t())
+            out[64 * q:64 * q + 64] += mm(
+                a, wt[:, 64 * chunk:64 * chunk + width].float().t())
     return out[:m]
 
 
@@ -277,10 +278,11 @@ def _a_tile(x, img, r0, c0, bh, bw, tap, chunk, ks=3):
     return tile.reshape(bh * bw, 64)
 
 
-def _implicit_gemm(x, wt, bh, bw, ks=3):
+def _implicit_gemm(x, wt, bh, bw, ks=3, mm=torch.matmul):
     """A conv's products over bh x bw patches in float32: per patch, the
     sum over k-steps (tap, 64-channel chunk) of the A tile times the rows
-    of the K-major weights ``wt`` (Cout, ks*ks*C), k = tap * C + c."""
+    of the K-major weights ``wt`` (Cout, ks*ks*C), k = tap * C + c, each
+    product by ``mm``."""
     n, h, w, c = x.shape
     cout = wt.shape[0]
     out = torch.zeros(n, -(-h // bh) * bh, -(-w // bw) * bw, cout)
@@ -294,27 +296,28 @@ def _implicit_gemm(x, wt, bh, bw, ks=3):
                         width = min(64, c - 64 * chunk)
                         a = _a_tile(x, img, r0, c0, bh, bw, tap, chunk,
                                     ks)[:, :width].float()
-                        acc += a @ wt[:, lo:lo + width].float().t()
+                        acc += mm(a, wt[:, lo:lo + width].float().t())
                 out[img, r0:r0 + bh, c0:c0 + bw] = acc.reshape(bh, bw, cout)
     return out[:, :h, :w]
 
 
-def _three_pass(x, p, patch, flat):
+def _three_pass(x, p, patch, flat, mm=torch.matmul):
     """The kernel's three launches in torch: conv1 -> h1 rounded to x's
     dtype -> conv2 over zero-filled patches -> h2 rounded -> conv3 + b3 +
-    x, ReLU, rounded; float32 sums.  The 1x1 convs run over flat tiles
-    (tensor cores) or over patches (``flat=False``: the FMA route)."""
+    x, ReLU, rounded; float32 sums, each k-step's product by ``mm``.  The
+    1x1 convs run over flat tiles (tensor cores) or over patches
+    (``flat=False``: the FMA route)."""
     n, h, w, c = x.shape
     dt = x.dtype
 
     def conv1x1(v, wt):
         if flat:
-            return _flat_gemm(v.reshape(-1, v.shape[-1]), wt).reshape(
+            return _flat_gemm(v.reshape(-1, v.shape[-1]), wt, mm).reshape(
                 n, h, w, -1)
-        return _implicit_gemm(v, wt, *patch, ks=1)
+        return _implicit_gemm(v, wt, *patch, ks=1, mm=mm)
 
     h1 = F.relu(conv1x1(x, p.w1t) + p.b1).to(dt)
-    h2 = F.relu(_implicit_gemm(h1, p.w2t, *patch) + p.b2).to(dt)
+    h2 = F.relu(_implicit_gemm(h1, p.w2t, *patch, mm=mm) + p.b2).to(dt)
     return F.relu(conv1x1(h2, p.w3t) + p.b3 + x.float()).to(dt)
 
 

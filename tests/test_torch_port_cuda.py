@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from compare_f32_conv import f64_bottleneck, f64_decoder
 from srsem_torch.ops import fused_bottleneck as tfb
 from srsem_torch.ops import fused_decoder as tfd
 from srsem_torch.ops import fused_head as tfh
@@ -267,8 +268,9 @@ def test_bottleneck_kernel_matches_plain(cuda_device, dtype, shape, wd,
     """CUDA kernel == plain version.  f32: FP order only (1e-4); bf16: a
     few bf16 ulps where the f32 sums round h1/h2/y apart (2e-2).  bf16 with
     C and wd multiples of 64 takes the tensor cores (flat tiles for the 1x1
-    convs, patches for the 3x3); other widths (and float32) the FMA path.
-    The packed weights give the same answer as the JAX-layout ones."""
+    convs, patches for the 3x3), float32 with multiples of 32 too (by
+    3xTF32); other widths the FMA path.  The packed weights give the same
+    answer as the JAX-layout ones."""
     rng = np.random.default_rng(8)
     x = torch.tensor(rng.normal(size=shape).astype(np.float32),
                      device=cuda_device).to(dtype)
@@ -302,7 +304,8 @@ def test_bottleneck_plan_at_main_path_shapes(cuda_device, n):
     blocks, so their rows computed over useful are 1.0 up to the last
     pair's ragged rows; conv2 over patches of at most 64 pixels.  A conv
     that the widest N tile would leave below one wave (the decoder's rule)
-    takes a narrower tile.  float32 runs on FMAs."""
+    takes a narrower tile.  float32 runs on the tensor cores by 3xTF32,
+    with N tiles of 32, 64 or 128."""
     for s, hw in enumerate((56, 28, 14, 7)):
         c, wd = 256 * 2 ** s, 64 * 2 ** s
         x = torch.zeros(n, hw, hw, c, dtype=torch.bfloat16,
@@ -327,7 +330,10 @@ def test_bottleneck_plan_at_main_path_shapes(cuda_device, n):
             assert plan.rows_ratio[i] < 1.07
         assert plan.rows_ratio[1] >= 1
         f32 = tfb.kernel_plan(x.float(), wd, sms=132)
-        assert f32.launches == 3 and f32.nts == (64, 64, 64)
+        assert f32.launches == 3 and f32.route == "wgmma_tf32x3"
+        assert plan.route == "wgmma_bf16"
+        for i, cout in enumerate((wd, wd, c)):
+            assert f32.nts[i] in (32, 64, 128) and cout % f32.nts[i] == 0
 
 
 def _decoder_args(rng, n, h, w, cd, cu, cm, co, fk, device):
@@ -363,7 +369,8 @@ def test_decoder_kernel_matches_plain(cuda_device, dtype, n, h, w, cd, cu,
     """CUDA kernel == plain version.  f32: FP order only (1e-4); bf16: a
     few bf16 ulps where the f32 sums round h1/y apart (2e-2).  bf16 with
     every width a multiple of 64 (after padding the skip diff) takes the
-    tensor cores (wgmma); float32 and other widths the FMA path.  An odd
+    tensor cores (wgmma), float32 with multiples of 32 too (3xTF32); other
+    widths (and float32 Cd = 257) the FMA path.  An odd
     count of patches leaves a block's second warpgroup without one."""
     rng = np.random.default_rng(10)
     d, u, w1d, w1u, b1, w2, b2 = _decoder_args(rng, n, h, w, cd, cu, cm, co,
@@ -389,7 +396,9 @@ def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
     dtypes: output patches of at most 64 pixels inside the image, two
     launches (one for the tensor cores' fused 1x1 head), and on the tensor
     cores at most 15% of the rows computed and not stored at the main-path
-    shapes (28, 56 and 112 px).  A level as wide as Cm = 16384 runs."""
+    shapes (28, 56 and 112 px).  bf16 takes the bf16 wgmma route (Cd = 257
+    padded), float32 the 3xTF32 one but at Cd = 257 (the FMA conv).  A
+    level as wide as Cm = 16384 runs."""
     for h, cd, cu, cm, co, fk in [
             (28, 512, 1024, 512, 512, 3), (56, 256, 512, 256, 256, 3),
             (112, 64, 256, 64, 1, 1), (14, 1024, 2048, 1024, 1024, 3),
@@ -408,7 +417,10 @@ def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
             plan = tfd.kernel_plan(args, fk)
             assert 1 <= plan.bh <= h and 1 <= plan.bw <= h
             assert plan.bh * plan.bw <= 64 and plan.rows_ratio >= 1
-            tc = dtype == torch.bfloat16
+            tc = dtype == torch.bfloat16 or cd % 32 == 0
+            assert plan.route == ("fma" if not tc else "wgmma_bf16"
+                                  if dtype == torch.bfloat16
+                                  else "wgmma_tf32x3"), (h, cd, plan)
             assert plan.launches == (1 if tc and fk == 1 else 2)
             if tc and h in (28, 56, 112):
                 assert plan.rows_ratio <= 1.15, (h, plan)
@@ -433,6 +445,58 @@ def test_decoder_pads_odd_skip_for_tensor_cores(cuda_device):
                                mk(3, 3, 257, 256), mk(3, 3, 512, 256),
                                mk(256), mk(3, 3, 256, 256), mk(256), 3)
         assert args[0].shape[-1] == want and args[2].shape[1] == want
+
+
+def _tf32x3_close(got, want, ref, again):
+    """The 3xTF32 route's gates: within 1e-4 of the plain float32 version,
+    at most 4x its error against the float64 reference, and the same bits
+    from a second launch."""
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    err = float((got.double() - ref).abs().max())
+    plain = float((want.double() - ref).abs().max())
+    assert err <= 4 * plain, (err, plain)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wd", [
+    ((8, 28, 28, 512), 128), ((8, 14, 14, 1024), 256),
+    ((8, 7, 7, 2048), 512), ((8, 56, 56, 256), 64)])
+def test_float32_bottleneck_takes_tf32x3(cuda_device, shape, wd):
+    """``train-nr-iqa``'s float32 tower shapes (batch 8; the last one the
+    tiled wrapper's) run on the 3xTF32 route and meet its gates."""
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.normal(size=shape).astype(np.float32),
+                     device=cuda_device)
+    ws = _weights(rng, shape[-1], wd, cuda_device)
+    assert tfb.kernel_plan(x, wd).route == "wgmma_tf32x3"
+    packed = tfb.pack_weights(ws, torch.float32)
+    got = tfb.fused_bottleneck(x, packed)
+    again = tfb.fused_bottleneck(x, packed)
+    _tf32x3_close(got, tfb.plain_bottleneck(x, ws), f64_bottleneck(x, ws),
+                  again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,cd,cu,cm,co,fk", [
+    (28, 512, 1024, 512, 512, 3), (56, 256, 512, 256, 256, 3),
+    (112, 64, 256, 64, 1, 1)])
+def test_float32_decoder_takes_tf32x3(cuda_device, h, cd, cu, cm, co, fk):
+    """The CLU model's default float32 decoder, levels 2, 1, 0 at batch 4
+    of the 224 px shapes, runs on the 3xTF32 route (level 0 one launch,
+    its head in conv1's epilogue) and meets its gates; float32 Cd = 257
+    (v2's skip) takes the FMA conv."""
+    rng = np.random.default_rng(13)
+    args = _decoder_args(rng, 4, h, h, cd, cu, cm, co, fk, cuda_device)
+    plan = tfd.kernel_plan(tfd.kernel_args(*args, fk), fk)
+    assert plan.route == "wgmma_tf32x3"
+    assert plan.launches == (1 if fk == 1 else 2)
+    got = tfd.fused_decoder_level(*args, final_kernel=fk)
+    again = tfd.fused_decoder_level(*args, final_kernel=fk)
+    _tf32x3_close(got, tfd.plain_decoder_level(*args, fk),
+                  f64_decoder(*args, fk), again)
+    odd = _decoder_args(rng, 1, 8, 8, 257, 512, 256, 256, 3, cuda_device)
+    assert tfd.kernel_plan(tfd.kernel_args(*odd, 3), 3).route == "fma"
 
 
 def _serving_models(size):

@@ -155,11 +155,12 @@ def _a_tile(x, img, r0, c0, bh, bw, tap, chunk, ks=3):
     return tile.reshape(bh * bw, 64)
 
 
-def _implicit_gemm(inputs, wt, bh, bw, ks=3):
+def _implicit_gemm(inputs, wt, bh, bw, ks=3, mm=torch.matmul):
     """The kernel's products in float32: for each output patch of bh x bw,
     the sum over k-steps (input, tap, 64-channel chunk) of A tile times
     the matching rows of the K-major weights ``wt`` (Cout, ks*ks*sum C),
-    k = tap * C + c over the first input, then the second."""
+    k = tap * C + c over the first input, then the second; each product by
+    ``mm``."""
     n, h, w, _ = inputs[0].shape
     cout = wt.shape[0]
     th, tw = -(-h // bh), -(-w // bw)
@@ -177,7 +178,7 @@ def _implicit_gemm(inputs, wt, bh, bw, ks=3):
                             width = min(64, c - 64 * chunk)
                             a = _a_tile(x, img, r0, c0, bh, bw, tap, chunk,
                                         ks)[:, :width].float()
-                            acc += a @ wt[:, lo:lo + width].float().t()
+                            acc += mm(a, wt[:, lo:lo + width].float().t())
                     k0 += ks * ks * c
                 out[img, r0:r0 + bh, c0:c0 + bw] = acc.reshape(bh, bw, cout)
     return out[:, :h, :w]
@@ -219,11 +220,28 @@ def test_implicit_gemm_tiles_sum_to_conv(n, h, w, cd, cu, cout, bh, bw, ks):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-def _two_pass(d, u, w1d, w1u, b1, w2, b2, final_kernel):
+def _two_pass(d, u, w1d, w1u, b1, w2, b2, final_kernel, mm=None):
     """The kernel's two launches in torch (``_prepare``'s arguments): conv1
     over (d, u) into h1 rounded to d's dtype, then conv2 over h1 with SAME
-    zero padding (or the 1x1 head), float32 sums, y in d's dtype."""
+    zero padding (or the 1x1 head), float32 sums, y in d's dtype.  With a
+    product ``mm`` the 3x3 convs run as the kernel's k-steps over 8x8
+    patches (``_implicit_gemm``), each k-step's product by ``mm``; the
+    head stays a float32 matmul, as in the kernel's epilogue."""
     dt = d.dtype
+    if mm is not None:
+        cm, co = w1d.shape[-1], w2.shape[-1]
+        inputs = [d.float()] + ([] if u is None else [u.float()])
+        w1t = tfd._k_major([w1d.reshape(-1, cm)]
+                           + ([] if u is None else [w1u.reshape(-1, cm)]),
+                           torch.float32)
+        acc = _implicit_gemm(inputs, w1t, 8, 8, mm=mm)
+        h1 = F.relu(acc + b1).to(dt).float()
+        if final_kernel == 3:
+            w2t = tfd._k_major([w2.reshape(-1, co)], torch.float32)
+            y = _implicit_gemm([h1], w2t, 8, 8, mm=mm)
+        else:
+            y = h1 @ w2.float()
+        return F.relu(y + b2).to(dt)
     oihw = lambda k: k.float().reshape(3, 3, -1, k.shape[-1]).permute(3, 2, 0, 1)  # noqa: E731
     acc = F.conv2d(_nchw(d), oihw(w1d), padding=1)
     if u is not None:
