@@ -16,17 +16,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
              the CLU path, whose CLIP tower runs the bottleneck kernels
              too), in float32 with TF32 off and in bf16, with the
              stated tolerances (the bottleneck also at a ragged shape, the
-             decoder at a v2 shape and at the u=None level-4 shape); then
+             decoder at the u=None level-4 shape); then
              CUDA-event times in bf16 (the serving dtype) of the kernel,
              its plain version, a one-call PyTorch yardstick, and the
              card's bound; for the bottleneck also its plan and each of
              its three launches' device time (torch.profiler).  float32
              (TF32 off), the nr_train path's bottleneck and the CLU
              model's default decoder (levels 0-2 at batch 32, ``clu_f32``
-             lines, off the counted clu path), is timed beside cuDNN's
-             float32 chain, with the route its launches took (3xTF32 on
-             wgmma, or the FMA conv), the 3xTF32 bound (three TF32
-             products an operation, TF32X3_FLOPS) and the FMA bound.
+             lines, off the counted clu path) and the v2 model's (its
+             levels 2-0 at Cd = 513, 257, 65: ``clu_f32`` lines with
+             ``v2``, the clu_v2 path's, timed with the skip at its padded
+             width as fused_serving_decode passes it and as a direct
+             call pads it; off the 3xTF32 route they fail), is timed
+             beside cuDNN's float32 chain, with the route its launches
+             took (3xTF32 on wgmma, or the FMA conv), the 3xTF32 bound
+             (three TF32 products an operation, TF32X3_FLOPS) and the FMA
+             bound, counted on the unpadded widths.
              The head kernel is checked per stage (off the path), as the whole
              head in one launch at batch 64 (the path) and in its grouped
              form at G = 16, K = 4, each also for identical bits from two
@@ -63,7 +68,33 @@ Phases (each prints one JSON line; any failure exits non-zero):
              the 3xTF32 route), in turns; a profile of three batches of
              each; ``python -m srsem_torch score-maps-groups`` (K = 2) as
              a subprocess.
-6. heads   — wperlay_cnn (depth 11, 12 taps) on the full-width CLIP tower,
+6. clu_v2  — the v2 CLU model at its default configuration,
+             LocalModelConfig(resnet50_clip, 224, v2=True) (bf16 tower,
+             float32 decoder; its skip diffs carry the pixel channel, Cd =
+             65, 257, 513, padded to 96, 288, 544 for the tensor cores),
+             full width, seeded: each fused level's folded skip width and
+             float32 route (wgmma_tf32x3, or the phase fails);
+             PairScorer(model_kind="local").score_paths (NaN map on exactly
+             the corrupt row, the rest finite in [0.5, 1]) with the counts
+             reset just before and read just after (20 + 4 bottleneck
+             calls, three decoder calls); float32 kernel-path maps against
+             the plain module (TF32 off, 2e-3) and GroupedMapScorer's
+             float32 maps at G = 8, K = 4 against the pairwise ones (1e-4);
+             the default model's GroupedMapScorer at G = 8, K = 4 (one
+             decoder pass, two tower passes); steady maps/s
+             (RATE_WINDOW_S) at batch 32 of the default model and of v2
+             with the bf16 decoder; a profile of three default batches;
+             ``python -m srsem_torch score-maps-groups --v2`` (K = 2) as
+             a subprocess.
+7. precision — the float32 paths the CLI runs on cuDNN, each twice in
+             one process, at PyTorch's defaults (cuDNN may run float32
+             convolutions in TF32) and with TF32 off: the default CLU maps
+             (batch 32) v1 and v2, one ``train-clu`` step at batch 80 (the
+             loss, the decoder's gradients), LPIPS alex over 32 pairs,
+             TranSalNet over 2 images; the largest differences beside the
+             agreement tolerances (scores 1e-3, maps 2e-3, the loss rtol
+             1e-5).  A measurement, not a gate.
+8. heads   — wperlay_cnn (depth 11, 12 taps) on the full-width CLIP tower,
              bf16, with a trained head written by the port's checkpoint
              writer and read back bit-equal (a CluUnet's decoder and
              batch_stats too): score_paths with the launch counts reset
@@ -77,7 +108,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              float32, finite in bf16; ``python -m srsem_torch score
              --checkpoint DIR --set head=wperlay_cnn --set depth=11`` as a
              subprocess (NaN on exactly the corrupt row).
-7. serve   — ScoreService over the flagship global model and, with
+9. serve   — ScoreService over the flagship global model and, with
              maps, the CLU model (bf16 decoder), group_batch 8, warmed at
              K = 1 and 4 (peak device memory after warmup): one score and
              one maps batch of G = 8, K = 4 with the launch counts reset
@@ -93,7 +124,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              4 --with-maps`` over stdio fed a script (ping, K = 4, scalar,
              corrupt GT -> nulls, malformed line, maps with maps_dir,
              stats, shutdown; exit 0).
-8. dual    — DualScorer(resnet50_clip, 224, bf16): score_folders with one
+10. dual    — DualScorer(resnet50_clip, 224, bf16): score_folders with one
              corrupt SR (its row NaN, the only one) and the counts reset
              around it (24 bottleneck calls for 32 pairs, one head launch,
              three decoder calls); float32 scores and maps against the
@@ -107,7 +138,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              (mean < 0.5, 99.9% <= 6, max <= 16) and
              PairScorer(decode_backend="native") with a NaN row on exactly
              the corrupt file.
-9. train   — the training slice with a CLIP tower with random BN
+11. train   — the training slice with a CLIP tower with random BN
              statistics, written as an OpenAI-CLIP state dict and read
              through ``--backbone-checkpoint``: ``train-global`` in process
              at its defaults (resnet50_clip, 224, bf16 tower, stages_cnn
@@ -133,7 +164,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              head and Adam, the same batches), in float32 (TF32 off) and
              in bf16; each SRCC and the two deltas (fails if the float32
              delta exceeds 0.005; bf16 recorded).
-10. finetune — tower training at full width from the train phase's
+12. finetune — tower training at full width from the train phase's
              tower: the CLU at batch 80 with LoRA (rank 32) on every tower
              conv and with the whole tower trained under activation
              checkpointing ("full"), the global ``enc_ft`` step at batch
@@ -145,7 +176,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              0) equals the frozen module tower's (1e-6), the checkpointed
              tower's gradients an un-checkpointed pass's (1e-4 of each
              tensor's max); ``fused_tower=True`` on a LoRA model raises.
-11. sweeps — the frozen-tower amortizations: the global depth grid (1-3)
+13. sweeps — the frozen-tower amortizations: the global depth grid (1-3)
              at batch 5 over a 300-pair user study (240 train pairs,
              decoded once, in bulk): the shared tower (one epoch), the
              diff cache and the stat cache (4 epochs; build seconds,
@@ -158,7 +189,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              head gradients equal an uncached one's (1e-6), a stat-cache
              step's a diff-cache step's (1e-5), the closed form's train
              MSE at most the Adam heads'.
-12. vit    — stages_vit (depth 3) on the full-width CLIP ViT-B/16 (224
+14. vit    — stages_vit (depth 3) on the full-width CLIP ViT-B/16 (224
              px, bf16 tower, float32 taps), seeded weights: the tower as a
              timm state dict through ``convert --kind clip_vit`` (bits
              equal after the round trip); score_paths with the counts reset
@@ -173,13 +204,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
              one corrupt file each); a frozen and an enc_ft train step at
              batch 5 (ms a step); the plain attention against
              ``F.scaled_dot_product_attention`` on the same q, k, v.
-13. nr_train — ``train-nr-iqa`` at its defaults (224 px, batch 8,
+15. nr_train — ``train-nr-iqa`` at its defaults (224 px, batch 8,
              float32 tower) for one epoch over 32 images (three steps and
              a validation batch: four float32 tower passes of 8), the
              counts reset just before and read just after; ms a train
              step; the float32 GAP features and scores through the kernel
              tower against the module tower (1e-3).
-14. iqa    — ``folder-metrics`` over 64 synthetic pairs (224 px) at
+16. iqa    — ``folder-metrics`` over 64 synthetic pairs (224 px) at
              batch 32 with LPIPS alex and the nr_train phase's NR-IQA
              head (bf16 tower: two passes of 32), then the pyramid LPIPS
              (``make_pyramid_lpips``: two 2N = 64 passes), the counts
@@ -189,7 +220,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              card against the CPU (1e-3 + 1e-3·|x|; the pyramid on a
              float32 copy of its tower, 1e-3·|x|); a corrupt SR file
              gives a NaN row.
-15. text   — ``score_caption_pairs`` over 2,048 captions through a seeded
+17. text   — ``score_caption_pairs`` over 2,048 captions through a seeded
              full-width MiniLM (6 layers, 384; WordPiece on a written
              30,522-entry vocab.txt), ``embed_image_folder`` over 128
              images (one corrupt: a NaN row) at batch 64 through the CLIP
@@ -199,7 +230,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              steady state (as iqa's; set-up timed apart); MiniLM
              and float32 C2I embeddings on the card against the CPU
              (1e-3).
-16. explain — the approach drivers (simple, focus through ClipTagger,
+18. explain — the approach drivers (simple, focus through ClipTagger,
              SpLiCE focus at rank 5) over 2 (HQ, SR) pairs on a full-width
              CLIP ResNet-50 (bf16, kernel tower, batch 1: 11 passes a
              pair) and CLIP text tower behind ClipDualEncoder, a seeded
@@ -217,7 +248,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              ``python -m srsem_torch visualize`` for its four kinds when
              matplotlib is installed (the line says when not; without
              sklearn the tagger keeps top_k 3, so no KMeans runs).
-17. saliency — A12's second half, float32 (TF32 off) but SLIP's bf16
+19. saliency — A12's second half, float32 (TF32 off) but SLIP's bf16
              tower: ``python -m srsem_torch saliency --random-init``
              (TranSalNet-Dense at 288x384) over 8 images of mixed aspect
              (maps of each source's shape in [0, 1], the meta marker);
@@ -231,7 +262,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              on this path); images/s, embeddings/s, texts/s and ITM
              pairs/s in the steady state, a profile of one TranSalNet
              image; card vs CPU (1e-3 of each output's largest).
-18. mesh   — the port's mesh (srsem_torch/core/meshes.py): a one-rank
+20. mesh   — the port's mesh (srsem_torch/core/meshes.py): a one-rank
              NCCL process group in this process, whose mesh runs every
              collective over one rank: float32 (TF32 off) scores, maps,
              grouped scores and one global and one CLU train step through
@@ -254,12 +285,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
              trained leaves 2e-4).  With several
              cards, NCCL over all of them; with one, a line says it did
              not run.
-19. result — a ``timing`` line (seconds of each phase), the card line,
+21. result — a ``timing`` line (seconds of each phase), the card line,
              the ``kernels`` line (per kernel: launches in the runs of
              the paths that use it, worst bf16 error, and times summed
              over one scored batch's launches of each path at that
              path's shapes; under ``paths``, each path's own launches
-             and times: global, clu, wperlay, serve (one score and one
+             and times: global, clu, clu_v2 (one scored batch, the
+             decoder timed in float32), wperlay, serve (one score and one
              maps batch), dual, train (one global and one CLU train
              step), sweeps (the train path's tower passes at 10 and 160
              images, times ``SWEEP_PASSES``), vit (one scored batch),
@@ -436,18 +468,26 @@ TILED_SHAPES["train"] = [((10, 56, 56, 256), 64, 2),
 TILED_SHAPES["nr_train"] = [((NR_BATCH, 56, 56, 256), 64, 2 * NR_PASSES)]
 TILED_SHAPES["explain"] = [((1, 56, 56, 256), 64, 2 * EXPLAIN_PASSES)]
 # CLU decoder levels at batch 32, 224 px: (n, h, w, cd, cu, cm, co,
-# final_kernel, row tile, wrapper calls per scored batch).  The last two
-# rows are checked and not on the default path (v2's odd skip width;
-# level 4, u=None).  A call makes one or two CUDA launches (``patch``,
-# ``cuda_launches`` and ``rows_executed_over_useful`` in its line come
-# from the kernel's plan).
+# final_kernel, row tile, wrapper calls per scored batch).  The last row
+# of the first is checked and not on a path (level 4, u=None).  A call
+# makes one or two CUDA launches (``patch``, ``cuda_launches`` and
+# ``rows_executed_over_useful`` in its line come from the kernel's plan).
 DECODER_SHAPES = {
     "fused_decoder_level": [(CLU_BATCH, 28, 28, 512, 1024, 512, 512, 3, None, 1),
                             (CLU_BATCH, 7, 7, 2048, 0, 2048, 2048, 3, None, 0)],
     "fused_decoder_level_tiled": [
         (CLU_BATCH, 56, 56, 256, 512, 256, 256, 3, 7, 1),
-        (CLU_BATCH, 112, 112, 64, 256, 64, 1, 1, 7, 1),
-        (CLU_BATCH, 56, 56, 257, 512, 256, 256, 3, 7, 0)],
+        (CLU_BATCH, 112, 112, 64, 256, 64, 1, 1, 7, 1)],
+}
+# The v2 CLU model's levels 2, 1 and 0 (the clu_v2 path): each skip diff
+# carries the pixel channel (Cd = 513, 257, 65), and the model's default
+# decoder dtype is float32, timed in float32.
+DECODER_V2_SHAPES = {
+    "fused_decoder_level": [(CLU_BATCH, 28, 28, 513, 1024, 512, 512, 3, None,
+                             1)],
+    "fused_decoder_level_tiled": [
+        (CLU_BATCH, 56, 56, 257, 512, 256, 256, 3, 7, 1),
+        (CLU_BATCH, 112, 112, 65, 256, 64, 1, 1, 7, 1)],
 }
 
 
@@ -876,33 +916,69 @@ def check_kernels(torch):
     # -- decoder level (CUDA C++) -----------------------------------------
     from srsem_torch.ops import fused_decoder as fd
 
+    def decoder_weights(cd, cu, cm, co, fk):
+        mk = lambda *s, fan: randn(*s) * fan ** -0.5  # noqa: E731
+        return (mk(3, 3, cd, cm, fan=9 * (cd + cu)),
+                mk(3, 3, cu, cm, fan=9 * (cd + cu)) if cu else None,
+                randn(cm) * 0.1,
+                mk(*((3, 3) if fk == 3 else ()), cm, co,
+                   fan=(9 if fk == 3 else 1) * cm),
+                randn(co) * 0.1)
+
+    def check_decoder(name, wrapper, shape, ws, kw):
+        """The wrapper against the plain version in float32 (1e-4) and
+        bf16 (2e-2); the errors and the last (bf16) inputs."""
+        n, h, w_, cd, cu = shape[:5]
+        fk, row_tile = shape[7], shape[8]
+        errs = {}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            # Squared diffs are nonnegative, as are upsampled ReLUs.
+            d = randn(n, h, w_, cd).square().to(dtype)
+            u = randn(n, h, w_, cu).abs().to(dtype) if cu else None
+            got = wrapper(d, u, *ws, final_kernel=fk, **kw)
+            want = fd.plain_decoder_level(d, u, *ws, fk, row_tile)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            errs[str(dtype)] = err
+            if not bool((diff <= tol + tol * want.float().abs()).all()):
+                raise AssertionError(f"{name} {(n, h, w_, cd, cu)} "
+                                     f"{dtype}: max |err| {err} beyond "
+                                     f"rtol=atol={tol}")
+        return errs, d, u
+
+    def decoder_work(n, h, w_, cd, cu, cm, co, fk, esz):
+        """Operations and bytes (each input read once, y written once) of
+        a level at these (unpadded) widths, in elements of ``esz`` bytes."""
+        k2 = 9 if fk == 3 else 1
+        flops = 2 * n * h * w_ * (9 * (cd + cu) * cm + k2 * cm * co)
+        nbytes = (esz * n * h * w_ * (cd + cu + co)
+                  + esz * (9 * (cd + cu) * cm + k2 * cm * co) + 4 * (cm + co))
+        return flops, nbytes
+
+    def cudnn_chain(d, u, ws, fk):
+        """The yardstick: the cuDNN chain of the level's convs with the same
+        folded weights, channels_last, in d's dtype (float32: TF32 off)."""
+        cl = lambda t: t.permute(3, 2, 0, 1).to(d.dtype).contiguous(  # noqa: E731
+            memory_format=torch.channels_last)
+        dc, uc = d.permute(0, 3, 1, 2), u.permute(0, 3, 1, 2)
+        k1d, k1u = cl(ws[0]), cl(ws[1])
+        k2w = cl(ws[3] if fk == 3 else ws[3][None, None])
+        c1, c2 = ws[2].to(d.dtype), ws[4].to(d.dtype)
+
+        def chain():
+            hh = F.relu(F.conv2d(dc, k1d, None, 1, 1)
+                        + F.conv2d(uc, k1u, c1, 1, 1))
+            return F.relu(F.conv2d(hh, k2w, c2, 1, fk // 2))
+        return chain
+
     for name, shapes in DECODER_SHAPES.items():
         wrapper = getattr(fd, name)
-        for n, h, w_, cd, cu, cm, co, fk, row_tile, count in shapes:
+        for shape in shapes:
+            n, h, w_, cd, cu, cm, co, fk, row_tile, count = shape
             kw = {"row_tile": row_tile} if row_tile else {}
-            k2 = 9 if fk == 3 else 1
-            mk = lambda *s, fan: randn(*s) * fan ** -0.5  # noqa: E731
-            ws = (mk(3, 3, cd, cm, fan=9 * (cd + cu)),
-                  mk(3, 3, cu, cm, fan=9 * (cd + cu)) if cu else None,
-                  randn(cm) * 0.1,
-                  mk(*((3, 3) if fk == 3 else ()), cm, co, fan=k2 * cm),
-                  randn(co) * 0.1)
-            errs = {}
-            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                # Squared diffs are nonnegative, as are upsampled ReLUs.
-                d = randn(n, h, w_, cd).square().to(dtype)
-                u = randn(n, h, w_, cu).abs().to(dtype) if cu else None
-                got = wrapper(d, u, ws[0], ws[1], ws[2], ws[3], ws[4],
-                              final_kernel=fk, **kw)
-                want = fd.plain_decoder_level(d, u, *ws, fk, row_tile)
-                torch.cuda.synchronize()
-                diff = (got.float() - want.float()).abs()
-                err = float(diff.max())
-                errs[str(dtype)] = err
-                if not bool((diff <= tol + tol * want.float().abs()).all()):
-                    raise AssertionError(f"{name} {(n, h, w_, cd, cu)} "
-                                         f"{dtype}: max |err| {err} beyond "
-                                         f"rtol=atol={tol}")
+            ws = decoder_weights(cd, cu, cm, co, fk)
+            errs, d, u = check_decoder(name, wrapper, shape, ws, kw)
             plan = fd.kernel_plan(fd.kernel_args(d, u, *ws, fk), fk)
             line = dict(name=name, shape=[n, h, w_, cd, cu, cm, co], final_kernel=fk,
                         patch=[plan.bh, plan.bw],
@@ -926,24 +1002,8 @@ def check_kernels(torch):
             ms = cuda_ms(torch, call, 5)
             plain = cuda_ms(torch, lambda: fd.plain_decoder_level(
                 d, u, *ws, fk, row_tile), 2)
-            # Yardstick: the cuDNN chain with the same folded weights,
-            # channels_last bf16.
-            cl = lambda t: t.permute(3, 2, 0, 1).to(d.dtype).contiguous(  # noqa: E731
-                memory_format=torch.channels_last)
-            dc, uc = d.permute(0, 3, 1, 2), u.permute(0, 3, 1, 2)
-            k1d, k1u = cl(ws[0]), cl(ws[1])
-            k2w = cl(ws[3] if fk == 3 else ws[3][None, None])
-            c1, c2 = ws[2].to(d.dtype), ws[4].to(d.dtype)
-
-            def chain():
-                hh = F.relu(F.conv2d(dc, k1d, None, 1, 1)
-                            + F.conv2d(uc, k1u, c1, 1, 1))
-                return F.relu(F.conv2d(hh, k2w, c2, 1, fk // 2))
-
-            lib = cuda_ms(torch, chain, 5)
-            flops = 2 * n * h * w_ * (9 * (cd + cu) * cm + k2 * cm * co)
-            nbytes = (2 * n * h * w_ * (cd + cu + co)
-                      + 2 * (9 * (cd + cu) * cm + k2 * cm * co) + 4 * (cm + co))
+            lib = cuda_ms(torch, cudnn_chain(d, u, ws, fk), 5)
+            flops, nbytes = decoder_work(n, h, w_, cd, cu, cm, co, fk, 2)
             bms, by = bound(nbytes, flops, BF16_TC_FLOPS)
             emit("kernel", path="clu", on_main_path=True, ms=ms,
                  plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
@@ -959,16 +1019,9 @@ def check_kernels(torch):
             ms32 = cuda_ms(torch, call, 5)
             plain32 = cuda_ms(torch, lambda: fd.plain_decoder_level(
                 d32, u32, *ws, fk, row_tile), 2)
-            # chain() reads these names: the same convs in float32.
-            cl32 = lambda t: t.permute(3, 2, 0, 1).contiguous(  # noqa: E731
-                memory_format=torch.channels_last)
-            dc, uc = d32.permute(0, 3, 1, 2), u32.permute(0, 3, 1, 2)
-            k1d, k1u = cl32(ws[0]), cl32(ws[1])
-            k2w = cl32(ws[3] if fk == 3 else ws[3][None, None])
-            c1, c2 = ws[2], ws[4]
-            lib32 = cuda_ms(torch, chain, 5)
+            lib32 = cuda_ms(torch, cudnn_chain(d32, u32, ws, fk), 5)
             plan32 = fd.kernel_plan(fd.kernel_args(d32, u32, *ws, fk), fk)
-            nbytes32 = 2 * nbytes - 4 * (cm + co)
+            _, nbytes32 = decoder_work(n, h, w_, cd, cu, cm, co, fk, 4)
             b3x, by32 = bound(nbytes32, flops, TF32X3_FLOPS)
             emit("kernel", name=name, path="clu_f32", on_main_path=False,
                  shape=[n, h, w_, cd, cu, cm, co], final_kernel=fk,
@@ -981,9 +1034,59 @@ def check_kernels(torch):
                  tflops=flops / ms32 / 1e9)
             del d32, u32
 
+    # The v2 levels (the clu_v2 path), float32 by default: the skip diff
+    # and w1d reach the kernel padded to a multiple of 32 (skip_width),
+    # and a level off the 3xTF32 route fails.  Timed as
+    # fused_serving_decode calls them (the skip written at the padded
+    # width once a level, w1d padded once by fold_decoder), and as a
+    # direct caller does (the wrapper pads each call); the plain version,
+    # the cuDNN chain and the bounds at the unpadded widths.
+    for name, shapes in DECODER_V2_SHAPES.items():
+        wrapper = getattr(fd, name)
+        for shape in shapes:
+            n, h, w_, cd, cu, cm, co, fk, row_tile, count = shape
+            kw = {"row_tile": row_tile} if row_tile else {}
+            ws = decoder_weights(cd, cu, cm, co, fk)
+            errs, d, u = check_decoder(name, wrapper, shape, ws, kw)
+            d32, u32 = d.float(), u.float()
+            plan32 = fd.kernel_plan(fd.kernel_args(d32, u32, *ws, fk), fk)
+            if plan32.route != "wgmma_tf32x3":
+                raise AssertionError(f"v2 {name} {shape}: float32 route "
+                                     f"{plan32.route}, want wgmma_tf32x3")
+            wide = fd.skip_width(torch.float32, cd, cu, cm, co, fk)
+            dp = F.pad(d32, (0, wide - cd))
+            wsp = (F.pad(ws[0], (0, 0, 0, wide - cd)), *ws[1:])
+            ms32 = cuda_ms(torch, lambda: wrapper(dp, u32, *wsp,
+                                                  final_kernel=fk, **kw), 5)
+            direct = cuda_ms(torch, lambda: wrapper(d32, u32, *ws,
+                                                    final_kernel=fk, **kw), 5)
+            plain32 = cuda_ms(torch, lambda: fd.plain_decoder_level(
+                d32, u32, *ws, fk, row_tile), 2)
+            lib32 = cuda_ms(torch, cudnn_chain(d32, u32, ws, fk), 5)
+            flops, nbytes32 = decoder_work(n, h, w_, cd, cu, cm, co, fk, 4)
+            b3x, by32 = bound(nbytes32, flops, TF32X3_FLOPS)
+            emit("kernel", name=name, path="clu_f32", v2=True,
+                 on_main_path=True, shape=[n, h, w_, cd, cu, cm, co],
+                 padded_cd=wide, final_kernel=fk,
+                 timed_dtype="torch.float32", route=plan32.route,
+                 nts=list(plan32.nts), cuda_launches=plan32.launches,
+                 max_abs_err=errs,
+                 tolerance="f32 (TF32 off) rtol=atol=1e-4; bf16 "
+                 "rtol=atol=2e-2", ms=ms32, ms_direct_unpadded=direct,
+                 plain_ms=plain32, library_ms=lib32, bound_ms=b3x,
+                 bound_by=by32,
+                 bound_fma_ms=bound(nbytes32, flops, F32_FLOPS)[0],
+                 tflops=flops / ms32 / 1e9)
+            add(name, "clu_v2", errs[str(torch.bfloat16)], ms32, plain32,
+                lib32, b3x, by32, count)
+            del d, u, d32, u32, dp
+
     # The dual path runs the CLU path's tower and decoder shapes; the serve
     # path runs them too (its SR passes and its maps batch), beside its own
     # batch-8 GT passes.
+    # The clu_v2 path's tower is the clu path's.
+    for name in BOTTLENECK:
+        summary[(name, "clu_v2")] = summary[(name, "clu")]
     for name in ("fused_bottleneck", "fused_bottleneck_tiled",
                  "fused_decoder_level", "fused_decoder_level_tiled"):
         clu = summary[(name, "clu")]
@@ -1342,7 +1445,6 @@ def run_grouped(torch, np, card: str, tmp: Path, pairs, bf16, f32) -> None:
 def run_clu_slice(torch, np, card: str):
     """Phase 5; returns {kernel name: launches in the main-path run}."""
     import dataclasses
-    import shutil
 
     from srsem_torch.config import BackboneConfig, LocalModelConfig
     from srsem_torch.eval.scorer import PairScorer
@@ -1367,15 +1469,8 @@ def run_clu_slice(torch, np, card: str):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in wrappers.items()}
-        bad = np.isnan(maps).all(axis=(1, 2))
+        check_maps(np, maps, len(pairs), "score_paths maps")
         ok = maps[:-1]
-        if not (maps.shape == (len(pairs), 224, 224) and bad[-1]
-                and not np.isnan(ok).any() and np.isfinite(ok).all()
-                and (ok >= 0.5).all() and (ok <= 1).all()):
-            raise AssertionError(f"score_paths maps: want NaN on exactly the "
-                                 f"corrupt last row and [0.5, 1] elsewhere; "
-                                 f"NaN rows {bad.tolist()}, range "
-                                 f"{np.nanmin(maps)}..{np.nanmax(maps)}")
         emit("clu", step="score_paths", pairs=len(pairs), seconds=seconds,
              launches=launches, map_mean=[float(m.mean()) for m in ok],
              map_min=float(ok.min()), map_max=float(ok.max()))
@@ -1452,30 +1547,296 @@ def run_clu_slice(torch, np, card: str):
 
         # The CLI entry point, as a user runs it: K = 2 SR folders, one
         # corrupt SR file.
-        root = Path(tmp) / "groups"
-        dirs = [root / n for n in ("gt", "esrgan", "swinir")]
-        for d in dirs:
-            d.mkdir(parents=True)
-        for i, (pa, pb) in enumerate(pairs[:3]):
-            shutil.copy(pa, dirs[0] / f"im{i}.png")
-            shutil.copy(pb, dirs[1] / f"im{i}.jpg")
-            shutil.copy(pb, dirs[2] / f"im{i}.jpg")
-        shutil.copy(pairs[-1][1], dirs[2] / "im1.jpg")
-        out_csv = root / "maps.csv"
-        proc = subprocess.run(
-            [sys.executable, "-m", "srsem_torch", "score-maps-groups",
-             *map(str, dirs), "--batch-size", "8", "--out", str(out_csv),
-             "--set", "decoder_dtype=bfloat16"],
-            cwd=REPO, capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise AssertionError(f"score-maps-groups exit {proc.returncode}: "
-                                 f"{proc.stderr[-2000:]}")
-        result = json.loads(proc.stdout.strip().splitlines()[-1])
-        rows = out_csv.read_text().splitlines()
-        if result["nan_groups"] != 1 or len(rows) != 4 or ",nan" not in rows[2]:
-            raise AssertionError(f"score-maps-groups result {result}, {rows}")
+        result = cli_maps_groups(Path(tmp) / "groups", pairs, "--set",
+                                 "decoder_dtype=bfloat16")
         emit("clu", step="cli", result=result)
     return launches
+
+def clu_folders(root: Path, pairs) -> list:
+    """A GT folder and K = 2 SR folders of three images from ``pairs``,
+    the second SR folder's im1 the corrupt file."""
+    import shutil
+
+    dirs = [root / n for n in ("gt", "esrgan", "swinir")]
+    for d in dirs:
+        d.mkdir(parents=True)
+    for i, (pa, pb) in enumerate(pairs[:3]):
+        shutil.copy(pa, dirs[0] / f"im{i}.png")
+        shutil.copy(pb, dirs[1] / f"im{i}.jpg")
+        shutil.copy(pb, dirs[2] / f"im{i}.jpg")
+    shutil.copy(pairs[-1][1], dirs[2] / "im1.jpg")
+    return dirs
+
+
+def check_maps(np, maps, n: int, what: str) -> None:
+    """``n`` maps of 224x224: NaN on exactly the last (corrupt) row, the
+    rest finite in [0.5, 1]."""
+    bad = np.isnan(maps).all(axis=(1, 2))
+    ok = maps[:-1]
+    if not (maps.shape == (n, 224, 224) and bad[-1]
+            and not np.isnan(ok).any() and np.isfinite(ok).all()
+            and (ok >= 0.5).all() and (ok <= 1).all()):
+        raise AssertionError(f"{what}: want NaN on exactly the corrupt last "
+                             f"row and [0.5, 1] elsewhere; NaN rows "
+                             f"{bad.tolist()}, range "
+                             f"{np.nanmin(maps)}..{np.nanmax(maps)}")
+
+
+def cli_maps_groups(root: Path, pairs, *flags) -> dict:
+    """``python -m srsem_torch score-maps-groups`` (K = 2, one corrupt SR
+    file) as a subprocess; its JSON line, checked for the NaN group."""
+    dirs = clu_folders(root, pairs)
+    out_csv = root / "maps.csv"
+    proc = subprocess.run(
+        [sys.executable, "-m", "srsem_torch", "score-maps-groups",
+         *map(str, dirs), "--batch-size", "8", "--out", str(out_csv),
+         *flags], cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"score-maps-groups {flags} exit "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    rows = out_csv.read_text().splitlines()
+    if result["nan_groups"] != 1 or len(rows) != 4 or ",nan" not in rows[2]:
+        raise AssertionError(f"score-maps-groups {flags} result {result}, "
+                             f"{rows}")
+    return result
+
+
+def run_clu_v2(torch, np, card: str):
+    """Phase 6; returns {kernel name: launches in the main-path run}: the
+    v2 CLU model at its default configuration."""
+    import dataclasses
+
+    from srsem_torch.config import BackboneConfig, LocalModelConfig
+    from srsem_torch.eval.grouped import GroupedMapScorer
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.models.local_models import DEFAULT_FUSE_LEVELS
+    from srsem_torch.ops import fused_bottleneck as fb
+    from srsem_torch.ops import fused_decoder as fd
+
+    cfg = LocalModelConfig(backbone=BackboneConfig(
+        kind="resnet50_clip", image_size=224), v2=True)
+    if (cfg.decoder_dtype, cfg.backbone.compute_dtype) != ("float32",
+                                                           "bfloat16"):
+        raise AssertionError(f"LocalModelConfig defaults moved: {cfg}")
+    model = seeded_clu(torch, np, cfg)
+    scorer = PairScorer(cfg, model, batch_size=CLU_BATCH, model_kind="local")
+    # Each fused level's folded w1d at the padded skip width, and the
+    # plan its float32 launches take there: 3xTF32, or the phase fails.
+    routes = {}
+    for lvl in DEFAULT_FUSE_LEVELS:
+        kind, (w1d, w1u, b1, w2, b2, fk) = scorer._decoder_folded[lvl]
+        h = 112 >> lvl
+        d = torch.zeros(CLU_BATCH, h, h, w1d.shape[2], device="cuda")
+        u = torch.zeros(CLU_BATCH, h, h, w1u.shape[2], device="cuda")
+        plan = fd.kernel_plan(fd.kernel_args(d, u, w1d, w1u, b1, w2, b2, fk),
+                              fk)
+        routes[lvl] = {"skip_width": w1d.shape[2], "route": plan.route,
+                       "nts": list(plan.nts)}
+        if kind != "fused" or plan.route != "wgmma_tf32x3":
+            raise AssertionError(f"v2 level {lvl} ({kind}): {routes[lvl]}, "
+                                 f"want the wgmma_tf32x3 route")
+        del d, u
+    wrappers = {"fused_bottleneck": fb.fused_bottleneck,
+                "fused_bottleneck_tiled": fb.fused_bottleneck_tiled,
+                "fused_decoder_level": fd.fused_decoder_level,
+                "fused_decoder_level_tiled": fd.fused_decoder_level_tiled}
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = write_pairs(np, Path(tmp), 8)
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        maps = scorer.score_paths(pairs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        check_maps(np, maps, len(pairs), "v2 score_paths maps")
+        want = {"fused_bottleneck": 2 * PASS_CALLS["fused_bottleneck"],
+                "fused_bottleneck_tiled": 2 * PASS_CALLS[
+                    "fused_bottleneck_tiled"],
+                "fused_decoder_level": 1, "fused_decoder_level_tiled": 2}
+        if launches != want:
+            raise AssertionError(f"clu_v2 path launched {launches}, want "
+                                 f"{want}")
+        ok = maps[:-1]
+        emit("clu_v2", step="score_paths", pairs=len(pairs), seconds=seconds,
+             launches=launches, routes=routes,
+             map_mean=[float(m.mean()) for m in ok],
+             map_min=float(ok.min()), map_max=float(ok.max()))
+
+        # float32 kernel path vs the plain module path, TF32 off; the
+        # grouped scorer's float32 maps against the pairwise ones.
+        decode = scorer.preprocess.decode_uint8
+        a = np.stack([decode(p[0]) for p in pairs[:-1]])
+        b = np.stack([decode(p[1]) for p in pairs[:-1]])
+        cfg32 = dataclasses.replace(cfg, backbone=dataclasses.replace(
+            cfg.backbone, compute_dtype="float32"))
+        model32 = seeded_clu(torch, np, cfg32)
+        kernel32 = PairScorer(cfg32, model32, batch_size=CLU_BATCH,
+                              model_kind="local")
+        got = kernel32.score_arrays(a, b)
+        want_maps = PairScorer(cfg32, model32, batch_size=CLU_BATCH,
+                               model_kind="local", fused_tower=False,
+                               fused_decoder=False).score_arrays(a, b)
+        err = float((got - want_maps).abs().max())
+        if not torch.allclose(got, want_maps, rtol=2e-3, atol=2e-3):
+            raise AssertionError(f"v2 f32 kernel path vs plain module: max "
+                                 f"|err| {err} beyond 2e-3")
+        rng = np.random.default_rng(5)
+        gt = rng.integers(0, 256, (SERVE_G, 224, 224, 3), dtype=np.uint8)
+        sr = np.clip(gt[:, None].astype(int) + rng.integers(
+            -20, 21, (SERVE_G, SERVE_K, 224, 224, 3)), 0, 255).astype(np.uint8)
+        g32 = GroupedMapScorer(cfg32, model32, k=SERVE_K, batch_size=SERVE_G,
+                               pairs=kernel32).score_arrays(gt, sr)
+        p32 = kernel32.score_arrays(np.repeat(gt, SERVE_K, axis=0),
+                                    sr.reshape(-1, 224, 224, 3))
+        gerr = float((g32.reshape(p32.shape) - p32).abs().max())
+        if not torch.allclose(g32.reshape(p32.shape), p32, rtol=1e-4,
+                              atol=1e-4):
+            raise AssertionError(f"v2 f32 grouped vs pairwise maps: max "
+                                 f"|err| {gerr} beyond 1e-4")
+        emit("clu_v2", step="f32_checks", kernel_vs_plain_module=err,
+             kernel_tolerance="rtol=atol=2e-3 (tests/test_fused_decoder.py"
+             ":111)", grouped_vs_pairwise=gerr,
+             grouped_tolerance="rtol=atol=1e-4", map_std=float(
+                 want_maps.std()))
+        del model32, kernel32, got, want_maps, g32, p32
+
+        # GroupedMapScorer on the default model, G = 8, K = 4: one
+        # decoder pass (three calls) and two tower passes a batch.
+        grouped = GroupedMapScorer(cfg, model, k=SERVE_K, batch_size=SERVE_G,
+                                   pairs=scorer)
+        for fn in wrappers.values():
+            fn.launches = 0
+        gmaps = grouped.score_arrays(gt, sr).float()
+        torch.cuda.synchronize()
+        glaunches = {k: fn.launches for k, fn in wrappers.items()}
+        if (gmaps.shape != (SERVE_G, SERVE_K, 224, 224)
+                or not torch.isfinite(gmaps).all()
+                or glaunches != want):
+            raise AssertionError(f"v2 grouped maps {tuple(gmaps.shape)}, "
+                                 f"launches {glaunches} (want {want})")
+
+        # Steady maps/s at batch 32: the default v2 model and v2 with the
+        # bf16 decoder; a profile of the default.
+        rng = np.random.default_rng(3)
+        a32 = rng.integers(0, 256, (CLU_BATCH, 224, 224, 3), dtype=np.uint8)
+        b32 = np.clip(a32.astype(int) + rng.integers(-20, 21, a32.shape),
+                      0, 255).astype(np.uint8)
+        cfg_bf16 = dataclasses.replace(cfg, decoder_dtype="bfloat16")
+        scorer_bf16 = PairScorer(cfg_bf16, seeded_clu(torch, np, cfg_bf16),
+                                 batch_size=CLU_BATCH, model_kind="local")
+        rates = {}
+        for label, sc in (("default_f32_decoder", scorer),
+                          ("bf16_decoder", scorer_bf16)):
+            rate, calls, secs = steady_rate(
+                torch, lambda: sc.score_arrays(a32, b32), CLU_BATCH)
+            rates[label] = {"maps_per_s": rate, "calls": calls,
+                            "seconds": secs}
+        del scorer_bf16
+        emit("clu_v2", step="throughput", batch=CLU_BATCH, image=224,
+             tower_dtype="bfloat16", rates=rates,
+             grouped={"g": SERVE_G, "k": SERVE_K,
+                      "launches_a_batch": glaunches}, card=card)
+        emit("clu_v2", step="profile", card=card,
+             **profile_scoring(torch, scorer, a32, b32))
+        result = cli_maps_groups(Path(tmp) / "groups", pairs, "--v2")
+        emit("clu_v2", step="cli", result=result)
+    return launches
+
+
+# PyTorch's float32 precision flags as the process found them, before
+# main() turns TF32 off: (cuda.matmul.allow_tf32, cudnn.allow_tf32).
+TF32_DEFAULTS = (False, True)
+
+
+def run_precision(torch, np, card: str) -> None:
+    """Phase 7, the ``precision`` line: the float32 paths the CLI runs on
+    cuDNN, each twice in this process, at PyTorch's defaults
+    (``TF32_DEFAULTS``: cuDNN's float32 convolutions may run in TF32) and
+    with TF32 off; the largest differences beside the port's agreement
+    tolerances."""
+    from srsem_torch.config import BackboneConfig, LocalModelConfig
+    from srsem_torch.eval.lpips import make_lpips
+    from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.explain.saliency import TranSalNetDense, preprocess_pad
+
+    def at(setting, fn):
+        matmul, cudnn = TF32_DEFAULTS if setting == "default" else (False,
+                                                                    False)
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    both = lambda fn: (at("default", fn), at("off", fn))  # noqa: E731
+    lap, out = Laps(), {}
+    rng = np.random.default_rng(40)
+    a32 = rng.integers(0, 256, (CLU_BATCH, 224, 224, 3), dtype=np.uint8)
+    b32 = np.clip(a32.astype(int) + rng.integers(-20, 21, a32.shape), 0,
+                  255).astype(np.uint8)
+    for v2 in (False, True):
+        cfg = LocalModelConfig(backbone=BackboneConfig(
+            kind="resnet50_clip", image_size=224), v2=v2)
+        sc = PairScorer(cfg, seeded_clu(torch, np, cfg),
+                        batch_size=CLU_BATCH, model_kind="local")
+        tf, off = both(lambda: sc.score_arrays(a32, b32))
+        out[f"clu_maps_{'v2' if v2 else 'v1'}"] = {
+            "max_abs_diff": float((tf - off).abs().max()), "tolerance": 2e-3}
+        del sc
+    lap("clu_maps")
+
+    cfg = LocalModelConfig(backbone=BackboneConfig(kind="resnet50_clip",
+                                                   image_size=224))
+    model = seeded_clu(torch, np, cfg)
+    batch = host_batch(np, CLU_TRAIN_BATCH, True, 41)
+    tf, off = both(lambda: mesh_step(torch, np, copy.deepcopy(model), True,
+                                     batch, None))
+    scale = max(float(np.abs(g).max()) for g in off[3].values())
+    out["train_clu_step"] = {
+        "batch": CLU_TRAIN_BATCH,
+        "loss_rel_diff": abs(tf[0] - off[0]) / abs(off[0]),
+        "loss_tolerance": "rtol 1e-5",
+        "decoder_grads_rel_diff": max(float(np.abs(tf[3][k] - g).max())
+                                      for k, g in off[3].items()) / scale,
+        "grads_note": "of the largest gradient"}
+    del model
+    lap("train_clu_step")
+
+    lpips = make_lpips("alex", device=TRAIN_DEVICE)
+    gt = np.stack(smooth_images(np, 32, IMAGE, 42)).astype(np.float32) / 255
+    ev = np.clip(gt + rng.normal(0, 0.05, gt.shape), 0, 1).astype(np.float32)
+    tf, off = both(lambda: lpips(gt, ev))
+    out["lpips_alex"] = {"pairs": 32, "max_abs_diff": float(
+        (tf - off).abs().max()), "max_rel_diff": float(
+        ((tf - off).abs() / off.abs()).max()), "tolerance": 1e-3,
+        "mean": float(off.mean())}
+    del lpips
+    lap("lpips_alex")
+
+    sal = TranSalNetDense().reset_parameters(torch.Generator().manual_seed(44))
+    randomize_bn(torch, np, sal, np.random.default_rng(44))
+    sal = sal.to(TRAIN_DEVICE).requires_grad_(False)
+    x = torch.from_numpy(np.stack([preprocess_pad(im, SALIENCY_SIZE)
+                                   for im in smooth_images(np, 2, 320, 45)])
+                         .astype(np.float32) / 255).to(TRAIN_DEVICE)
+    with torch.no_grad():
+        tf, off = both(lambda: sal(x))
+    out["transalnet"] = {"images": 2, "max_abs_diff": float(
+        (tf - off).abs().max()), "tolerance": 2e-3}
+    lap("transalnet")
+    past = [k for k, v in out.items()
+            if v.get("max_abs_diff", 0) > v.get("tolerance", 1)
+            or v.get("loss_rel_diff", 0) > 1e-5]
+    emit("precision", tf32_defaults={"matmul": TF32_DEFAULTS[0],
+                                     "cudnn": TF32_DEFAULTS[1]},
+         paths=out, past_tolerance=past, seconds=lap.seconds, card=card)
+
 
 def leaves(tree, prefix=()):
     """``{path: leaf}`` of a nested tree, tuples keyed by position as the
@@ -1598,7 +1959,7 @@ def wperlay_model(torch, np, cfg, ckpt: Path):
 
 
 def run_heads(torch, np, card: str):
-    """Phase 6 (heads): trained checkpoints through the port's writer and
+    """Phase 8 (heads): trained checkpoints through the port's writer and
     reader; wperlay_cnn at depth 11 on the CLIP tower with a trained head
     (the wperlay path: score_paths with the launch counts reset just before
     and read just after, pairs/s and head launches a batch for PairScorer
@@ -1937,7 +2298,7 @@ def check_stdio(resps, maps_dir: Path) -> dict:
 
 
 def run_serve(torch, np, card: str):
-    """Phase 7 (serve): the service over the flagship global model and the
+    """Phase 9 (serve): the service over the flagship global model and the
     CLU model (``--with-maps``), group_batch 8, warmed at K = 1 and 4.
     Returns {kernel: launches in one score batch and one maps batch}."""
     import dataclasses
@@ -2194,7 +2555,7 @@ def run_serve(torch, np, card: str):
 
 
 def run_dual(torch, np, card: str):
-    """Phase 8 (dual): DualScorer(resnet50_clip, 224, bf16) — stages_cnn at
+    """Phase 10 (dual): DualScorer(resnet50_clip, 224, bf16) — stages_cnn at
     depth 3 and the CLU decoder (bf16) on ONE tower pass an image.  Returns
     {kernel: launches in one score_folders batch of 32 pairs}."""
     import dataclasses
@@ -2565,7 +2926,7 @@ def clip_tower(torch, np) -> dict:
 
 
 def run_train(torch, np, card: str):
-    """Phase 9 (train): ``train-global`` at its defaults (resnet50_clip,
+    """Phase 11 (train): ``train-global`` at its defaults (resnet50_clip,
     224, bf16 tower, stages_cnn depth 3, batch 5) for two epochs with a
     checkpoint directory, ``eval-global`` and ``score`` on that checkpoint
     (the scores are the trained model's validation predictions),
@@ -2877,7 +3238,7 @@ def moved_keys(torch, before: dict, model) -> list:
 
 
 def run_finetune(torch, np, card: str) -> dict:
-    """Phase 10 (finetune): tower training at full width — the CLU at batch
+    """Phase 12 (finetune): tower training at full width — the CLU at batch
     80 with LoRA (rank 32) on every tower conv and with the whole tower
     trained under activation checkpointing ("full"), and the global
     regressor's ``enc_ft`` step at batch 5 and 64: ms a step, maps or
@@ -3090,7 +3451,7 @@ def sweep_batches(np, n: int, seed: int) -> list:
 
 
 def run_sweeps(torch, np, card: str) -> dict:
-    """Phase 11 (sweeps): the frozen-tower amortizations at full width.
+    """Phase 13 (sweeps): the frozen-tower amortizations at full width.
     The global depth grid at batch 5 over 240 train and 60 validation
     pairs (made in bulk, ``sweep_batches``): the shared tower (one
     epoch), the diff cache and the stat cache (4 epochs each; build time
@@ -3397,7 +3758,7 @@ def profile_vit(torch, fn, reps: int = 3) -> dict:
 
 
 def run_vit(torch, np, card: str):
-    """Phase 12 (vit): stages_vit on the full-width CLIP ViT-B/16 (224 px,
+    """Phase 14 (vit): stages_vit on the full-width CLIP ViT-B/16 (224 px,
     bf16 tower, float32 taps), seeded weights: the tower written as a timm
     state dict, converted by ``convert --kind clip_vit`` and read back by
     ``score --backbone-checkpoint`` (subprocesses); score_paths with the
@@ -3669,7 +4030,7 @@ def smooth_images(np, n: int, size: int, seed: int):
 
 
 def run_nr_train(torch, np, card: str):
-    """Phase 13 (nr_train): ``train-nr-iqa`` at its defaults (224 px,
+    """Phase 15 (nr_train): ``train-nr-iqa`` at its defaults (224 px,
     batch 8, lr 1e-3, float32 tower) for one epoch over NR_IMAGES images:
     three train steps and one validation batch, one tower pass each, with
     the launch counts reset just before and read just after (the
@@ -3789,7 +4150,7 @@ def steady_rate(torch, fn, items: int):
 
 
 def run_iqa(torch, np, card: str):
-    """Phase 14 (iqa): ``folder-metrics`` over IQA_PAIRS pairs (resized to
+    """Phase 16 (iqa): ``folder-metrics`` over IQA_PAIRS pairs (resized to
     224) at batch 32 with LPIPS alex (seeded) and the NR-IQA head of the
     nr_train phase's checkpoint (bf16 tower, two passes of 32 eval
     images), then ``run_folder_sweep`` with ``make_pyramid_lpips()`` (two
@@ -3931,7 +4292,7 @@ def write_vocab(np, root: Path, words: list) -> Path:
 
 
 def run_text(torch, np, card: str):
-    """Phase 15 (text): ``score_caption_pairs`` over N_CAPTIONS captions
+    """Phase 17 (text): ``score_caption_pairs`` over N_CAPTIONS captions
     (N_CAPTIONS / 2 pairs, each caption in one) through a seeded
     full-width MiniLMEmbedder (6 layers, 384; batch 256, 128 tokens) with
     the port's WordPieceTokenizer on a vocab.txt written here;
@@ -4122,7 +4483,7 @@ def explain_pairs(np, root: Path, seed: int):
 
 
 def run_explain(torch, np, card: str):
-    """Phase 16 (explain): the approach drivers (A12) on a full-width CLIP
+    """Phase 18 (explain): the approach drivers (A12) on a full-width CLIP
     ResNet-50 (224, bf16, seeded with random BN statistics) and CLIP text
     tower (BPE over a merges file written here) behind ClipDualEncoder, a
     seeded 10,000 x 1024 concept dictionary and image mean, LPIPS alex
@@ -4532,7 +4893,7 @@ def albef_tokens(torch, vit, x):
 
 
 def run_saliency(torch, np, card: str):
-    """Phase 17 (saliency): A12's second half at full width, seeded,
+    """Phase 19 (saliency): A12's second half at full width, seeded,
     float32 with TF32 off.  TranSalNet-Dense at 288x384: ``python -m
     srsem_torch saliency --random-init`` over SALIENCY_SOURCES images of
     mixed aspect (each map its source's shape, values in [0, 1], the meta
@@ -5000,7 +5361,7 @@ def check_mesh_launches(launches: dict) -> None:
 
 
 def run_mesh(torch, np, card: str):
-    """Phase 18 (mesh); returns {kernel name: launches in the one-rank
+    """Phase 20 (mesh); returns {kernel name: launches in the one-rank
     NCCL mesh run}."""
     import torch.distributed as dist
 
@@ -5216,6 +5577,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False")
     sys.path.insert(0, str(REPO))
+    global TF32_DEFAULTS
+    TF32_DEFAULTS = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5246,6 +5610,7 @@ def main() -> int:
     # Each path's launch counts, each from its own reset-then-run.
     runs = {}
     for path, fn in (("global", run_slice), ("clu", run_clu_slice),
+                     ("clu_v2", run_clu_v2), ("precision", run_precision),
                      ("wperlay", run_heads), ("serve", run_serve),
                      ("dual", run_dual), ("train", run_train),
                      ("finetune", run_finetune), ("sweeps", run_sweeps),
@@ -5276,7 +5641,7 @@ def main() -> int:
                                           summary[(name, "train")])
     for name in ("fused_decoder_level", "fused_decoder_level_tiled"):
         summary[(name, "mesh")] = summary[(name, "clu")]
-    del runs["finetune"], runs["saliency"]
+    del runs["precision"], runs["finetune"], runs["saliency"]
     for path, launches in runs.items():
         missing = [k for k, v in launches.items() if v <= 0]
         if missing:

@@ -13,14 +13,18 @@ checkout's kernels into its own ``build/``), and prints one JSON line:
   shapes (batch 8, 224 px; the 56x56 stage through the tiled wrapper),
   weights packed once, CUDA events over 20 calls;
 * ``decoder``: ms a call of the float32 decoder levels 2, 1 and 0 at the
-  CLU model's shapes (batch 32, 224 px), as fused_serving_decode calls
-  them, CUDA events over 5 calls;
+  CLU model's shapes (batch 32, 224 px) and of the v2 model's
+  (``v2_level2`` .. ``v2_level0``: skip diffs one pixel channel wider,
+  Cd = 513, 257, 65), as fused_serving_decode calls them: the skip and
+  w1d at the width the checkout's ``kernel_args`` gives them (padded for
+  the tensor cores where it pads), CUDA events over 5 calls; ``routes``
+  the route each took;
 * ``maps_per_s``: PairScorer(model_kind="local").score_arrays at batch 32
   with the default LocalModelConfig(resnet50_clip) (bf16 tower, float32
   decoder), seeded weights, steady state over at least 5 s after a warm
-  call;
+  call; ``v2_maps_per_s`` the same with ``v2=True``;
 * ``errors``: max |kernel - float64| and max |plain - float64| of each
-  bottleneck shape and of each decoder level at batch 4, the float64
+  bottleneck shape and of each decoder level (v2's too) at batch 4, the float64
   reference rounding h1 and h2 to float32 where the kernel does;
 * ``nr_train_step_ms``: a train_nr_iqa step at batch 8 (float32 tower),
   the difference of a 12-epoch and a 2-epoch run over 32 images over the
@@ -42,10 +46,13 @@ from pathlib import Path
 
 BOTTLENECKS = [((8, 28, 28, 512), 128, None), ((8, 14, 14, 1024), 256, None),
                ((8, 7, 7, 2048), 512, None), ((8, 56, 56, 256), 64, 8)]
-# (h, cd, cu, cm, co, final_kernel, row tile) at batch 32.
-LEVELS = {2: (28, 512, 1024, 512, 512, 3, None),
-          1: (56, 256, 512, 256, 256, 3, 7),
-          0: (112, 64, 256, 64, 1, 1, 7)}
+# (h, cd, cu, cm, co, final_kernel, row tile) at batch 32; the v2 model's
+# levels take one more skip channel, the pixel error.
+LEVELS = {"level2": (28, 512, 1024, 512, 512, 3, None),
+          "level1": (56, 256, 512, 256, 256, 3, 7),
+          "level0": (112, 64, 256, 64, 1, 1, 7)}
+LEVELS.update({f"v2_{key}": (h, cd + 1, *rest)
+               for key, (h, cd, *rest) in LEVELS.items()})
 BATCH, WINDOW_S = 32, 5.0
 NR_EPOCHS = (2, 12)
 
@@ -102,6 +109,7 @@ def measure(tree: Path) -> dict:
     sys.path.insert(0, str(tree.resolve()))
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         raise SystemExit("compare_f32_conv: no CUDA card")
@@ -141,48 +149,56 @@ def measure(tree: Path) -> dict:
             "kernel_vs_f64": max_err(call(), ref),
             "plain_vs_f64": max_err(fb.plain_bottleneck(x, ws), ref)}
 
-    out["decoder"] = {}
-    for level, (h, cd, cu, cm, co, fk, row_tile) in LEVELS.items():
+    out["decoder"], out["routes"] = {}, {}
+    for key, (h, cd, cu, cm, co, fk, row_tile) in LEVELS.items():
         k2 = 9 if fk == 3 else 1
         mk = lambda *s, fan: randn(*s) * fan ** -0.5  # noqa: E731
-        ws = (mk(3, 3, cd, cm, fan=9 * (cd + cu)),
+        ws = [mk(3, 3, cd, cm, fan=9 * (cd + cu)),
               mk(3, 3, cu, cm, fan=9 * (cd + cu)), randn(cm) * 0.1,
               mk(*((3, 3) if fk == 3 else ()), cm, co, fan=k2 * cm),
-              randn(co) * 0.1)
+              randn(co) * 0.1]
         d = randn(BATCH, h, h, cd).square()
         u = randn(BATCH, h, h, cu).abs()
+        # The skip and w1d at the width the checkout's kernel_args gives
+        # them (padded once, as fused_serving_decode passes them).
+        args = fd.kernel_args(d, u, *ws, fk)
+        pad = args[0].shape[-1] - cd
+        d, ws[0] = F.pad(d, (0, pad)), F.pad(ws[0], (0, 0, 0, pad))
         call = ((lambda: fd.fused_decoder_level_tiled(
                     d, u, *ws, row_tile=row_tile, final_kernel=fk))
                 if row_tile else
                 (lambda: fd.fused_decoder_level(d, u, *ws, final_kernel=fk)))
-        out["decoder"][f"level{level}"] = cuda_ms(torch, call, 5)
+        out["decoder"][key] = cuda_ms(torch, call, 5)
+        out["routes"][key] = fd.kernel_plan(args, fk).route
         d, u = d[:4], u[:4]  # call() now reads these: batch 4
         ref = f64_decoder(d, u, *ws, fk)
-        out["errors"][f"level{level}"] = {
+        out["errors"][key] = {
             "kernel_vs_f64": max_err(call(), ref),
             "plain_vs_f64": max_err(
                 fd.plain_decoder_level(d, u, *ws, fk, row_tile), ref)}
-        del d, u, ref
+        del d, u, ref, args
 
-    cfg = LocalModelConfig(backbone=BackboneConfig(kind="resnet50_clip",
-                                                   image_size=224))
-    model = make_local_model(cfg, generator=torch.Generator().manual_seed(0))
-    scorer = PairScorer(cfg, model.to(dev).eval(), batch_size=BATCH,
-                        model_kind="local")
     rng = np.random.default_rng(3)
     a = rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
     b = np.clip(a.astype(int) + rng.integers(-20, 21, a.shape), 0,
                 255).astype(np.uint8)
-    scorer.score_arrays(a, b)
-    torch.cuda.synchronize()
-    calls, t0 = 0, time.perf_counter()
-    while time.perf_counter() - t0 < WINDOW_S:
+    for key, v2 in (("maps_per_s", False), ("v2_maps_per_s", True)):
+        cfg = LocalModelConfig(backbone=BackboneConfig(
+            kind="resnet50_clip", image_size=224), v2=v2)
+        model = make_local_model(cfg,
+                                 generator=torch.Generator().manual_seed(0))
+        scorer = PairScorer(cfg, model.to(dev).eval(), batch_size=BATCH,
+                            model_kind="local")
         scorer.score_arrays(a, b)
         torch.cuda.synchronize()
-        calls += 1
-    out["maps_per_s"] = BATCH * calls / (time.perf_counter() - t0)
+        calls, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < WINDOW_S:
+            scorer.score_arrays(a, b)
+            torch.cuda.synchronize()
+            calls += 1
+        out[key] = BATCH * calls / (time.perf_counter() - t0)
+        del scorer, model
     out["decoder_dtype"] = cfg.decoder_dtype
-    del scorer, model
 
     imgs = rng.random((32, 224, 224, 3), dtype=np.float32)
     train_nr_iqa(imgs, epochs=1, batch_size=8, device=dev)  # warm

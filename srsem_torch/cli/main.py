@@ -981,6 +981,18 @@ def cmd_visualize(args) -> int:
     return 0
 
 
+def _float32_without_tf32() -> None:
+    """float32 means float32 on the command line: PyTorch runs cuDNN's
+    float32 convolutions in TF32 by default, which moves a ``train-clu``
+    step's loss past the port's rtol of 1e-5 (PERF.md, the precision
+    finding).  Library callers keep PyTorch's default; the Hopper kernels'
+    float32 is 3xTF32 either way."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="srsem_torch")
     parser.add_argument(
@@ -1435,6 +1447,8 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_visualize)
 
     args = parser.parse_args(argv)
+    if args.cmd != "visualize":  # the one subcommand without torch
+        _float32_without_tf32()
     if args.profile:
         from srsem_torch.utils.profiling import capture_trace
 

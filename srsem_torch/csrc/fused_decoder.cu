@@ -51,11 +51,14 @@
 // conv's N tile (128, 64 or 32; one block an SM, a ring of up to 8
 // stages); level 0 keeps its head in conv1's epilogue (one launch), in
 // float32.  conv1's and conv2's weights come split, hi rows over lo rows;
-// the head's do not.  bf16 at other widths (v2's unpadded widths, small
-// test shapes) and float32 at widths that are not a multiple of 32 (v2's
-// skip of 257: a row of 1028 bytes, which TMA cannot address; not padded
-// in float32) take the same two-launch structure on FMAs
-// (fused_decoder_conv_fma); the 1x1 head is then a second, 1-tap launch.
+// the head's do not.  v2's skip diffs (Cd = 65, 257, 513: the pixel
+// channel after the tap's) reach the kernel zero-padded to the next
+// multiple of 64 (bf16) or 32 (float32), with zero rows in w1t
+// (ops/fused_decoder.py::skip_width), so every model level takes the
+// tensor cores.  Other widths (small test shapes; a float32 row of 1028
+// bytes, which TMA cannot address) take the same two-launch structure on
+// FMAs (fused_decoder_conv_fma); the 1x1 head is then a second, 1-tap
+// launch.
 //
 // The plan (route, patch, launches, N tiles, rows executed over useful)
 // lives here only; the Python wrapper asks for it (srsem_decoder_plan).
@@ -76,6 +79,8 @@ namespace {
 
 using namespace conv;
 
+// ops/fused_decoder.py::tensor_core_widths holds the same rule (the
+// wrapper pads v2's skip by it without the library): change both together.
 Route route(bool is_bf16, int cd, int cu, int cm, int co, int k2) {
   const int q = is_bf16 ? 64 : 32;
   const bool head_ok = is_bf16 ? (cm == 64 || cm == 128 || cm == 256)

@@ -67,6 +67,7 @@ from srsem_torch.ops.fused_bottleneck import fold_bn_into_conv
 from srsem_torch.ops.fused_decoder import (
     fused_decoder_level,
     fused_decoder_level_tiled,
+    skip_width,
 )
 from srsem_torch.ops.image import resize_bilinear, upsample_x2_align_corners
 
@@ -303,10 +304,33 @@ class CluUnet(nn.Module):
         size (align_corners=False) as one more channel."""
         if not self.v2:
             return list(diffs)
+        return [torch.cat([d, self.pixel_channel(img_sq, d)], dim=-1)
+                for d in diffs]
+
+    def pixel_channel(self, img_sq: Optional[Tensor], d: Tensor) -> Tensor:
+        """v2's channel for the NHWC diff ``d``: ``img_sq`` resized to its
+        size (align_corners=False), in its dtype."""
         if img_sq is None:
             raise ValueError("v2 decode needs the pixel img_sq channel")
-        return [torch.cat([d, resize_bilinear(img_sq.float(), d.shape[1:3])
-                           .to(d.dtype)], dim=-1) for d in diffs]
+        return resize_bilinear(img_sq.float(), d.shape[1:3]).to(d.dtype)
+
+    def skip_input(self, d: Tensor, img_sq: Optional[Tensor],
+                   width: int) -> Tensor:
+        """A level's skip input in one buffer of ``width`` channels in the
+        decoder dtype: the diff ``d``, v2's pixel channel, then zeros (the
+        kernel's padding, ``skip_width``) — one copy a level, none where
+        ``d`` is that buffer already."""
+        c = d.shape[-1]
+        if not self.v2 and c == width:
+            return d.to(self.decoder_dtype).contiguous()
+        out = torch.empty(*d.shape[:-1], width, dtype=self.decoder_dtype,
+                          device=d.device)
+        out[..., :c] = d
+        if self.v2:
+            out[..., c:c + 1] = self.pixel_channel(img_sq, d)
+            c += 1
+        out[..., c:] = 0
+        return out
 
     def decode_from_diffs(self, diffs: Sequence[Tensor],
                           img_sq: Optional[Tensor] = None,
@@ -374,7 +398,8 @@ def fold_decoder(model: CluUnet,
                  fuse_levels: Optional[Tuple[int, ...]] = None) -> List[tuple]:
     """Serving weights of every level, folded and cast once (the decoder is
     frozen when serving): ``("fused", (w1d, w1u, b1, w2, b2, fk))`` in the
-    kernel's layout, or ``("plain", ...)`` with OIHW convs for
+    kernel's layout, w1d's input rows zero-padded to ``skip_width`` (v2's
+    odd skip widths), or ``("plain", ...)`` with OIHW convs for
     ``_plain_decoder_level``; weights in the decoder dtype, biases
     float32."""
     if fuse_levels is None:
@@ -387,6 +412,10 @@ def fold_decoder(model: CluUnet,
                 model, lvl, skip_channels(model, lvl))
             cast = lambda t: None if t is None else t.to(dd).contiguous()  # noqa: E731
             if lvl in fuse_levels:
+                cd, cm = w1d.shape[2:]
+                wide = skip_width(dd, cd, 0 if w1u is None else w1u.shape[2],
+                                  cm, w2.shape[-1], fk)
+                w1d = F.pad(w1d, (0, 0, 0, wide - cd))
                 out.append(("fused", (cast(w1d), cast(w1u), b1, cast(w2), b2,
                                       fk)))
             else:
@@ -421,16 +450,18 @@ def fused_serving_decode(model: CluUnet, diffs: Sequence[Tensor],
     ``tiled_rows`` through the tiled wrapper with that row tile — and the
     rest on ``_plain_decoder_level``.  Matches ``decode_from_diffs`` up to
     FP order.  ``folded`` is ``fold_decoder(model, fuse_levels)``, computed
-    here when not given."""
+    here when not given; each level's skip input is written once at the
+    width of its folded w1d (``CluUnet.skip_input``: v2's pixel channel
+    and the kernel's zero channels in the same buffer)."""
     if fuse_levels is None:
         fuse_levels = DEFAULT_FUSE_LEVELS
     if tiled_rows is None:
         tiled_rows = DEFAULT_TILED_LEVEL_ROWS
     if folded is None:
         folded = fold_decoder(model, fuse_levels)
-    dd = model.decoder_dtype
-    diffs = [d.to(dd).contiguous()
-             for d in model.with_pixel_channel(diffs, img_sq)]
+    # w1d's input channels: HWIO for a fused level, OIHW for a plain one.
+    widths = [w[0].shape[2 if kind == "fused" else 1] for kind, w in folded]
+    diffs = [model.skip_input(d, img_sq, c) for d, c in zip(diffs, widths)]
 
     def level(lvl: int, d: Tensor, u: Optional[Tensor]) -> Tensor:
         kind, (w1d, w1u, b1, w2, b2, fk) = folded[lvl]

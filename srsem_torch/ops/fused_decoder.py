@@ -37,7 +37,11 @@ in d's dtype (float32 or bfloat16) with float32 accumulation; weights are
 cast to d's dtype and biases to float32, h1 is rounded to d's dtype, and
 the output is in d's dtype, as in the JAX kernel.  float32 runs on the
 tensor cores by 3xTF32 (``ops/tf32x3.py``), its conv weights split into
-tf32 hi and lo at each call.
+tf32 hi and lo at each call.  The tensor cores take channel widths in
+multiples of 64 (bf16) or 32 (float32); a skip diff whose width is not one
+(v2's pixel channel makes Cd odd) is zero-padded to the next one, with
+zero rows in w1d, which leaves the level's result exact (``skip_width``;
+``fused_serving_decode`` writes its skips at that width once a level).
 """
 
 from __future__ import annotations
@@ -105,10 +109,36 @@ def _prepare(d: Tensor, u: Optional[Tensor], w1d: Tensor,
             cast(b1, torch.float32), cast(w2, dt), cast(b2, torch.float32))
 
 
+def tensor_core_widths(dtype: torch.dtype, cd: int, cu: int, cm: int,
+                       co: int, final_kernel: int) -> bool:
+    """Whether a level of these widths runs on the tensor cores: every
+    width a multiple of 64 (bf16) or 32 (float32), and a 1x1 head's Cm one
+    N tile.  The same rule as ``route()`` in csrc/fused_decoder.cu, kept
+    here so that the padding below needs no built library (the CPU path
+    pads as the card does); change the two together."""
+    if dtype not in _KERNEL_DTYPES:
+        return False
+    bf16 = dtype == torch.bfloat16
+    q = 64 if bf16 else 32
+    heads = (64, 128, 256) if bf16 else (32, 64, 128)
+    return not (cd % q or cu % q or cm % q
+                or (co % q if final_kernel == 3 else cm not in heads))
+
+
+def skip_width(dtype: torch.dtype, cd: int, cu: int, cm: int, co: int,
+               final_kernel: int) -> int:
+    """The skip width the kernel takes for a ``cd``-channel skip diff:
+    ``cd`` rounded up to a multiple of 64 (bf16) or 32 (float32) where that
+    puts the level on the tensor cores (``tensor_core_widths``), else
+    ``cd``."""
+    wide = cd + -cd % (64 if dtype == torch.bfloat16 else 32)
+    return (wide if tensor_core_widths(dtype, wide, cu, cm, co, final_kernel)
+            else cd)
+
+
 def pad_skip(args: Prepared, channels: int) -> Prepared:
     """Zero-pad the skip diff ``d`` to ``channels`` channels, with zero rows
-    in w1d: the level's result is exact.  The kernel's bf16 tensor cores
-    take only multiples of 64 (v2's extra pixel channel makes Cd odd)."""
+    in w1d: the level's result is exact."""
     d, u, w1d, *rest = args
     pad = channels - d.shape[-1]
     return (F.pad(d, (0, pad)), u, F.pad(w1d, (0, 0, 0, pad)), *rest)
@@ -186,17 +216,13 @@ def _widths(args: Prepared):
 def kernel_args(d: Tensor, u: Optional[Tensor], w1d: Tensor,
                 w1u: Optional[Tensor], b1: Tensor, w2: Tensor, b2: Tensor,
                 final_kernel: int) -> Prepared:
-    """``_prepare``'s arguments as the kernel takes them: a bf16 skip diff
-    whose channels are not a multiple of 64 is padded (``pad_skip``) when
-    the padded widths take the bf16 tensor cores.  float32 is not padded:
-    Cd = 257 stays on the FMA conv."""
+    """``_prepare``'s arguments as the kernel takes them: the skip diff
+    padded to ``skip_width`` (``pad_skip``; nothing to do for a caller that
+    passes it at that width, as ``fused_serving_decode`` does)."""
     args = _prepare(d, u, w1d, w1u, b1, w2, b2, final_kernel)
     cd, cu, cm, co = _widths(args)
-    wide = cd + -cd % 64
-    if wide != cd and _route(d.dtype, (wide, cu, cm, co),
-                             final_kernel) == "wgmma_bf16":
-        args = pad_skip(args, wide)
-    return args
+    wide = skip_width(d.dtype, cd, cu, cm, co, final_kernel)
+    return pad_skip(args, wide) if wide != cd else args
 
 
 def _route(dtype: torch.dtype, widths, final_kernel: int) -> str:

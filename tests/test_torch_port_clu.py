@@ -132,10 +132,25 @@ def test_decode_from_diffs_matches_jax(small):
 @pytest.mark.parametrize("fuse,tiled", [
     (DEFAULT_FUSE_LEVELS, None),
     ((0, 1, 2, 3, 4), {0: 8, 1: 3, 2: 3, 3: 3, 4: 1})])
-def test_fused_serving_decode_matches_jax(small, fuse, tiled):
+def test_fused_serving_decode_matches_jax(small, fuse, tiled, monkeypatch):
     """Default routing (levels 0-2 fused, 0-1 tiled) and every level fused
-    and tiled (ragged tiles, and u=None at level 4) == JAX's module."""
+    and tiled (ragged tiles, and u=None at level 4) == JAX's module.  Each
+    fused level gets its skip (v2: with the pixel channel) in one buffer
+    of the kernel's width, ``skip_width``: v2's odd widths padded to a
+    multiple of 32 in float32 where the level's other widths take the
+    tensor cores (levels 1-4 here; level 0's Cm = 8 does not)."""
     port, _, diffs, img_sq, want = small
+    seen = {}
+
+    def spy(wrapper):
+        def call(d, u, w1d, *rest, **kw):
+            seen[d.shape[1]] = (d.shape[-1], w1d.shape[2])
+            return wrapper(d, u, w1d, *rest, **kw)
+        return call
+
+    for name in ("fused_decoder_level", "fused_decoder_level_tiled"):
+        monkeypatch.setattr(f"srsem_torch.models.local_models.{name}",
+                            spy(getattr(tfd, name)))
     counts = (tfd.fused_decoder_level.launches,
               tfd.fused_decoder_level_tiled.launches)
     got = fused_serving_decode(port, diffs, img_sq, fuse_levels=fuse,
@@ -143,6 +158,19 @@ def test_fused_serving_decode_matches_jax(small, fuse, tiled):
     assert counts == (tfd.fused_decoder_level.launches,
                       tfd.fused_decoder_level_tiled.launches)  # CPU: plain
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    want_widths = {}
+    for lvl in fuse:
+        cd = diffs[lvl].shape[-1] + port.v2
+        block = port.decoder[lvl]
+        cu = block[0].in_channels - cd
+        wide = tfd.skip_width(torch.float32, cd, cu, block[0].out_channels,
+                              block[3].out_channels, block.final_kernel)
+        want_widths[diffs[lvl].shape[1]] = (wide, wide)
+        if port.v2 and lvl > 0:  # Cd = 257, 513, ... padded to 288, 544, ...
+            assert wide == cd + 31
+        else:  # v1's skips are aligned; v2's level 0 (Cm = 8) takes the FMA
+            assert wide == cd
+    assert seen == want_widths
 
 
 def test_folded_decoder_weights_match_jax(small):

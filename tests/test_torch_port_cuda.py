@@ -13,6 +13,10 @@ conftest (which pins JAX) left out:
 float32 comparisons run with TF32 off.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,9 @@ from srsem_torch.ops import fused_bottleneck as tfb
 from srsem_torch.ops import fused_decoder as tfd
 from srsem_torch.ops import fused_head as tfh
 from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
+
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -369,8 +376,8 @@ def test_decoder_kernel_matches_plain(cuda_device, dtype, n, h, w, cd, cu,
     """CUDA kernel == plain version.  f32: FP order only (1e-4); bf16: a
     few bf16 ulps where the f32 sums round h1/y apart (2e-2).  bf16 with
     every width a multiple of 64 (after padding the skip diff) takes the
-    tensor cores (wgmma), float32 with multiples of 32 too (3xTF32); other
-    widths (and float32 Cd = 257) the FMA path.  An odd
+    tensor cores (wgmma), float32 with multiples of 32 too (3xTF32; Cd =
+    257 and 65 padded to 288 and 96); other widths the FMA path.  An odd
     count of patches leaves a block's second warpgroup without one."""
     rng = np.random.default_rng(10)
     d, u, w1d, w1u, b1, w2, b2 = _decoder_args(rng, n, h, w, cd, cu, cm, co,
@@ -396,9 +403,9 @@ def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
     dtypes: output patches of at most 64 pixels inside the image, two
     launches (one for the tensor cores' fused 1x1 head), and on the tensor
     cores at most 15% of the rows computed and not stored at the main-path
-    shapes (28, 56 and 112 px).  bf16 takes the bf16 wgmma route (Cd = 257
-    padded), float32 the 3xTF32 one but at Cd = 257 (the FMA conv).  A
-    level as wide as Cm = 16384 runs."""
+    shapes (28, 56 and 112 px).  bf16 takes the bf16 wgmma route, float32
+    the 3xTF32 one (v2's Cd = 257 padded to 320 and 288).  A level as wide
+    as Cm = 16384 runs."""
     for h, cd, cu, cm, co, fk in [
             (28, 512, 1024, 512, 512, 3), (56, 256, 512, 256, 256, 3),
             (112, 64, 256, 64, 1, 1), (14, 1024, 2048, 1024, 1024, 3),
@@ -417,12 +424,10 @@ def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
             plan = tfd.kernel_plan(args, fk)
             assert 1 <= plan.bh <= h and 1 <= plan.bw <= h
             assert plan.bh * plan.bw <= 64 and plan.rows_ratio >= 1
-            tc = dtype == torch.bfloat16 or cd % 32 == 0
-            assert plan.route == ("fma" if not tc else "wgmma_bf16"
-                                  if dtype == torch.bfloat16
+            assert plan.route == ("wgmma_bf16" if dtype == torch.bfloat16
                                   else "wgmma_tf32x3"), (h, cd, plan)
-            assert plan.launches == (1 if tc and fk == 1 else 2)
-            if tc and h in (28, 56, 112):
+            assert plan.launches == (1 if fk == 1 else 2)
+            if h in (28, 56, 112):
                 assert plan.rows_ratio <= 1.15, (h, plan)
     rng = np.random.default_rng(11)
     d, _, w1d, _, b1, w2, b2 = _decoder_args(rng, 1, 8, 8, 64, 0, 16384, 64,
@@ -435,16 +440,33 @@ def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
 
 @pytest.mark.cuda
 def test_decoder_pads_odd_skip_for_tensor_cores(cuda_device):
-    """bf16 with Cd = 257 is padded to 320 for the tensor cores; float32
-    (FMA path) is left as it is."""
+    """Cd = 257 is padded for the tensor cores: to 320 in bf16, to 288 in
+    float32."""
     mk = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
         *s, dtype=dt, device=cuda_device)
-    for dtype, want in ((torch.bfloat16, 320), (torch.float32, 257)):
+    for dtype, want in ((torch.bfloat16, 320), (torch.float32, 288)):
         args = tfd.kernel_args(mk(1, 8, 8, 257, dt=dtype),
                                mk(1, 8, 8, 512, dt=dtype),
                                mk(3, 3, 257, 256), mk(3, 3, 512, 256),
                                mk(256), mk(3, 3, 256, 256), mk(256), 3)
         assert args[0].shape[-1] == want and args[2].shape[1] == want
+
+
+@pytest.mark.cuda
+def test_skip_width_rule_matches_the_library(cuda_device):
+    """``tensor_core_widths``, the rule the wrapper pads by without the
+    library, is fused_decoder.cu's ``route()``: the two agree at every
+    width tried, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for cd in (1, 8, 24, 32, 64, 65, 96, 128, 257, 288, 320, 513):
+            for cu in (0, 16, 32, 64, 256):
+                for cm, co, fk in ((8, 8, 3), (32, 32, 3), (64, 64, 3),
+                                   (256, 512, 3), (32, 1, 1), (64, 1, 1),
+                                   (128, 1, 1), (256, 1, 1), (512, 1, 1)):
+                    want = tfd._route(dtype, (cd, cu, cm, co), fk) != "fma"
+                    assert tfd.tensor_core_widths(
+                        dtype, cd, cu, cm, co, fk) == want, (
+                            dtype, cd, cu, cm, co, fk)
 
 
 def _tf32x3_close(got, want, ref, again):
@@ -480,12 +502,15 @@ def test_float32_bottleneck_takes_tf32x3(cuda_device, shape, wd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,cd,cu,cm,co,fk", [
     (28, 512, 1024, 512, 512, 3), (56, 256, 512, 256, 256, 3),
-    (112, 64, 256, 64, 1, 1)])
+    (112, 64, 256, 64, 1, 1),
+    (28, 513, 1024, 512, 512, 3), (56, 257, 512, 256, 256, 3),   # v2
+    (112, 65, 256, 64, 1, 1)])
 def test_float32_decoder_takes_tf32x3(cuda_device, h, cd, cu, cm, co, fk):
-    """The CLU model's default float32 decoder, levels 2, 1, 0 at batch 4
-    of the 224 px shapes, runs on the 3xTF32 route (level 0 one launch,
-    its head in conv1's epilogue) and meets its gates; float32 Cd = 257
-    (v2's skip) takes the FMA conv."""
+    """The CLU models' default float32 decoder, levels 2, 1, 0 at batch 4
+    of the 224 px shapes, v1 and v2 (whose skip diffs are padded to a
+    multiple of 32), runs on the 3xTF32 route (level 0 one launch, its
+    head in conv1's epilogue) and meets its gates; so does float32 Cd =
+    257 at another size."""
     rng = np.random.default_rng(13)
     args = _decoder_args(rng, 4, h, h, cd, cu, cm, co, fk, cuda_device)
     plan = tfd.kernel_plan(tfd.kernel_args(*args, fk), fk)
@@ -496,7 +521,8 @@ def test_float32_decoder_takes_tf32x3(cuda_device, h, cd, cu, cm, co, fk):
     _tf32x3_close(got, tfd.plain_decoder_level(*args, fk),
                   f64_decoder(*args, fk), again)
     odd = _decoder_args(rng, 1, 8, 8, 257, 512, 256, 256, 3, cuda_device)
-    assert tfd.kernel_plan(tfd.kernel_args(*odd, 3), 3).route == "fma"
+    assert tfd.kernel_plan(tfd.kernel_args(*odd, 3),
+                           3).route == "wgmma_tf32x3"
 
 
 def _serving_models(size):
@@ -1039,3 +1065,54 @@ def test_one_rank_nccl_mesh_matches_no_mesh(cuda_device):
     for key in want[3]:
         np.testing.assert_allclose(got[3][key], want[3][key], rtol=0,
                                    atol=2e-4, err_msg=str(key))
+
+
+@pytest.mark.cuda
+def test_cli_runs_float32_without_tf32(cuda_device, tmp_path):
+    """``python -m srsem_torch folder-metrics`` in a process of its own
+    (LPIPS alex on cuDNN in float32, SSIM, PSNR) gives the scores of the
+    same call made here with TF32 off, within the port's score tolerance
+    of 1e-3, and LPIPS no farther from them than the call at PyTorch's
+    default (cuDNN in TF32) is: the CLI turns TF32 off before it builds a
+    model."""
+    from PIL import Image
+
+    from srsem_torch.eval.folder_metrics import (
+        ImageQualityMetrics,
+        read_metrics_csv,
+    )
+
+    rng = np.random.default_rng(14)
+    gt_dir, sr_dir = tmp_path / "gt", tmp_path / "sr"
+    gt_dir.mkdir()
+    sr_dir.mkdir()
+    for i in range(4):
+        a = np.asarray(Image.fromarray(rng.integers(
+            0, 256, (8, 8, 3), dtype=np.uint8)).resize((256, 256),
+                                                       Image.BICUBIC))
+        b = np.clip(a + rng.normal(0, 12, a.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(a).save(gt_dir / f"{i}.png")
+        Image.fromarray(b).save(sr_dir / f"{i}.png")
+    proc = subprocess.run(
+        [sys.executable, "-m", "srsem_torch", "folder-metrics", str(gt_dir),
+         str(sr_dir), "--batch-size", "4"], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    cli = read_metrics_csv(str(sr_dir / "metrics.csv"))
+    names = [r["image_name"] for r in cli]
+    calc = ImageQualityMetrics(batch_size=4, device=cuda_device)
+    run = lambda: calc.batch([str(gt_dir / f"{n}.png") for n in names],  # noqa: E731
+                             [str(sr_dir / f"{n}.png") for n in names])
+    here = run()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = run()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for got, want in zip(cli, here):
+        for c in ("LPIPS", "SSIM", "PSNR"):
+            assert abs(got[c] - want[c]) <= 1e-3 * max(1.0, abs(want[c])), (
+                c, got[c], want[c])
+    far = lambda rows: max(abs(r["LPIPS"] - w["LPIPS"])  # noqa: E731
+                           for r, w in zip(rows, here))
+    assert far(cli) <= far(tf32), (far(cli), far(tf32))

@@ -95,18 +95,33 @@ def test_plain_tile_loop_is_tile_independent(th, tw):
     torch.testing.assert_close(got, whole, rtol=1e-5, atol=1e-5)
 
 
-def test_bf16_pads_odd_skip_exactly():
-    """A v2 skip diff (Cd = 65) zero-padded to 128 channels for the tensor
-    cores, with zero rows in w1d, gives the unpadded level's answer."""
-    d, u, w1d, w1u, b1, w2, b2 = map(_t, _inputs(3, 1, 6, 6, 65, 64, 64, 64, 3))
-    d, u = d.bfloat16(), u.bfloat16()
-    want_args = tfd._prepare(d, u, w1d, w1u, b1, w2, b2, 3)
-    args = tfd.pad_skip(want_args, 128)
-    assert args[0].shape[-1] == 128 and args[2].shape == (9, 128, 64)
-    assert not args[0][..., 65:].any() and not args[2][:, 65:].any()
-    want = tfd.decoder_tiles_plain(*want_args, 3, 6, 6)
+@pytest.mark.parametrize("dtype,cd,wide", [(torch.bfloat16, 65, 128),
+                                           (torch.float32, 65, 96),
+                                           (torch.float32, 257, 288)])
+def test_bf16_pads_odd_skip_exactly(dtype, cd, wide):
+    """A v2 skip diff (Cd = 65 or 257) is zero-padded for the tensor cores
+    (to a multiple of 64 in bf16, of 32 in float32) by ``kernel_args``,
+    here as on the card, with zero rows in w1d; the padded level gives the
+    unpadded level's answer (bf16: its plain version; float32: JAX's
+    level in interpret mode at 2e-4)."""
+    raw = _inputs(3, 1, 6, 6, cd, 64, 64, 64, 3)
+    d, u, w1d, w1u, b1, w2, b2 = map(_t, raw)
+    d, u = d.to(dtype), u.to(dtype)
+    assert tfd.skip_width(dtype, cd, 64, 64, 64, 3) == wide
+    args = tfd.kernel_args(d, u, w1d, w1u, b1, w2, b2, 3)
+    assert args[0].shape[-1] == wide and args[2].shape == (9, wide, 64)
+    assert not args[0][..., cd:].any() and not args[2][:, cd:].any()
     got = tfd.decoder_tiles_plain(*args, 3, 6, 6)
-    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    if dtype == torch.float32:
+        want = np.asarray(jax_level(*map(_j, raw), final_kernel=3,
+                                    compute_dtype=jnp.float32,
+                                    interpret=True))
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    else:
+        want = tfd.decoder_tiles_plain(
+            *tfd._prepare(d, u, w1d, w1u, b1, w2, b2, 3), 3, 6, 6)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
 
 
 @pytest.mark.parametrize("case,row_tile", [
