@@ -999,7 +999,8 @@ def main(argv=None) -> int:
         "--profile", default=None, metavar="DIR",
         help="capture a torch.profiler trace (CPU, and CUDA where a card "
              "is present) of the subcommand into DIR/trace.json (Chrome "
-             "trace format; goes BEFORE the subcommand)")
+             "trace format) and its spans and counters into DIR/spans.json "
+             "(goes BEFORE the subcommand)")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     def add_training_flags(p):

@@ -13,8 +13,11 @@ embedded HTTP endpoint):
 * A failed decode gives ``null`` for that pair — the NaN-row failure
   contract (reference: 1_compute_image_metrics.py:119-134) — never a crash.
 * ``{"cmd": "ping"}`` → ``{"ok": true}``; ``{"cmd": "stats"}`` → the
-  counters; ``{"cmd": "shutdown"}`` ends the loop.  Malformed requests get
-  ``{"error": ...}`` responses.
+  counters, the collector's mean queue wait (``queue_wait_ms_mean``, from
+  a concurrent request's arrival to the collector taking it) and the
+  batch fill (``batch_fill``: the pairs scored over the padded G x K
+  slots of the device batches); ``{"cmd": "shutdown"}`` ends the loop.
+  Malformed requests get ``{"error": ...}`` responses.
 * With a CLU model (``serve --with-maps``), ``{"maps": true[, "maps_dir":
   DIR]}`` asks for fidelity maps: mean/min summaries in the response, the
   full maps as ``.npy`` under ``maps_dir``.
@@ -76,6 +79,7 @@ from srsem_torch.eval.grouped import (
     check_grouped_head,
 )
 from srsem_torch.eval.scorer import PairScorer
+from srsem_torch.utils.profiling import record, span
 
 
 def _nan_to_none(x: float) -> Optional[float]:
@@ -145,13 +149,14 @@ class ScoreService:
         self._map_seq = 0  # service-unique .npy naming (map_requests)
         self._decoded: "OrderedDict" = OrderedDict()  # LRU: see _decode_cached
         self._cache_lock = threading.Lock()
-        self.stats: Dict[str, int] = {
+        self.stats: Dict[str, float] = {
             "requests": 0, "errors": 0, "device_batches": 0,
-            "batched_pairs": 0, "decode_cache_hits": 0,
-            "decode_cache_misses": 0,
+            "batched_pairs": 0, "batch_slots": 0, "decode_cache_hits": 0,
+            "decode_cache_misses": 0, "collected_requests": 0,
+            "queue_wait_s": 0.0,
         }
 
-    def _count(self, key: str, n: int = 1) -> None:
+    def _count(self, key: str, n: float = 1) -> None:
         """All counter mutations go through ONE lock — mixed-lock
         read-modify-writes drop increments under concurrency."""
         with self._stats_lock:
@@ -320,7 +325,7 @@ class ScoreService:
             return out
         fut: "cf.Future" = cf.Future()
         self._ensure_collector()
-        self._batch_q.put((norm, fut))
+        self._batch_q.put((norm, fut, time.perf_counter_ns()))
         if self._closed and not fut.done():
             # Raced close(): the collector may already have exited and
             # close()'s drain may have run before our put — never hang.
@@ -339,11 +344,19 @@ class ScoreService:
                     t.start()
                     self._collector = t
 
+    def _taken(self, item) -> None:
+        """The collector took ``item`` off the queue: count its wait."""
+        norm, _, t_put = item
+        self._count("queue_wait_s", (time.perf_counter_ns() - t_put) / 1e9)
+        self._count("collected_requests")
+        record("srsem.serve.queue", t_put, id=norm.get("id"))
+
     def _collect_loop(self) -> None:
         while True:
             item = self._batch_q.get()
             if item is None:
                 return
+            self._taken(item)
             pending = [item]
             stop = False
             # Absolute deadline: a per-get timeout would RESTART the window
@@ -362,8 +375,11 @@ class ScoreService:
                 if nxt is None:
                     stop = True
                     break
+                self._taken(nxt)
                 pending.append(nxt)
-            self._drain_batch(pending)
+            with span("srsem.serve.batch",
+                      ids=[norm.get("id") for norm, _, _ in pending]):
+                self._drain_batch(pending)
             if stop:
                 return
 
@@ -371,7 +387,7 @@ class ScoreService:
         """Score a collected batch grouped by (maps?, K); EVERY future
         resolves — failures become error responses, never hangs."""
         by_key: Dict[tuple, list] = {}
-        for norm, fut in pending:
+        for norm, fut, _ in pending:
             by_key.setdefault(
                 (bool(norm.get("maps")), len(norm["sr"])), []).append(
                 (norm, fut))
@@ -462,6 +478,7 @@ class ScoreService:
                             ok[i, m] = True
             self._count("device_batches")
             self._count("batched_pairs", int(ok.sum()))
+            self._count("batch_slots", g * k)
             result = self._device_call(sc.pairs.model_kind == "local", k, g,
                                        gt, sr)
             yield chunk, ok, result
@@ -569,6 +586,11 @@ class ScoreService:
             if req["cmd"] == "stats":
                 with self._stats_lock:
                     out = dict(self.stats)
+                got, slots = out["collected_requests"], out["batch_slots"]
+                out["queue_wait_ms_mean"] = (
+                    1e3 * out["queue_wait_s"] / got if got else None)
+                out["batch_fill"] = (out["batched_pairs"] / slots
+                                     if slots else None)
                 with self._cache_lock:
                     out["decode_cache_entries"] = len(self._decoded)
                 with self._lock:  # the registries change under _lock

@@ -39,6 +39,7 @@ from srsem_torch.device import DeviceLike
 from srsem_torch.eval.scorer import PairScorer
 from srsem_torch.models.global_models import KERNEL_HEADS, grouped_diff_pyramid
 from srsem_torch.ops.fused_head import fused_grouped_score
+from srsem_torch.utils.profiling import span
 
 # The heads srsem/eval/grouped.py scores in grouped form (its GROUPED_HEADS).
 GROUPED_HEADS = KERNEL_HEADS
@@ -171,12 +172,15 @@ class GroupedPairScorer:
         """``score_arrays`` of this rank's groups, with no collective."""
         sc = self.pairs
         g, kk = sr_u8.shape[:2]
-        gt = sc.normalize(gt_u8)
-        sr = sc.normalize(np.asarray(sr_u8).reshape(g * kk, *sr_u8.shape[2:]))
-        _, taps_g = sc.tower(gt)
-        _, taps_s = sc.tower(sr)
-        return fused_grouped_score(taps_g, taps_s, sc.head,
-                                   sc.model.tap_names)
+        with span("srsem.score", rows=g * kk, kind="grouped"):
+            gt = sc.normalize(gt_u8)
+            sr = sc.normalize(np.asarray(sr_u8).reshape(g * kk,
+                                                        *sr_u8.shape[2:]))
+            _, taps_g = sc.tower(gt)
+            _, taps_s = sc.tower(sr)
+            with span("srsem.head"):
+                return fused_grouped_score(taps_g, taps_s, sc.head,
+                                           sc.model.tap_names)
 
     def score_folder_set(self, gt_folder: str,
                          sr_folders: Sequence[str]) -> List[dict]:
@@ -237,20 +241,23 @@ class GroupedMapScorer:
         """``score_arrays`` of this rank's groups, with no collective."""
         sc = self.pairs
         g, kk = sr_u8.shape[:2]
-        gt = sc.normalize(gt_u8)
-        sr = sc.normalize(np.asarray(sr_u8).reshape(g * kk, *sr_u8.shape[2:]))
-        _, taps_g = sc.tower(gt)
-        _, taps_s = sc.tower(sr)
-        model = sc.model
-        diffs = grouped_diff_pyramid(taps_g, taps_s, model.tap_names,
-                                     model.decoder_dtype)
-        img_sq = None
-        if model.v2:
-            diff = gt[:, None] - sr.reshape(g, kk, *sr.shape[1:])
-            img_sq = (diff ** 2).mean(dim=-1, keepdim=True).reshape(
-                g * kk, *sr.shape[1:3], 1)
-        maps = sc.decode(diffs, img_sq)
-        return maps.reshape(g, kk, *maps.shape[1:])
+        with span("srsem.score", rows=g * kk, kind="grouped_maps"):
+            gt = sc.normalize(gt_u8)
+            sr = sc.normalize(np.asarray(sr_u8).reshape(g * kk,
+                                                        *sr_u8.shape[2:]))
+            _, taps_g = sc.tower(gt)
+            _, taps_s = sc.tower(sr)
+            model = sc.model
+            with span("srsem.diffs"):
+                diffs = grouped_diff_pyramid(taps_g, taps_s, model.tap_names,
+                                             model.decoder_dtype)
+                img_sq = None
+                if model.v2:
+                    diff = gt[:, None] - sr.reshape(g, kk, *sr.shape[1:])
+                    img_sq = (diff ** 2).mean(dim=-1, keepdim=True).reshape(
+                        g * kk, *sr.shape[1:3], 1)
+            maps = sc.decode(diffs, img_sq)
+            return maps.reshape(g, kk, *maps.shape[1:])
 
     def score_folder_set(self, gt_folder: str, sr_folders: Sequence[str],
                          maps_dir: Optional[str] = None,

@@ -45,6 +45,7 @@ rank and trimmed.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -74,6 +75,7 @@ from srsem_torch.models.local_models import (
 )
 from srsem_torch.ops.fused_head import fused_global_score, pack_head
 from srsem_torch.parallel.sharding import is_sharded, require_sharded
+from srsem_torch.utils.profiling import count, span
 
 
 class PairScorer:
@@ -99,6 +101,7 @@ class PairScorer:
         device: DeviceLike = None,
         mesh: Optional[Mesh] = None,
     ):
+        t0 = time.perf_counter()
         self.mesh = mesh or create_mesh(device=device)
         self.device = self.mesh.device
         if model_kind not in ("global", "local"):
@@ -153,28 +156,35 @@ class PairScorer:
             self.head = (pack_head(self.model.aggregator)
                          if not self.is_clu and cfg.head in KERNEL_HEADS
                          else None)
+        count("construct_s", time.perf_counter() - t0)
+        count("constructs")
 
     # ---- device path ----------------------------------------------------
 
     def normalize(self, x_u8) -> torch.Tensor:
-        """uint8 NHWC host array → normalized float32 on the device."""
-        x = torch.as_tensor(np.asarray(x_u8)).to(self.device)
-        return self.preprocess.device_normalize(x)
+        """uint8 NHWC host array → normalized float32 on the device (a
+        copy from pageable host memory)."""
+        x_u8 = np.asarray(x_u8)
+        with span("srsem.normalize", bytes=x_u8.nbytes, pinned=False):
+            x = torch.as_tensor(x_u8).to(self.device)
+            return self.preprocess.device_normalize(x)
 
     def tower(self, x: torch.Tensor):
         """``(embedding, taps)`` of normalized NHWC images."""
-        if self.fused_tower:
-            return fused_apply(self.cfg.backbone.kind, self.model.backbone, x,
-                               self.dtype, folded=self._tower_folded)
-        return self.model.backbone(x)
+        with span("srsem.tower"):
+            if self.fused_tower:
+                return fused_apply(self.cfg.backbone.kind, self.model.backbone,
+                                   x, self.dtype, folded=self._tower_folded)
+            return self.model.backbone(x)
 
     def decode(self, diffs, img_sq=None) -> torch.Tensor:
         """CLU maps from the decoder-dtype diff pyramid (and v2's pixel
         error): the fused serving decode, or the module's decoder."""
-        if self.fused_decoder:
-            return fused_serving_decode(self.model, diffs, img_sq,
-                                        folded=self._decoder_folded)
-        return self.model.decode_from_diffs(diffs, img_sq)
+        with span("srsem.decode"):
+            if self.fused_decoder:
+                return fused_serving_decode(self.model, diffs, img_sq,
+                                            folded=self._decoder_folded)
+            return self.model.decode_from_diffs(diffs, img_sq)
 
     @torch.inference_mode()
     def score_arrays(self, a_u8: np.ndarray, b_u8: np.ndarray) -> torch.Tensor:
@@ -186,18 +196,22 @@ class PairScorer:
     @torch.inference_mode()
     def score_local(self, a_u8: np.ndarray, b_u8: np.ndarray) -> torch.Tensor:
         """``score_arrays`` of this rank's rows, with no collective."""
-        a, b = self.normalize(a_u8), self.normalize(b_u8)
-        emb_a, taps_a = self.tower(a)
-        emb_b, taps_b = self.tower(b)
-        model = self.model
-        if self.head is not None:
-            return fused_global_score(taps_a, taps_b, self.head,
-                                      model.tap_names)
-        if not self.is_clu:
-            return model.score_from_taps(emb_a, emb_b, taps_a, taps_b)
-        diffs = squared_diff_pyramid(taps_a, taps_b, model.tap_names,
-                                     model.decoder_dtype)
-        return self.decode(diffs, pixel_sq_error(a, b) if model.v2 else None)
+        with span("srsem.score", rows=len(a_u8), kind=self.model_kind):
+            a, b = self.normalize(a_u8), self.normalize(b_u8)
+            emb_a, taps_a = self.tower(a)
+            emb_b, taps_b = self.tower(b)
+            model = self.model
+            if not self.is_clu:
+                with span("srsem.head"):
+                    if self.head is not None:
+                        return fused_global_score(taps_a, taps_b, self.head,
+                                                  model.tap_names)
+                    return model.score_from_taps(emb_a, emb_b, taps_a, taps_b)
+            with span("srsem.diffs"):
+                diffs = squared_diff_pyramid(taps_a, taps_b, model.tap_names,
+                                             model.decoder_dtype)
+                img_sq = pixel_sq_error(a, b) if model.v2 else None
+            return self.decode(diffs, img_sq)
 
     # ---- end-to-end path -------------------------------------------------
 
@@ -239,7 +253,8 @@ class PairScorer:
         return out[: len(pairs)]
 
     def _finish_chunk(self, futures) -> np.ndarray:
-        decoded = [f.result() for f in futures]
+        with span("srsem.wait_decode"):
+            decoded = [f.result() for f in futures]
         n = len(decoded)
         size = self.preprocess.size
         a = np.zeros((self.batch_size, size, size, 3), np.uint8)

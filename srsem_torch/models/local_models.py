@@ -70,6 +70,7 @@ from srsem_torch.ops.fused_decoder import (
     skip_width,
 )
 from srsem_torch.ops.image import resize_bilinear, upsample_x2_align_corners
+from srsem_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -465,14 +466,16 @@ def fused_serving_decode(model: CluUnet, diffs: Sequence[Tensor],
 
     def level(lvl: int, d: Tensor, u: Optional[Tensor]) -> Tensor:
         kind, (w1d, w1u, b1, w2, b2, fk) = folded[lvl]
-        if kind == "plain":
-            return _plain_decoder_level(d, u, w1d, w1u, b1, w2, b2, fk)
-        th = tiled_rows.get(lvl)
-        if th and th < d.shape[1]:
-            return fused_decoder_level_tiled(d, u, w1d, w1u, b1, w2, b2,
-                                             row_tile=th, final_kernel=fk)
-        return fused_decoder_level(d, u, w1d, w1u, b1, w2, b2,
-                                   final_kernel=fk)
+        with span("srsem.decode.level", level=lvl,
+                  route="cudnn" if kind == "plain" else "kernel"):
+            if kind == "plain":
+                return _plain_decoder_level(d, u, w1d, w1u, b1, w2, b2, fk)
+            th = tiled_rows.get(lvl)
+            if th and th < d.shape[1]:
+                return fused_decoder_level_tiled(d, u, w1d, w1u, b1, w2, b2,
+                                                 row_tile=th, final_kernel=fk)
+            return fused_decoder_level(d, u, w1d, w1u, b1, w2, b2,
+                                       final_kernel=fk)
 
     h = upsample_x2_align_corners(level(len(diffs) - 1, diffs[-1], None))
     for lvl in range(len(diffs) - 2, -1, -1):

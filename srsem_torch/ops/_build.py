@@ -27,6 +27,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List
 
+from srsem_torch.utils.profiling import count
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srsem_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -96,13 +98,23 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _counted(started: dict, t0: float) -> None:
+    """Load (building where nvcc was started) ``started``'s libraries and
+    add their wall time and builds to the process counters
+    ``kernel_load_s`` and ``kernel_builds``."""
+    for n, (target, tmp, proc) in started.items():
+        _LOADED[n] = _finish(n, target, tmp, proc, t0)
+    count("kernel_load_s", time.perf_counter() - t0)
+    count("kernel_builds", sum(p is not None for _, _, p in started.values()))
+
+
 def build_all() -> Dict[str, Built]:
     """Build (in parallel) and load every kernel source; returns them."""
     with _LOCK:
         t0 = time.perf_counter()
         started = {n: _start(n) for n in sources() if n not in _LOADED}
-        for n, (target, tmp, proc) in started.items():
-            _LOADED[n] = _finish(n, target, tmp, proc, t0)
+        if started:
+            _counted(started, t0)
         return dict(_LOADED)
 
 
@@ -111,5 +123,5 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LOADED:
             t0 = time.perf_counter()
-            _LOADED[name] = _finish(name, *_start(name), t0)
+            _counted({name: _start(name)}, t0)
         return _LOADED[name].lib

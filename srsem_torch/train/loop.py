@@ -76,6 +76,7 @@ from srsem_torch.utils.convert import (
     load_jax_global_params,
     load_jax_local_params,
 )
+from srsem_torch.utils.profiling import count, span
 
 
 class TrainResult(dict):
@@ -104,9 +105,12 @@ def batch_to_device(batch, device: torch.device,
     """A loader batch ``(((a, b), y), mask)`` as four tensors on
     ``device``; on a ``mesh``, this rank's slice on its device."""
     ((a, b), y), mask = batch
-    if mesh is not None:
-        return list(shard_batch(mesh, (a, b, y, mask)))
-    return [to_device(v, device) for v in (a, b, y, mask)]
+    with span("srsem.batch_to_device",
+              bytes=sum(v.nbytes for v in (a, b, y, mask)),
+              pinned=device.type == "cuda"):
+        if mesh is not None:
+            return list(shard_batch(mesh, (a, b, y, mask)))
+        return [to_device(v, device) for v in (a, b, y, mask)]
 
 
 def training_mesh(cfg: TrainConfig, mesh: Optional[Mesh],
@@ -136,6 +140,7 @@ def build_training(model, is_map_model: bool, predicate, lr: float,
     over the folded tower when the tower is the frozen base tower, not
     sharded over the model axis, and ``fused_tower`` does not turn it off,
     else over the module's own forward; returns ``(steps, optimizer)``."""
+    t0 = time.perf_counter()
     model.to(device)
     trainable, tower_trains = [], False
     for name, p in model.named_parameters():
@@ -150,8 +155,10 @@ def build_training(model, is_map_model: bool, predicate, lr: float,
     optimizer = torch.optim.Adam(trainable, lr=lr)
     tower = (frozen_tower(model.backbone, _backbone_kind(model), fused)
              if frozen else None)
-    return (build_step_fns(model, optimizer, is_map_model, tower, mesh),
-            optimizer)
+    steps = build_step_fns(model, optimizer, is_map_model, tower, mesh)
+    count("construct_s", time.perf_counter() - t0)
+    count("constructs")
+    return steps, optimizer
 
 
 def run_training(

@@ -36,6 +36,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from srsem_torch.core.meshes import Mesh, all_reduce, gather_batch
 from srsem_torch.models.local_models import CluUnet
 from srsem_torch.parallel.sharding import require_sharded
+from srsem_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -88,10 +89,12 @@ def adam_step(optimizer: torch.optim.Optimizer, loss: Tensor,
     """One optimizer step on ``loss`` (a rank's share on a mesh, the
     gradients summed over ``data``); returns the global loss."""
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    sync_gradients([p for g in optimizer.param_groups for p in g["params"]],
-                   mesh)
-    optimizer.step()
+    with span("srsem.backward"):
+        loss.backward()
+        sync_gradients([p for g in optimizer.param_groups
+                        for p in g["params"]], mesh)
+    with span("srsem.optimizer"):
+        optimizer.step()
     return global_loss(loss, mesh)
 
 
@@ -126,21 +129,26 @@ def build_step_fns(model, optimizer: torch.optim.Optimizer,
 
     def apply(a: Tensor, b: Tensor, train: bool) -> Tensor:
         if tower is None:
-            return (model(a, b, train=train and is_map_model) if is_clu
-                    else model(a, b))
+            with span("srsem.forward"):
+                return (model(a, b, train=train and is_map_model) if is_clu
+                        else model(a, b))
         n = a.shape[0]
-        with torch.no_grad():
+        with torch.no_grad(), span("srsem.tower"):
             emb, taps = tower(torch.cat([a, b], dim=0))
         taps_a = {k: v[:n] for k, v in taps.items()}
         taps_b = {k: v[n:] for k, v in taps.items()}
-        if is_clu:
-            return model.decode_from_taps(taps_a, taps_b, a, b,
-                                          train=train and is_map_model)
-        return model.score_from_taps(emb[:n], emb[n:], taps_a, taps_b)
+        with span("srsem.forward"):
+            if is_clu:
+                return model.decode_from_taps(taps_a, taps_b, a, b,
+                                              train=train and is_map_model)
+            return model.score_from_taps(emb[:n], emb[n:], taps_a, taps_b)
 
     def train_step(a: Tensor, b: Tensor, y: Tensor, mask: Tensor) -> Tensor:
-        return adam_step(optimizer, masked_mse(apply(a, b, True), y, mask,
-                                               mesh), mesh)
+        with span("srsem.train_step", rows=a.shape[0]):
+            pred = apply(a, b, True)
+            with span("srsem.loss"):
+                loss = masked_mse(pred, y, mask, mesh)
+            return adam_step(optimizer, loss, mesh)
 
     @torch.no_grad()
     def eval_step(a: Tensor, b: Tensor, y: Tensor, mask: Tensor):

@@ -313,6 +313,62 @@ def test_decode_cache_and_stats(model, paths, tmp_path):
     off.close()
 
 
+def test_collector_queue_wait_fill_and_spans(model, paths):
+    """Concurrent requests: the collector counts each one's wait from its
+    arrival to its take, ``stats`` reports the mean wait and the batch
+    fill, and with the recorder on each request's queue span carries its
+    id and each collected batch's span its requests' ids, with the device
+    call's spans under it."""
+    from srsem_torch.utils import profiling
+
+    service = _service(model, linger_ms=50.0)
+    st = service.handle({"cmd": "stats"})
+    assert st["queue_wait_ms_mean"] is None and st["batch_fill"] is None
+    n = 3
+    results = [None] * n
+    barrier = threading.Barrier(n)
+
+    def worker(i):
+        barrier.wait()
+        results[i] = service.handle_concurrent(
+            {"id": i, "gt": paths["gt"], "sr": [paths["sr_a"], paths["bad"]]})
+
+    profiling.reset()
+    profiling.enable()
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+    finally:
+        profiling.disable()
+    assert [r["id"] for r in results] == list(range(n))
+    st = service.handle({"cmd": "stats"})
+    assert st["collected_requests"] == n and st["queue_wait_s"] > 0
+    assert st["queue_wait_ms_mean"] == pytest.approx(
+        1e3 * st["queue_wait_s"] / n)
+    # One null SR a request: half of the K = 2 slots of the n requests at
+    # most, padding rows of the bucket empty too.
+    assert st["batched_pairs"] == n
+    assert st["batch_fill"] == pytest.approx(n / st["batch_slots"])
+    assert 0 < st["batch_fill"] <= 0.5
+    spans = profiling.snapshot()["spans"]
+    profiling.reset()
+    queued = [s for s in spans if s["name"] == "srsem.serve.queue"]
+    assert sorted(s["attrs"]["id"] for s in queued) == list(range(n))
+    batches = [s for s in spans if s["name"] == "srsem.serve.batch"]
+    assert sorted(i for b in batches for i in b["attrs"]["ids"]) == list(range(n))
+    ids = {b["id"] for b in batches}
+    scored = [s for s in spans if s["name"] == "srsem.score"]
+    assert scored and all(s["parent"] in ids and s["call"] == s["parent"]
+                          for s in scored)
+    assert {s["attrs"]["kind"] for s in scored} == {"grouped"}
+    service.close()
+
+
 def test_serve_maps(model, map_model, paths, tmp_path):
     """CLU map requests: mean/min summaries and .npy maps in maps_dir, with
     service-unique names; a corrupt SR gives nulls; a maps request against
@@ -517,6 +573,8 @@ def test_profile_flag_writes_trace(tmp_path):
     assert main(["--profile", str(out), "info"]) == 0
     trace = json.loads((out / "trace.json").read_text())
     assert "traceEvents" in trace
+    assert set(json.loads((out / "spans.json").read_text())) == {
+        "spans", "counters"}
     assert not torch.cuda.is_initialized()
     proc = _cli(["info", "--native"])
     assert proc.returncode == 0, proc.stderr
@@ -526,18 +584,21 @@ def test_profile_flag_writes_trace(tmp_path):
 
 
 def test_profiling_helpers(tmp_path):
-    """annotate names a region in the capture_trace Chrome trace; StepTimer
-    reports items a second over its window."""
-    from srsem_torch.utils.profiling import StepTimer, annotate, capture_trace
+    """span names a region in the capture_trace Chrome trace, and
+    capture_trace writes the block's spans and the counters beside it;
+    outside the capture the recorder is off again."""
+    from srsem_torch.utils import profiling
+    from srsem_torch.utils.profiling import capture_trace, span
 
     with capture_trace(str(tmp_path)):
-        with annotate("srsem_region"):
+        with span("srsem_region", rows=8):
             torch.ones(8).sum()
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("name") == "srsem_region" for e in trace["traceEvents"])
-    timer = StepTimer(window=2)
-    assert timer.items_per_sec is None and timer.metrics() == {}
-    for _ in range(4):
-        timer.tick(8)
-    assert len(timer._times) == 3 and timer.items_per_sec > 0
-    assert list(timer.metrics("serve_")) == ["serve_items_per_sec"]
+    spans = json.loads((tmp_path / "spans.json").read_text())
+    mine = [s for s in spans["spans"] if s["name"] == "srsem_region"]
+    assert len(mine) == 1 and mine[0]["attrs"] == {"rows": 8}
+    assert mine[0]["parent"] is None and mine[0]["call"] == mine[0]["id"]
+    assert "launches.fused_bottleneck" in spans["counters"]
+    assert not profiling._on
+    assert span("srsem_region") is span("srsem_other")
