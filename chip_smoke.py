@@ -22,12 +22,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
              card's bound; for the bottleneck also its plan and each of
              its three launches' device time (torch.profiler).  float32
              (TF32 off), the nr_train path's bottleneck and the CLU
-             model's default decoder (levels 0-2 at batch 32, ``clu_f32``
+             model's default decoder (levels 0-4 at batch 32, ``clu_f32``
              lines, off the counted clu path) and the v2 model's (its
-             levels 2-0 at Cd = 513, 257, 65: ``clu_f32`` lines with
-             ``v2``, the clu_v2 path's, timed with the skip at its padded
-             width as fused_serving_decode passes it and as a direct
-             call pads it; off the 3xTF32 route they fail), is timed
+             levels 4-0 at Cd = 2049, 1025, 513, 257, 65: ``clu_f32``
+             lines with ``v2``, the clu_v2 path's, timed with the skip at
+             its padded width and the weights packed once, as
+             fused_serving_decode passes them, and as a direct call pads
+             and packs them; off the 3xTF32 route they fail), is timed
              beside cuDNN's float32 chain, with the route its launches
              took (3xTF32 on wgmma, or the FMA conv), the 3xTF32 bound
              (three TF32 products an operation, TF32X3_FLOPS) and the FMA
@@ -71,13 +72,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
 6. clu_v2  — the v2 CLU model at its default configuration,
              LocalModelConfig(resnet50_clip, 224, v2=True) (bf16 tower,
              float32 decoder; its skip diffs carry the pixel channel, Cd =
-             65, 257, 513, padded to 96, 288, 544 for the tensor cores),
+             65, 257, 513, 1025, 2049, padded to 96, 288, 544, 1056, 2080
+             for the tensor cores),
              full width, seeded: each fused level's folded skip width and
              float32 route (wgmma_tf32x3, or the phase fails);
              PairScorer(model_kind="local").score_paths (NaN map on exactly
              the corrupt row, the rest finite in [0.5, 1]) with the counts
              reset just before and read just after (20 + 4 bottleneck
-             calls, three decoder calls); float32 kernel-path maps against
+             calls, five decoder calls); float32 kernel-path maps against
              the plain module (TF32 off, 2e-3) and GroupedMapScorer's
              float32 maps at G = 8, K = 4 against the pairwise ones (1e-4);
              the default model's GroupedMapScorer at G = 8, K = 4 (one
@@ -113,7 +115,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
              K = 1 and 4 (peak device memory after warmup): one score and
              one maps batch of G = 8, K = 4 with the launch counts reset
              just before and read just after (one grouped head launch,
-             four tower passes, three decoder calls; a null on exactly the
+             four tower passes, five decoder calls; a null on exactly the
              corrupt SR); a profile of one score batch; serve_http on a
              free port, driven by client processes of their own: lone
              K = 4 latency p50/p99 with the decode cache off and warm, 32
@@ -127,7 +129,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 10. dual    — DualScorer(resnet50_clip, 224, bf16): score_folders with one
              corrupt SR (its row NaN, the only one) and the counts reset
              around it (24 bottleneck calls for 32 pairs, one head launch,
-             three decoder calls); float32 scores and maps against the
+             five decoder calls); float32 scores and maps against the
              global and the local PairScorer (1e-5 + 1e-5*max); pairs/s at
              batch 32 against the two scorers one after the other, in
              turns; the discarded attention pool's ms; a profile;
@@ -468,23 +470,28 @@ TILED_SHAPES["train"] = [((10, 56, 56, 256), 64, 2),
 TILED_SHAPES["nr_train"] = [((NR_BATCH, 56, 56, 256), 64, 2 * NR_PASSES)]
 TILED_SHAPES["explain"] = [((1, 56, 56, 256), 64, 2 * EXPLAIN_PASSES)]
 # CLU decoder levels at batch 32, 224 px: (n, h, w, cd, cu, cm, co,
-# final_kernel, row tile, wrapper calls per scored batch).  The last row
-# of the first is checked and not on a path (level 4, u=None).  A call
-# makes one or two CUDA launches (``patch``, ``cuda_launches`` and
-# ``rows_executed_over_useful`` in its line come from the kernel's plan).
+# final_kernel, row tile, wrapper calls per scored batch): levels 2, 3
+# and 4 (u=None) through the whole-image wrapper, 1 and 0 through the
+# tiled one.  A call makes one or two CUDA launches (``tilings``,
+# ``cuda_launches`` and ``rows_executed_over_useful`` in its line come
+# from the kernel's plan).
 DECODER_SHAPES = {
-    "fused_decoder_level": [(CLU_BATCH, 28, 28, 512, 1024, 512, 512, 3, None, 1),
-                            (CLU_BATCH, 7, 7, 2048, 0, 2048, 2048, 3, None, 0)],
+    "fused_decoder_level": [
+        (CLU_BATCH, 28, 28, 512, 1024, 512, 512, 3, None, 1),
+        (CLU_BATCH, 14, 14, 1024, 2048, 1024, 1024, 3, None, 1),
+        (CLU_BATCH, 7, 7, 2048, 0, 2048, 2048, 3, None, 1)],
     "fused_decoder_level_tiled": [
         (CLU_BATCH, 56, 56, 256, 512, 256, 256, 3, 7, 1),
         (CLU_BATCH, 112, 112, 64, 256, 64, 1, 1, 7, 1)],
 }
-# The v2 CLU model's levels 2, 1 and 0 (the clu_v2 path): each skip diff
-# carries the pixel channel (Cd = 513, 257, 65), and the model's default
-# decoder dtype is float32, timed in float32.
+# The v2 CLU model's levels 4 to 0 (the clu_v2 path): each skip diff
+# carries the pixel channel (Cd = 2049, 1025, 513, 257, 65), and the
+# model's default decoder dtype is float32, timed in float32.
 DECODER_V2_SHAPES = {
-    "fused_decoder_level": [(CLU_BATCH, 28, 28, 513, 1024, 512, 512, 3, None,
-                             1)],
+    "fused_decoder_level": [
+        (CLU_BATCH, 28, 28, 513, 1024, 512, 512, 3, None, 1),
+        (CLU_BATCH, 14, 14, 1025, 2048, 1024, 1024, 3, None, 1),
+        (CLU_BATCH, 7, 7, 2049, 0, 2048, 2048, 3, None, 1)],
     "fused_decoder_level_tiled": [
         (CLU_BATCH, 56, 56, 257, 512, 256, 256, 3, 7, 1),
         (CLU_BATCH, 112, 112, 65, 256, 64, 1, 1, 7, 1)],
@@ -958,18 +965,22 @@ def check_kernels(torch):
 
     def cudnn_chain(d, u, ws, fk):
         """The yardstick: the cuDNN chain of the level's convs with the same
-        folded weights, channels_last, in d's dtype (float32: TF32 off)."""
+        folded weights, channels_last, in d's dtype (float32: TF32 off);
+        no u at level 4."""
         cl = lambda t: t.permute(3, 2, 0, 1).to(d.dtype).contiguous(  # noqa: E731
             memory_format=torch.channels_last)
-        dc, uc = d.permute(0, 3, 1, 2), u.permute(0, 3, 1, 2)
-        k1d, k1u = cl(ws[0]), cl(ws[1])
+        dc = d.permute(0, 3, 1, 2)
+        uc = None if u is None else u.permute(0, 3, 1, 2)
+        k1d = cl(ws[0])
+        k1u = None if u is None else cl(ws[1])
         k2w = cl(ws[3] if fk == 3 else ws[3][None, None])
         c1, c2 = ws[2].to(d.dtype), ws[4].to(d.dtype)
 
         def chain():
-            hh = F.relu(F.conv2d(dc, k1d, None, 1, 1)
-                        + F.conv2d(uc, k1u, c1, 1, 1))
-            return F.relu(F.conv2d(hh, k2w, c2, 1, fk // 2))
+            hh = F.conv2d(dc, k1d, c1, 1, 1)
+            if uc is not None:
+                hh = hh + F.conv2d(uc, k1u, None, 1, 1)
+            return F.relu(F.conv2d(F.relu(hh), k2w, c2, 1, fk // 2))
         return chain
 
     for name, shapes in DECODER_SHAPES.items():
@@ -981,7 +992,7 @@ def check_kernels(torch):
             errs, d, u = check_decoder(name, wrapper, shape, ws, kw)
             plan = fd.kernel_plan(fd.kernel_args(d, u, *ws, fk), fk)
             line = dict(name=name, shape=[n, h, w_, cd, cu, cm, co], final_kernel=fk,
-                        patch=[plan.bh, plan.bw],
+                        patch=[plan.bh, plan.bw], tilings=list(plan.tilings),
                         cuda_launches=plan.launches,
                         rows_executed_over_useful=plan.rows_ratio,
                         max_abs_err=errs,
@@ -993,12 +1004,10 @@ def check_kernels(torch):
                 add(name, "clu", errs[str(torch.bfloat16)], 0, 0, 0, 0,
                     "operations", 0)
                 continue
-            # Timed with the weights in the serving dtype, as
-            # fused_serving_decode passes them (fold_decoder casts them
-            # once); the biases stay float32.
-            wsv = [t.to(d.dtype) if t is not None and t.dim() > 1 else t
-                   for t in ws]
-            call = lambda: wrapper(d, u, *wsv, final_kernel=fk, **kw)  # noqa: E731
+            # Timed with the weights packed once in the serving dtype, as
+            # fused_serving_decode passes them (fold_decoder packs them).
+            packed = fd.pack_level(*ws, fk, d.dtype)
+            call = lambda: wrapper(d, u, packed, final_kernel=fk, **kw)  # noqa: E731
             ms = cuda_ms(torch, call, 5)
             plain = cuda_ms(torch, lambda: fd.plain_decoder_level(
                 d, u, *ws, fk, row_tile), 2)
@@ -1014,8 +1023,9 @@ def check_kernels(torch):
             # The CLU model's default decoder dtype, float32 (checked above
             # at this shape): the kernel, its plain version, cuDNN's
             # float32 chain (TF32 off), and the 3xTF32 and FMA bounds.
-            d32, u32 = d.float(), u.float()
-            call = lambda: wrapper(d32, u32, *ws, final_kernel=fk, **kw)  # noqa: E731
+            d32, u32 = d.float(), None if u is None else u.float()
+            packed32 = fd.pack_level(*ws, fk, torch.float32)
+            call = lambda: wrapper(d32, u32, packed32, final_kernel=fk, **kw)  # noqa: E731
             ms32 = cuda_ms(torch, call, 5)
             plain32 = cuda_ms(torch, lambda: fd.plain_decoder_level(
                 d32, u32, *ws, fk, row_tile), 2)
@@ -1026,21 +1036,23 @@ def check_kernels(torch):
             emit("kernel", name=name, path="clu_f32", on_main_path=False,
                  shape=[n, h, w_, cd, cu, cm, co], final_kernel=fk,
                  timed_dtype="torch.float32", route=plan32.route,
-                 nts=list(plan32.nts), cuda_launches=plan32.launches,
+                 nts=list(plan32.nts), tilings=list(plan32.tilings),
+                 cuda_launches=plan32.launches,
                  max_abs_err=errs[str(torch.float32)], ms=ms32,
                  plain_ms=plain32, library_ms=lib32, bound_ms=b3x,
                  bound_by=by32,
                  bound_fma_ms=bound(nbytes32, flops, F32_FLOPS)[0],
                  tflops=flops / ms32 / 1e9)
-            del d32, u32
+            del d32, u32, packed, packed32
 
     # The v2 levels (the clu_v2 path), float32 by default: the skip diff
     # and w1d reach the kernel padded to a multiple of 32 (skip_width),
     # and a level off the 3xTF32 route fails.  Timed as
     # fused_serving_decode calls them (the skip written at the padded
-    # width once a level, w1d padded once by fold_decoder), and as a
-    # direct caller does (the wrapper pads each call); the plain version,
-    # the cuDNN chain and the bounds at the unpadded widths.
+    # width once a level, the weights padded and packed once by
+    # fold_decoder), and as a direct caller does (the wrapper pads and
+    # packs each call); the plain version, the cuDNN chain and the bounds
+    # at the unpadded widths.
     for name, shapes in DECODER_V2_SHAPES.items():
         wrapper = getattr(fd, name)
         for shape in shapes:
@@ -1048,15 +1060,15 @@ def check_kernels(torch):
             kw = {"row_tile": row_tile} if row_tile else {}
             ws = decoder_weights(cd, cu, cm, co, fk)
             errs, d, u = check_decoder(name, wrapper, shape, ws, kw)
-            d32, u32 = d.float(), u.float()
+            d32, u32 = d.float(), None if u is None else u.float()
             plan32 = fd.kernel_plan(fd.kernel_args(d32, u32, *ws, fk), fk)
             if plan32.route != "wgmma_tf32x3":
                 raise AssertionError(f"v2 {name} {shape}: float32 route "
                                      f"{plan32.route}, want wgmma_tf32x3")
             wide = fd.skip_width(torch.float32, cd, cu, cm, co, fk)
             dp = F.pad(d32, (0, wide - cd))
-            wsp = (F.pad(ws[0], (0, 0, 0, wide - cd)), *ws[1:])
-            ms32 = cuda_ms(torch, lambda: wrapper(dp, u32, *wsp,
+            packed32 = fd.pack_level(*ws, fk, torch.float32)
+            ms32 = cuda_ms(torch, lambda: wrapper(dp, u32, packed32,
                                                   final_kernel=fk, **kw), 5)
             direct = cuda_ms(torch, lambda: wrapper(d32, u32, *ws,
                                                     final_kernel=fk, **kw), 5)
@@ -1069,8 +1081,8 @@ def check_kernels(torch):
                  on_main_path=True, shape=[n, h, w_, cd, cu, cm, co],
                  padded_cd=wide, final_kernel=fk,
                  timed_dtype="torch.float32", route=plan32.route,
-                 nts=list(plan32.nts), cuda_launches=plan32.launches,
-                 max_abs_err=errs,
+                 nts=list(plan32.nts), tilings=list(plan32.tilings),
+                 cuda_launches=plan32.launches, max_abs_err=errs,
                  tolerance="f32 (TF32 off) rtol=atol=1e-4; bf16 "
                  "rtol=atol=2e-2", ms=ms32, ms_direct_unpadded=direct,
                  plain_ms=plain32, library_ms=lib32, bound_ms=b3x,
@@ -1079,7 +1091,7 @@ def check_kernels(torch):
                  tflops=flops / ms32 / 1e9)
             add(name, "clu_v2", errs[str(torch.bfloat16)], ms32, plain32,
                 lib32, b3x, by32, count)
-            del d, u, d32, u32, dp
+            del d, u, d32, u32, dp, packed32
 
     # The dual path runs the CLU path's tower and decoder shapes; the serve
     # path runs them too (its SR passes and its maps batch), beside its own
@@ -1610,7 +1622,6 @@ def run_clu_v2(torch, np, card: str):
     from srsem_torch.config import BackboneConfig, LocalModelConfig
     from srsem_torch.eval.grouped import GroupedMapScorer
     from srsem_torch.eval.scorer import PairScorer
-    from srsem_torch.models.local_models import DEFAULT_FUSE_LEVELS
     from srsem_torch.ops import fused_bottleneck as fb
     from srsem_torch.ops import fused_decoder as fd
 
@@ -1621,21 +1632,21 @@ def run_clu_v2(torch, np, card: str):
         raise AssertionError(f"LocalModelConfig defaults moved: {cfg}")
     model = seeded_clu(torch, np, cfg)
     scorer = PairScorer(cfg, model, batch_size=CLU_BATCH, model_kind="local")
-    # Each fused level's folded w1d at the padded skip width, and the
+    # Each fused level's packed weights at the padded skip width, and the
     # plan its float32 launches take there: 3xTF32, or the phase fails.
     routes = {}
-    for lvl in DEFAULT_FUSE_LEVELS:
-        kind, (w1d, w1u, b1, w2, b2, fk) = scorer._decoder_folded[lvl]
+    for lvl, packed in enumerate(scorer._decoder_folded):
         h = 112 >> lvl
-        d = torch.zeros(CLU_BATCH, h, h, w1d.shape[2], device="cuda")
-        u = torch.zeros(CLU_BATCH, h, h, w1u.shape[2], device="cuda")
-        plan = fd.kernel_plan(fd.kernel_args(d, u, w1d, w1u, b1, w2, b2, fk),
-                              fk)
-        routes[lvl] = {"skip_width": w1d.shape[2], "route": plan.route,
-                       "nts": list(plan.nts)}
-        if kind != "fused" or plan.route != "wgmma_tf32x3":
-            raise AssertionError(f"v2 level {lvl} ({kind}): {routes[lvl]}, "
-                                 f"want the wgmma_tf32x3 route")
+        d = torch.zeros(CLU_BATCH, h, h, packed.cd, device="cuda")
+        u = (torch.zeros(CLU_BATCH, h, h, packed.cu, device="cuda")
+             if packed.cu else None)
+        plan = fd.kernel_plan((d, u, *fd.unpack_level(packed)),
+                              packed.final_kernel)
+        routes[lvl] = {"skip_width": packed.cd, "route": plan.route,
+                       "nts": list(plan.nts), "tilings": list(plan.tilings)}
+        if plan.route != "wgmma_tf32x3":
+            raise AssertionError(f"v2 level {lvl}: {routes[lvl]}, want the "
+                                 f"wgmma_tf32x3 route")
         del d, u
     wrappers = {"fused_bottleneck": fb.fused_bottleneck,
                 "fused_bottleneck_tiled": fb.fused_bottleneck_tiled,
@@ -1654,7 +1665,7 @@ def run_clu_v2(torch, np, card: str):
         want = {"fused_bottleneck": 2 * PASS_CALLS["fused_bottleneck"],
                 "fused_bottleneck_tiled": 2 * PASS_CALLS[
                     "fused_bottleneck_tiled"],
-                "fused_decoder_level": 1, "fused_decoder_level_tiled": 2}
+                "fused_decoder_level": 3, "fused_decoder_level_tiled": 2}
         if launches != want:
             raise AssertionError(f"clu_v2 path launched {launches}, want "
                                  f"{want}")
@@ -2365,7 +2376,7 @@ def run_serve(torch, np, card: str):
                 "fused_bottleneck": 4 * PASS_CALLS["fused_bottleneck"],
                 "fused_bottleneck_tiled": 4 * PASS_CALLS[
                     "fused_bottleneck_tiled"],
-                "fused_decoder_level": 1, "fused_decoder_level_tiled": 2}
+                "fused_decoder_level": 3, "fused_decoder_level_tiled": 2}
         if launches != want:
             raise AssertionError(f"serve path launched {launches}, want "
                                  f"{want} (one score and one maps batch)")
@@ -2610,7 +2621,7 @@ def run_dual(torch, np, card: str):
                 "fused_bottleneck": 2 * PASS_CALLS["fused_bottleneck"],
                 "fused_bottleneck_tiled": 2 * PASS_CALLS[
                     "fused_bottleneck_tiled"],
-                "fused_decoder_level": 1, "fused_decoder_level_tiled": 2}
+                "fused_decoder_level": 3, "fused_decoder_level_tiled": 2}
         if launches != want:
             raise AssertionError(f"dual path launched {launches}, want {want}"
                                  " (one tower pass an image for both heads)")

@@ -12,13 +12,14 @@ checkout's kernels into its own ``build/``), and prints one JSON line:
 * ``bottleneck``: ms a call of the float32 bottleneck at train-nr-iqa's
   shapes (batch 8, 224 px; the 56x56 stage through the tiled wrapper),
   weights packed once, CUDA events over 20 calls;
-* ``decoder``: ms a call of the float32 decoder levels 2, 1 and 0 at the
-  CLU model's shapes (batch 32, 224 px) and of the v2 model's
-  (``v2_level2`` .. ``v2_level0``: skip diffs one pixel channel wider,
-  Cd = 513, 257, 65), as fused_serving_decode calls them: the skip and
-  w1d at the width the checkout's ``kernel_args`` gives them (padded for
-  the tensor cores where it pads), CUDA events over 5 calls; ``routes``
-  the route each took;
+* ``decoder``: ms a call of the float32 decoder levels 0-4 at the CLU
+  model's shapes (batch 32, 224 px) and of the v2 model's
+  (``v2_level4`` .. ``v2_level0``: skip diffs one pixel channel wider,
+  Cd = 2049, 1025, 513, 257, 65), as fused_serving_decode calls them: the
+  skip and w1d at the width the checkout's ``kernel_args`` gives them
+  (padded for the tensor cores where it pads), the weights packed once
+  where the checkout packs them (``pack_level``), CUDA events over 5
+  calls; ``routes`` the route each took;
 * ``maps_per_s``: PairScorer(model_kind="local").score_arrays at batch 32
   with the default LocalModelConfig(resnet50_clip) (bf16 tower, float32
   decoder), seeded weights, steady state over at least 5 s after a warm
@@ -48,7 +49,9 @@ BOTTLENECKS = [((8, 28, 28, 512), 128, None), ((8, 14, 14, 1024), 256, None),
                ((8, 7, 7, 2048), 512, None), ((8, 56, 56, 256), 64, 8)]
 # (h, cd, cu, cm, co, final_kernel, row tile) at batch 32; the v2 model's
 # levels take one more skip channel, the pixel error.
-LEVELS = {"level2": (28, 512, 1024, 512, 512, 3, None),
+LEVELS = {"level4": (7, 2048, 0, 2048, 2048, 3, None),
+          "level3": (14, 1024, 2048, 1024, 1024, 3, None),
+          "level2": (28, 512, 1024, 512, 512, 3, None),
           "level1": (56, 256, 512, 256, 256, 3, 7),
           "level0": (112, 64, 256, 64, 1, 1, 7)}
 LEVELS.update({f"v2_{key}": (h, cd + 1, *rest)
@@ -154,23 +157,29 @@ def measure(tree: Path) -> dict:
         k2 = 9 if fk == 3 else 1
         mk = lambda *s, fan: randn(*s) * fan ** -0.5  # noqa: E731
         ws = [mk(3, 3, cd, cm, fan=9 * (cd + cu)),
-              mk(3, 3, cu, cm, fan=9 * (cd + cu)), randn(cm) * 0.1,
+              mk(3, 3, cu, cm, fan=9 * (cd + cu)) if cu else None,
+              randn(cm) * 0.1,
               mk(*((3, 3) if fk == 3 else ()), cm, co, fan=k2 * cm),
               randn(co) * 0.1]
         d = randn(BATCH, h, h, cd).square()
-        u = randn(BATCH, h, h, cu).abs()
+        u = randn(BATCH, h, h, cu).abs() if cu else None
         # The skip and w1d at the width the checkout's kernel_args gives
-        # them (padded once, as fused_serving_decode passes them).
+        # them (padded once, as fused_serving_decode passes them), and the
+        # weights packed once where the checkout packs them.
         args = fd.kernel_args(d, u, *ws, fk)
         pad = args[0].shape[-1] - cd
         d, ws[0] = F.pad(d, (0, pad)), F.pad(ws[0], (0, 0, 0, pad))
+        level = ((fd.pack_level(*ws, fk, torch.float32),)
+                 if hasattr(fd, "pack_level") else ws)
         call = ((lambda: fd.fused_decoder_level_tiled(
-                    d, u, *ws, row_tile=row_tile, final_kernel=fk))
+                    d, u, *level, row_tile=row_tile, final_kernel=fk))
                 if row_tile else
-                (lambda: fd.fused_decoder_level(d, u, *ws, final_kernel=fk)))
+                (lambda: fd.fused_decoder_level(d, u, *level,
+                                                final_kernel=fk)))
         out["decoder"][key] = cuda_ms(torch, call, 5)
         out["routes"][key] = fd.kernel_plan(args, fk).route
-        d, u = d[:4], u[:4]  # call() now reads these: batch 4
+        d = d[:4]  # call() now reads these: batch 4
+        u = None if u is None else u[:4]
         ref = f64_decoder(d, u, *ws, fk)
         out["errors"][key] = {
             "kernel_vs_f64": max_err(call(), ref),

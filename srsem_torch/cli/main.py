@@ -1105,7 +1105,7 @@ def main(argv=None) -> int:
                         "LoRA or fine-tuned tower runs as the module)")
     p.add_argument("--fused-decoder", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="decoder levels 0-2 through the Hopper decoder "
+                   help="every decoder level through the Hopper decoder "
                         "kernel, serving BN folded (default); "
                         "--no-fused-decoder runs the module's decoder")
     p.add_argument("--backbone-checkpoint", default=None,
@@ -1192,7 +1192,7 @@ def main(argv=None) -> int:
                         "kernel (default)")
     p.add_argument("--fused-decoder", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="decoder levels 0-2 through the Hopper decoder "
+                   help="every decoder level through the Hopper decoder "
                         "kernel, serving BN folded (default)")
     p.add_argument("--fast-jpeg", action="store_true",
                    help="DCT-scaled JPEG decode (PIL draft semantics)")

@@ -15,18 +15,23 @@
 // Tensor cores: conv_wgmma<T, NT, HEAD>, for bf16 (every width a multiple
 // of 64) and float32 (every width a multiple of 32).
 //   * M: one warpgroup's 64-row wgmma tile is either an output patch of
-//     bh x bw <= 64 pixels of one image (pick_patch), or, for a 1x1 conv,
-//     64 flat rows of the (N*H*W, C) pixel matrix (no rows wasted on a
-//     patch that does not fill 64, and one 2-D TMA box a k-step).  A block
-//     computes two M tiles (128 rows) by NT output channels; the caller
-//     picks NT (64, 128 or 256 in bf16; 32, 64 or 128 in float32).
+//     bh x bw <= 64 pixels of one image (pick_patch), or 64 flat rows of
+//     the (N*H*W, C) pixel matrix, across rows and images (no rows wasted
+//     where 64-pixel patches do not tile the image: a 14x14 image takes
+//     four 4x14 patches, 1.31x its rows).  A block computes two M tiles
+//     (128 rows) by NT output channels; the caller picks NT (64, 128 or
+//     256 in bf16; 32, 64 or 128 in float32).
 //   * A k-step is one 128-byte swizzled line a row: 64 bf16 or 32 float32
 //     channels (kChunk<T>).  A: per k-step one TMA box of (kChunk
 //     channels, bw, bh, 1 image) at (c, c0 + dx - 1, r0 + dy - 1, n) for
-//     tap (dy, dx), or (kChunk channels, 64 rows) at (c, 64 q): the
+//     tap (dy, dx); for flat rows of a 1x1 conv, (kChunk channels, 64
+//     rows) at (c, 64 q); for flat rows of a 3x3 conv, TMA's im2col box:
+//     64 pixels in order from the tile's first pixel (x0, y0, n0), each
+//     read at its tap, (c, x0 - 1, y0 - 1, n0) with offsets (dx, dy), the
+//     traversal stepping to the next row and image by itself.  The
 //     hardware computes the addresses, zero-fills outside the tensor
 //     (negative coordinates included; that is the SAME padding) and
-//     swizzles for wgmma.  No im2col.
+//     swizzles for wgmma.  No im2col tensor in memory.
 //   * B: the weights as a K-major (Cout, K) matrix, one TMA box of
 //     (kChunk, NT) a k-step.
 //   * A ring of min(stages, k-steps) stages guarded by mbarriers: one
@@ -129,7 +134,7 @@ struct Patch {
 };
 
 struct Tiling {
-  bool flat;    // 64 flat pixel rows an M tile (1x1 convs), else patches
+  bool flat;    // 64 flat pixel rows an M tile (3x3: im2col), else patches
   Patch patch;  // bh x bw pixels an M tile when not flat
   int nt;       // output channels a tensor-core block computes
   int stages;   // most ring stages (a launch takes min(stages, k-steps))
@@ -270,7 +275,7 @@ struct TcArgs {
   int c0, c1;        // channels of input 0 and of input 1 (0: none)
   int ks;            // taps a side: 3 (SAME padding 1) or 1
   int cout;          // output channels (for the head: Cm, one N tile)
-  int flat;          // M tiles are 64 flat pixel rows (ks 1, one input)
+  int flat;          // M tiles are 64 flat pixel rows (ks 3: im2col boxes)
   int bh, bw, tiles_h, tiles_w;
   int tiles;         // M tiles
   int n_tiles;       // cout / NT
@@ -288,6 +293,18 @@ __device__ __forceinline__ int3 patch_origin(const TcArgs& p, int q) {
   const int per_img = p.tiles_h * p.tiles_w;
   const int img = q / per_img, t = q - img * per_img;
   return make_int3(img, (t / p.tiles_w) * p.bh, (t % p.tiles_w) * p.bw);
+}
+
+// Where the loads of M tile q start: a patch's image and top-left pixel;
+// a flat tile's first row (in .y) for a 1x1 conv, its first pixel's image,
+// row and column for a 3x3 conv's im2col boxes.
+__device__ __forceinline__ int3 tile_origin(const TcArgs& p, int q) {
+  if (!p.flat) return patch_origin(p, q);
+  const int r = q * kPatch;
+  if (p.ks == 1) return make_int3(0, r, 0);
+  const int per_img = p.h * p.w;
+  const int img = r / per_img, t = r - img * per_img;
+  return make_int3(img, t / p.w, t % p.w);
 }
 
 // Block b computes M tiles 2 * (b / n_tiles) + {0, 1} (warpgroups 0, 1)
@@ -346,8 +363,7 @@ __device__ __forceinline__ void conv_wgmma(const CUtensorMap* in0,
       for (int i = 0; i < kConsumers; ++i) {
         // A missing last tile repeats the one before (computed, not stored).
         const int q0 = kConsumers * pair + i;
-        const int q = q0 < p.tiles ? q0 : p.tiles - 1;
-        org[i] = p.flat ? make_int3(0, q * kPatch, 0) : patch_origin(p, q);
+        org[i] = tile_origin(p, q0 < p.tiles ? q0 : p.tiles - 1);
       }
       const uint32_t a_bytes =
           p.flat ? kABytes : static_cast<uint32_t>(p.bh * p.bw * kStepBytes);
@@ -375,14 +391,19 @@ __device__ __forceinline__ void conv_wgmma(const CUtensorMap* in0,
         const int tap = t / chunks, ch = t - tap * chunks;
         const int dy = tap / p.ks - pad, dx = tap % p.ks - pad;
         unsigned char* st = smem + slot * kStage;
+        const CUtensorMap* in = second ? in1 : in0;
 #pragma unroll
         for (int i = 0; i < kConsumers; ++i) {
-          if (p.flat)
+          if (!p.flat)
+            tma_load_4d(st + i * kABytes, in, &full[slot], ch * kCh,
+                        org[i].z + dx, org[i].y + dy, org[i].x);
+          else if (p.ks == 1)
             tma_load_2d(st + i * kABytes, in0, &full[slot], ch * kCh,
                         org[i].y);
           else
-            tma_load_4d(st + i * kABytes, second ? in1 : in0, &full[slot],
-                        ch * kCh, org[i].z + dx, org[i].y + dy, org[i].x);
+            tma_load_im2col_4d(st + i * kABytes, in, &full[slot], ch * kCh,
+                               org[i].z - pad, org[i].y - pad, org[i].x,
+                               dx + pad, dy + pad);
         }
         tma_load_2d(st + kConsumers * kABytes, wmap, &full[slot], s * kCh,
                     tn * NT);
@@ -589,6 +610,20 @@ int activation_map(CUtensorMap* map, const void* x, int n, int h, int w,
   return encode_map(map, map_type<T>(), x, 4, dims, strides, box);
 }
 
+// TMA im2col map of an NHWC activation in T for a 3x3 conv over flat M
+// tiles: boxes of 64 pixels by kChunk channels.
+template <typename T>
+int im2col_map(CUtensorMap* map, const void* x, int n, int h, int w, int c) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t row = static_cast<cuuint64_t>(c) * sizeof(T);
+  const cuuint64_t strides[3] = {row, row * w, row * w * h};
+  return encode_im2col_map(map, map_type<T>(), x, dims, strides, kChunk<T>,
+                           kPatch);
+}
+
 // TMA map of a row-major (rows, k) matrix in T, box (kChunk, box_rows):
 // the pixel matrix of a flat M tile, or K-major weights.
 template <typename T>
@@ -627,8 +662,8 @@ int launch_tc_nt(const CUtensorMap& m0, const CUtensorMap& m1,
 
 // One conv on the tensor cores.  Needs c0, c1 and cout multiples of
 // kChunk<T>, t.nt dividing cout (64, 128 or 256 in bf16; 32, 64 or 128 in
-// float32); a flat tiling needs ks 1 and one input; a residual needs a
-// flat tiling; without one, a ring that holds the output tile (bf16: at
+// float32); a flat tiling of a 1x1 conv needs one input; a residual needs
+// a flat 1x1 conv; without one, a ring that holds the output tile (bf16: at
 // least NT / 64 stages, so K >= NT); a head needs cout == t.nt and
 // Kernels::kHead.  In float32, c.wt is the (2 cout, K) split weights (hi
 // rows, then lo rows) and c.head_w is not split.
@@ -642,17 +677,24 @@ int launch_tc(const Conv& c, int n, int h, int w, const Tiling& t,
   const bool nt_ok = kF32 ? (t.nt == 32 || t.nt == 64 || t.nt == 128)
                           : (t.nt == 64 || t.nt == 128 || t.nt == 256);
   if (pixels > 0x7fffffffLL - kPatch || c.c0 % kCh || c.c1 % kCh || !nt_ok ||
-      c.cout % t.nt || (t.flat && (c.ks != 1 || c.c1 != 0)) ||
-      (c.res && !t.flat) || (head && c.cout != t.nt))
+      c.cout % t.nt || (t.flat && c.ks == 1 && c.c1 != 0) ||
+      (c.res && !(t.flat && c.ks == 1)) ||
+      (head && (c.cout != t.nt || t.flat)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = m_tiles(t, n, h, w);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m0, m1, mw, mr, mo;
-  int err = t.flat ? matrix_map<T>(&m0, c.x0, pixels, c.c0, kPatch)
-                   : activation_map<T>(&m0, c.x0, n, h, w, c.c0, t.patch);
+  // An input's map: patches' boxes, a flat 1x1 conv's rows, or a flat 3x3
+  // conv's im2col boxes.
+  auto input_map = [&](CUtensorMap* m, const void* x, int cin) {
+    if (!t.flat) return activation_map<T>(m, x, n, h, w, cin, t.patch);
+    if (c.ks == 1) return matrix_map<T>(m, x, pixels, cin, kPatch);
+    return im2col_map<T>(m, x, n, h, w, cin);
+  };
+  int err = input_map(&m0, c.x0, c.c0);
   if (err == 0) {
     if (c.c1 > 0)
-      err = activation_map<T>(&m1, c.x1, n, h, w, c.c1, t.patch);
+      err = input_map(&m1, c.x1, c.c1);
     else
       m1 = m0;
   }

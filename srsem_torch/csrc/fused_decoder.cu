@@ -15,10 +15,14 @@
 // the tiled TPU kernel does not exist here.
 //
 // What bounds it.  At batch 32 and 224 px level 2 (28x28, d 512 + u 1024
-// -> 512 -> 512) and level 1 (56x56, 256 + 512 -> 256 -> 256) are 4.7e11
-// FLOP each and level 0 (112x112, 64 + 256 -> 64 -> 1) 1.5e11, against
-// 0.1-0.3 GB of inputs: every level is bound by the tensor cores'
-// operations (0.48 / 0.48 / 0.15 ms at 989 TFLOP/s), not by bytes.
+// -> 512 -> 512), level 1 (56x56, 256 + 512 -> 256 -> 256) and level 3
+// (14x14, 1024 + 2048 -> 1024 -> 1024) are 4.7e11 FLOP each, level 4
+// (7x7, d 2048 -> 2048 -> 2048, no u) 2.4e11 and level 0 (112x112, 64 +
+// 256 -> 64 -> 1) 1.5e11, against 0.1-0.3 GB of inputs: every level is
+// bound by the tensor cores' operations (0.48 / 0.48 / 0.48 / 0.24 /
+// 0.15 ms at 989 TFLOP/s), not by bytes.  Levels 3 and 4 also read the
+// most weights: 0.45 GB in float32 (0.91 GB split for 3xTF32), against
+// the activations' 0.1 GB.
 //
 // Why h1 goes through L2.  The TPU kernels keep h1 in VMEM with conv2's
 // halo.  In shared memory that halo costs products: a 7x10 tile of level 2
@@ -36,22 +40,32 @@
 // registers.
 //
 // The conv is the implicit-GEMM kernel of conv_wgmma.cuh, instantiated
-// here as fused_decoder_conv_wgmma<NT, HEAD>: patches of at most 64
-// pixels (pick_patch: 4x14 at 28x28, 12.5% of the rows computed and not
-// stored; 8x8 at 56x56 and 112x112, none) by NT = n_tile(Cout) channels,
-// 256 at levels 1-2, through a ring of 4 stages (8 at NT 64).  Level 2's
-// two launches read about 6.1 GB from L2, against 17.7 GB for the
-// halo-grid kernel before.
+// here as fused_decoder_conv_wgmma<NT, HEAD>, by NT = n_tile(Cout)
+// channels in bf16 (256 at levels 1-4), through a ring of 4 stages (8 at
+// NT 64).  Its M tiles are patches of at most 64 pixels (pick_patch: 8x8
+// at 56x56 and 112x112) or, where those compute more rows than the
+// pixels' own, 64 flat pixel rows through TMA's im2col boxes (use_flat):
+// patches would take 4x14 at 28x28 (1.14x the rows), 4x14 at 14x14 and
+// 7x7 at 7x7 (1.31x each); flat tiles take 1.00 / 1.00 / 1.02x.  A block
+// pairs two M tiles, and the N tiles of one pair run side by side: all of
+// a conv's N tiles are in flight together, each read by the blocks of
+// every pair in the wave within a few k-steps of one another, so level
+// 4's 302 MB of split weights a conv stream from memory about once a wave
+// (two waves) and the 50 MB L2 holds only the k-steps in flight.
 //
 // float32 (the CLU model's default decoder dtype), with every width a
 // multiple of 32, runs the same launches on the tensor cores by 3xTF32
 // (conv_wgmma.cuh): it is bound by 3 x operations / 495 TFLOP/s (2.87 /
-// 2.87 / 0.897 ms at levels 2 / 1 / 0, batch 32; 16.3 ms in all on the
-// 67 TFLOP/s FMA pipe).  The plan's wave model (pick_tf32) picks each
-// conv's N tile (128, 64 or 32; one block an SM, a ring of up to 8
-// stages); level 0 keeps its head in conv1's epilogue (one launch), in
-// float32.  conv1's and conv2's weights come split, hi rows over lo rows;
-// the head's do not.  v2's skip diffs (Cd = 65, 257, 513: the pixel
+// 2.87 / 2.87 / 1.44 / 0.897 ms at levels 3 / 2 / 1 / 4 / 0, batch 32;
+// 26.9 ms in all on the 67 TFLOP/s FMA pipe).  The plan's wave model
+// (pick_tf32) picks each conv's N tile (128, 64 or 32; one block an SM, a
+// ring of up to 8 stages): level 3 takes 49 pairs of flat tiles by 8 N
+// tiles of 128 (392 blocks, three waves on 132 SMs), level 4 13 pairs by
+// 16 (208 blocks: two waves, the second 58% full; no narrower tile fills
+// them better).  Level 0 keeps its head in conv1's epilogue (one launch),
+// in float32.  conv1's and conv2's weights come split, hi rows over lo
+// rows, packed once by the caller (ops/fused_decoder.py::pack_level); the
+// head's do not.  v2's skip diffs (Cd = 65, 257, 513: the pixel
 // channel after the tap's) reach the kernel zero-padded to the next
 // multiple of 64 (bf16) or 32 (float32), with zero rows in w1t
 // (ops/fused_decoder.py::skip_width), so every model level takes the
@@ -60,11 +74,11 @@
 // FMAs (fused_decoder_conv_fma); the 1x1 head is then a second, 1-tap
 // launch.
 //
-// The plan (route, patch, launches, N tiles, rows executed over useful)
-// lives here only; the Python wrapper asks for it (srsem_decoder_plan).
+// The plan (route, patch or flat tiles, launches, N tiles, rows executed
+// over useful) lives here only; the Python wrapper asks for it (srsem_decoder_plan).
 //
 // Layouts (what srsem_torch/ops/fused_decoder.py passes, in T; biases
-// float32):
+// float32; the weights packed once, ops/fused_decoder.py::pack_level):
 //   d : (N, H, W, Cd)   u : (N, H, W, Cu) or null (Cu = 0)
 //   w1t : (Cm, 9*Cd + 9*Cu)   K-major, k = (dy*3 + dx)*C + c over d, then u
 //   w2t : (Co, 9*Cm) for final_kernel 3, (Co, Cm) for final_kernel 1
@@ -127,7 +141,7 @@ struct DecoderKernels {
 };
 
 // How a level runs: its route, patch, CUDA launches (1 for the tensor
-// cores' fused 1x1 head, else 2) and each launch's tensor-core tiling.
+// cores' fused 1x1 head, else 2) and each launch's tiling.
 struct Plan {
   Route route;
   Patch patch;
@@ -140,15 +154,32 @@ bool valid(int n, int h, int w, int cd, int cu, int cm, int co, int k2) {
          co >= 1 && (k2 == 1 || k2 == 3);
 }
 
+// Rows a tensor-core launch computes over n images of h x w: pairs of M
+// tiles of 64 rows.
+long long tc_rows(const Tiling& t, int n, int h, int w) {
+  return (m_tiles(t, n, h, w) + kConsumers - 1) / kConsumers * kConsumers *
+         kPatch;
+}
+
+// A two-launch tensor-core level (two 3x3 convs) takes flat M tiles where
+// they compute fewer rows than patches; the 1x1 head's epilogue and the
+// FMA conv take patches.
+bool use_flat(Route r, int launches, int n, int h, int w, Patch patch) {
+  return r != kFma && launches == 2 &&
+         tc_rows({true, patch, 0, 0}, n, h, w) <
+             tc_rows({false, patch, 0, 0}, n, h, w);
+}
+
 Plan make_plan(int n, int h, int w, int cd, int cu, int cm, int co, int k2,
                bool is_bf16, int sms) {
   const Route r = route(is_bf16, cd, cu, cm, co, k2);
   const Patch patch = pick_patch(h, w);
   Plan plan{r, patch, r != kFma && k2 == 1 ? 1 : 2, {}};
+  const bool flat = use_flat(r, plan.launches, n, h, w, patch);
   const int cout[2] = {cm, co}, k[2] = {9 * (cd + cu), k2 * k2 * cm};
   for (int i = 0; i < plan.launches; ++i) {
     Tiling& t = plan.conv[i];
-    t = {false, patch, 0, 0};
+    t = {flat, patch, 0, 0};
     if (r == kWgmmaBf16) {
       t.nt = n_tile(cout[i]);
       t.stages = tc_stages(t.nt);
@@ -191,35 +222,33 @@ int srsem_decoder_uses_tensor_cores(int is_bf16, int cd, int cu, int cm,
 }
 
 // How a level runs on the current device: the patch (*bh x *bw output
-// pixels a 64-row tile), the CUDA launches it makes
-// (*launches: 1 for the tensor cores' fused 1x1 head, else 2, and then the
-// caller passes an h1 scratch), nt[0], nt[1] the output channels a
-// tensor-core block of each launch computes (0: the FMA conv, or no second
-// launch), and the rows the products compute over the output pixels
-// (*rows_ratio >= 1; a tensor-core block computes two patches).  Returns
-// 0 or cudaErrorInvalidValue.
+// pixels a 64-row tile where a launch takes patches), the CUDA launches it
+// makes (*launches: 1 for the tensor cores' fused 1x1 head, else 2, and
+// then the caller passes an h1 scratch), flat[i] whether launch i takes 64
+// flat pixel rows an M tile in place of patches, nt[0], nt[1] the output
+// channels a tensor-core block of each launch computes (0: the FMA conv,
+// or no second launch), and the rows the products compute over the output
+// pixels (*rows_ratio >= 1; a tensor-core block computes two M tiles).
+// Returns 0 or cudaErrorInvalidValue.
 int srsem_decoder_plan(int n, int h, int w, int cd, int cu, int cm, int co,
                        int k2, int is_bf16, int* bh, int* bw, int* launches,
-                       int* nt, double* rows_ratio) {
+                       int* flat, int* nt, double* rows_ratio) {
   if (!valid(n, h, w, cd, cu, cm, co, k2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Plan plan = make_plan(n, h, w, cd, cu, cm, co, k2, is_bf16 != 0, sms);
-  const Patch patch = plan.patch;
-  const double patches = static_cast<double>(n) *
-                         ((h + patch.bh - 1) / patch.bh) *
-                         ((w + patch.bw - 1) / patch.bw);
+  const Tiling& t = plan.conv[0];
   const double rows =
-      plan.route != kFma
-          ? static_cast<double>(static_cast<long long>(patches + 1) / 2) *
-                (kConsumers * kPatch)
-          : patches * kPatch;
-  *bh = patch.bh;
-  *bw = patch.bw;
+      static_cast<double>(plan.route != kFma ? tc_rows(t, n, h, w)
+                                             : m_tiles(t, n, h, w) * kPatch);
+  *bh = plan.patch.bh;
+  *bw = plan.patch.bw;
   *launches = plan.launches;
-  nt[0] = plan.conv[0].nt;
-  nt[1] = plan.conv[1].nt;
+  for (int i = 0; i < 2; ++i) {
+    flat[i] = plan.conv[i].flat;
+    nt[i] = plan.conv[i].nt;
+  }
   *rows_ratio = rows / (static_cast<double>(n) * h * w);
   return 0;
 }

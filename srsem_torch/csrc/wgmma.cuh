@@ -11,7 +11,7 @@
 // tf32 k8) starts 32 * kk bytes in.  Element (row m, byte b) of the tile
 // lies at m * 128 + ((b / 16) ^ (m % 8)) * 16 + b % 16.
 //
-// The tensor-map encoder comes from the driver through the runtime's entry
+// The tensor-map encoders come from libcuda through the runtime's entry
 // point query, so a library that includes this header links no -lcuda.
 // Users: conv_wgmma.cuh.
 
@@ -110,6 +110,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// An im2col load: the map's box of pixels (its pixelsPerColumn rows, one
+// 128-byte line of channels from c each), taken in the map's traversal
+// order from pixel (w, h, n) on: w fastest, then h, then n, each within the
+// range the map's corners bound.  Each pixel is read at (w + ow, h + oh),
+// ow and oh in 0..2 for a 3x3 conv's tap.
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int h, int n,
+                                                   int ow, int oh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(w), "r"(h), "r"(n), "h"(static_cast<uint16_t>(ow)),
+      "h"(static_cast<uint16_t>(oh))
       : "memory");
 }
 
@@ -407,6 +427,19 @@ __device__ __forceinline__ void wgmma_m64k8_tf32(float (&d)[N / 2],
 
 // ---- host: tensor maps -----------------------------------------------------
 
+// libcuda's function `name` (CUDA 12.0's signature), or null.
+inline void* libcuda_fn(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault,
+                                   &found);
+#else
+  cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
+#endif
+  return found == cudaDriverEntryPointSuccess ? fn : nullptr;
+}
+
 // A bf16 or float32 tensor map with 128-byte swizzle over `base`: dims
 // innermost first, byte strides of dims 1.. (multiples of 16), box in
 // elements (the innermost box 128 bytes: 64 bf16 or 32 float32).  Returns
@@ -414,24 +447,9 @@ __device__ __forceinline__ void wgmma_m64k8_tf32(float (&d)[N / 2],
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
                       const void* base, int rank, const cuuint64_t* dims,
                       const cuuint64_t* strides, const cuuint32_t* box) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  static const Encode encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                            &found);
-#endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<Encode>(fn)
-                                                : nullptr;
-  }();
+  using Encode = decltype(&cuTensorMapEncodeTiled);
+  static const Encode encode =
+      reinterpret_cast<Encode>(libcuda_fn("cuTensorMapEncodeTiled"));
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
@@ -439,6 +457,29 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
       const_cast<void*>(base), dims, strides, box, ones,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// An im2col map of an NHWC tensor for a 3x3 conv with SAME padding (dims
+// {c, w, h, n}, byte strides of w, h, n): the traversal runs over the top-
+// left taps of the output pixels, (-1 .. w - 2, -1 .. h - 2) in each image,
+// and a box is `pixels` rows of `channels` (one 128-byte line), with
+// 128-byte swizzle.  Returns 0 or a cudaError_t.
+inline int encode_im2col_map(CUtensorMap* map, CUtensorMapDataType type,
+                             const void* base, const cuuint64_t* dims,
+                             const cuuint64_t* strides, cuuint32_t channels,
+                             cuuint32_t pixels) {
+  using Encode = decltype(&cuTensorMapEncodeIm2col);
+  static const Encode encode =
+      reinterpret_cast<Encode>(libcuda_fn("cuTensorMapEncodeIm2col"));
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, type, 4, const_cast<void*>(base), dims, strides, lower, upper,
+      channels, pixels, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

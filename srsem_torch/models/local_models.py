@@ -18,10 +18,14 @@ Conv1's input channels are ordered ``[skip diff (+ v2 pixel channel),
 upsampled]``; it runs as two sliced convs (the split-concat identity), so
 the concat is never built.
 
-Serving: ``fused_serving_decode`` folds BN (running statistics) into the
-conv weights and runs levels ``DEFAULT_FUSE_LEVELS`` through the Hopper
-kernel (srsem_torch/ops/fused_decoder.py), the rest on folded ``F.conv2d``
-(``_plain_decoder_level``), as the JAX package leaves them to XLA.
+Serving: ``fold_decoder`` folds BN (running statistics) into the conv
+weights and packs each level in the Hopper kernel's layout once
+(srsem_torch/ops/fused_decoder.py::pack_level); ``fused_serving_decode``
+runs all five levels through the kernel.  The JAX package fuses levels
+0-2 only and leaves 3-4 to XLA, for the TPU's sake
+(srsem/models/local_models.py:296-306: level 4's weights do not fit v5e's
+VMEM); on Hopper the kernel streams its weights through TMA, and levels
+3-4 (14x14 and 7x7, K up to 27,648) take its flat M tiles.
 
 Training: ``forward(..., train=True)`` and ``decode_from_diffs(...,
 train=True)`` run the decoder's BatchNorms on batch statistics and update
@@ -44,7 +48,7 @@ gradients in both modes and are detached otherwise, as the Flax module's
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -65,9 +69,10 @@ from srsem_torch.config import BackboneConfig, LocalModelConfig
 from srsem_torch.core.meshes import DATA_AXIS, Mesh, all_reduce
 from srsem_torch.ops.fused_bottleneck import fold_bn_into_conv
 from srsem_torch.ops.fused_decoder import (
+    PackedLevel,
     fused_decoder_level,
     fused_decoder_level_tiled,
-    skip_width,
+    pack_level,
 )
 from srsem_torch.ops.image import resize_bilinear, upsample_x2_align_corners
 from srsem_torch.utils.profiling import span
@@ -76,10 +81,6 @@ Tensor = torch.Tensor
 
 #: Decoder channel plan, shallow to deep (the tap channels).
 _LEVEL_CHANNELS = (64, 256, 512, 1024, 2048)
-
-#: Decoder levels run through the fused kernel by default (as in JAX).
-#: Levels 3 and 4 run ``_plain_decoder_level`` unless asked for.
-DEFAULT_FUSE_LEVELS: Tuple[int, ...] = (0, 1, 2)
 
 #: Row tile per level for ``fused_decoder_level_tiled``: levels 0 and 1
 #: (112 and 56 px at 224) — the levels the JAX docstring names for it
@@ -395,87 +396,46 @@ def skip_channels(model: CluUnet, lvl: int) -> int:
     return cin - up
 
 
-def fold_decoder(model: CluUnet,
-                 fuse_levels: Optional[Tuple[int, ...]] = None) -> List[tuple]:
-    """Serving weights of every level, folded and cast once (the decoder is
-    frozen when serving): ``("fused", (w1d, w1u, b1, w2, b2, fk))`` in the
-    kernel's layout, w1d's input rows zero-padded to ``skip_width`` (v2's
-    odd skip widths), or ``("plain", ...)`` with OIHW convs for
-    ``_plain_decoder_level``; weights in the decoder dtype, biases
-    float32."""
-    if fuse_levels is None:
-        fuse_levels = DEFAULT_FUSE_LEVELS
-    dd = model.decoder_dtype
-    out = []
+def fold_decoder(model: CluUnet) -> List[PackedLevel]:
+    """Serving weights of every level, folded and packed once (the decoder
+    is frozen when serving) in the kernel's layout (``pack_level``: w1d's
+    input rows zero-padded to ``skip_width`` for v2's odd skip widths,
+    K-major, split for 3xTF32 in float32); weights in the decoder dtype,
+    biases float32."""
     with torch.no_grad():
-        for lvl in range(len(model.decoder)):
-            w1d, w1u, b1, w2, b2, fk = folded_decoder_weights(
-                model, lvl, skip_channels(model, lvl))
-            cast = lambda t: None if t is None else t.to(dd).contiguous()  # noqa: E731
-            if lvl in fuse_levels:
-                cd, cm = w1d.shape[2:]
-                wide = skip_width(dd, cd, 0 if w1u is None else w1u.shape[2],
-                                  cm, w2.shape[-1], fk)
-                w1d = F.pad(w1d, (0, 0, 0, wide - cd))
-                out.append(("fused", (cast(w1d), cast(w1u), b1, cast(w2), b2,
-                                      fk)))
-            else:
-                oihw = lambda t: None if t is None else cast(t.permute(3, 2, 0, 1))  # noqa: E731
-                out.append(("plain", (oihw(w1d), oihw(w1u), b1, oihw(w2), b2,
-                                      fk)))
-    return out
-
-
-def _plain_decoder_level(d: Tensor, u: Optional[Tensor], w1d: Tensor,
-                         w1u: Optional[Tensor], b1: Tensor, w2: Tensor,
-                         b2: Tensor, final_kernel: int) -> Tensor:
-    """A folded decoder level on ``F.conv2d`` (cuDNN) in the weights' dtype
-    — the math of the fused kernel, rounded as JAX's ``_xla_decoder_level``
-    (after each conv and bias add).  NHWC in and out; OIHW weights."""
-    dt = w1d.dtype
-    h = F.conv2d(to_nchw(d.to(dt)), w1d, None, 1, 1)
-    if u is not None:
-        h = h + F.conv2d(to_nchw(u.to(dt)), w1u, None, 1, 1)
-    h = F.relu(h + b1.to(dt).view(1, -1, 1, 1))
-    y = F.conv2d(h, w2, None, 1, final_kernel // 2)
-    return to_nhwc(F.relu(y + b2.to(dt).view(1, -1, 1, 1)))
+        return [pack_level(*folded_decoder_weights(
+                    model, lvl, skip_channels(model, lvl)),
+                    model.decoder_dtype)
+                for lvl in range(len(model.decoder))]
 
 
 def fused_serving_decode(model: CluUnet, diffs: Sequence[Tensor],
                          img_sq: Optional[Tensor] = None,
-                         fuse_levels: Optional[Tuple[int, ...]] = None,
                          tiled_rows: Optional[Dict[int, int]] = None,
-                         folded: Optional[List[tuple]] = None) -> Tensor:
-    """Serving-only UNet decode (eval BN folded into the convs): the
-    levels in ``fuse_levels`` through the fused kernel — levels in
-    ``tiled_rows`` through the tiled wrapper with that row tile — and the
-    rest on ``_plain_decoder_level``.  Matches ``decode_from_diffs`` up to
-    FP order.  ``folded`` is ``fold_decoder(model, fuse_levels)``, computed
-    here when not given; each level's skip input is written once at the
-    width of its folded w1d (``CluUnet.skip_input``: v2's pixel channel
-    and the kernel's zero channels in the same buffer)."""
-    if fuse_levels is None:
-        fuse_levels = DEFAULT_FUSE_LEVELS
+                         folded: Optional[List[PackedLevel]] = None
+                         ) -> Tensor:
+    """Serving-only UNet decode (eval BN folded into the convs): every
+    level through the fused kernel with its packed weights, levels in
+    ``tiled_rows`` through the tiled wrapper with that row tile.  Matches
+    ``decode_from_diffs`` up to FP order.  ``folded`` is
+    ``fold_decoder(model)``, computed here when not given; each level's
+    skip input is written once at its packed width (``CluUnet.skip_input``:
+    v2's pixel channel and the kernel's zero channels in the same
+    buffer)."""
     if tiled_rows is None:
         tiled_rows = DEFAULT_TILED_LEVEL_ROWS
     if folded is None:
-        folded = fold_decoder(model, fuse_levels)
-    # w1d's input channels: HWIO for a fused level, OIHW for a plain one.
-    widths = [w[0].shape[2 if kind == "fused" else 1] for kind, w in folded]
-    diffs = [model.skip_input(d, img_sq, c) for d, c in zip(diffs, widths)]
+        folded = fold_decoder(model)
+    diffs = [model.skip_input(d, img_sq, p.cd) for d, p in zip(diffs, folded)]
 
     def level(lvl: int, d: Tensor, u: Optional[Tensor]) -> Tensor:
-        kind, (w1d, w1u, b1, w2, b2, fk) = folded[lvl]
-        with span("srsem.decode.level", level=lvl,
-                  route="cudnn" if kind == "plain" else "kernel"):
-            if kind == "plain":
-                return _plain_decoder_level(d, u, w1d, w1u, b1, w2, b2, fk)
+        p = folded[lvl]
+        with span("srsem.decode.level", level=lvl, route="kernel"):
             th = tiled_rows.get(lvl)
             if th and th < d.shape[1]:
-                return fused_decoder_level_tiled(d, u, w1d, w1u, b1, w2, b2,
-                                                 row_tile=th, final_kernel=fk)
-            return fused_decoder_level(d, u, w1d, w1u, b1, w2, b2,
-                                       final_kernel=fk)
+                return fused_decoder_level_tiled(d, u, p, row_tile=th,
+                                                 final_kernel=p.final_kernel)
+            return fused_decoder_level(d, u, p, final_kernel=p.final_kernel)
 
     h = upsample_x2_align_corners(level(len(diffs) - 1, diffs[-1], None))
     for lvl in range(len(diffs) - 2, -1, -1):

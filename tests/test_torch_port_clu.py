@@ -8,9 +8,12 @@ convert_clu_decoder — they read the port's own state dict) and come back
 into a fresh port model through ``load_jax_local_params``.
 
 * The model: ``width_mult=0.125``, 64 px, f32, v2 off and on; the module's
-  ``decode_from_diffs`` and ``fused_serving_decode`` (default, and every
-  level fused and tiled) vs JAX ``decode_from_diffs`` at 2e-4, the JAX
-  package's own fused-decoder tolerance (tests/test_fused_decoder.py:83-85).
+  ``decode_from_diffs`` and ``fused_serving_decode`` (default: every level
+  fused, 0-1 tiled; and every level fused and tiled) vs JAX
+  ``decode_from_diffs`` at 2e-4, the JAX package's own fused-decoder
+  tolerance (tests/test_fused_decoder.py:83-85).  ``fold_decoder``'s
+  packed levels against packing by hand, and the decode with them against
+  the wrappers packing on every call.
 * The scorers take no width multiplier, so they run at full width at
   32 px, batch 2 (as __graft_entry__.py:246-253 does), against JAX's dense
   path at 2e-3 (tests/test_fused_decoder.py:111).
@@ -40,13 +43,17 @@ from srsem_torch.config import BackboneConfig, LocalModelConfig
 from srsem_torch.eval.grouped import GroupedMapScorer
 from srsem_torch.eval.scorer import PairScorer
 from srsem_torch.models.local_models import (
-    DEFAULT_FUSE_LEVELS,
     CluUnet,
+    finish_map,
+    fold_decoder,
     folded_decoder_weights,
     fused_serving_decode,
     make_local_model,
+    skip_channels,
 )
 from srsem_torch.ops import fused_decoder as tfd
+from srsem_torch.ops.image import upsample_x2_align_corners
+from srsem_torch.ops.tf32x3 import split_weights
 from srsem_torch.utils.convert import load_jax_local_params
 from torch_port_tmp import remove_tmp_path  # noqa: F401 — autouse fixture
 
@@ -129,23 +136,23 @@ def test_decode_from_diffs_matches_jax(small):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("fuse,tiled", [
-    (DEFAULT_FUSE_LEVELS, None),
-    ((0, 1, 2, 3, 4), {0: 8, 1: 3, 2: 3, 3: 3, 4: 1})])
-def test_fused_serving_decode_matches_jax(small, fuse, tiled, monkeypatch):
-    """Default routing (levels 0-2 fused, 0-1 tiled) and every level fused
-    and tiled (ragged tiles, and u=None at level 4) == JAX's module.  Each
-    fused level gets its skip (v2: with the pixel channel) in one buffer
-    of the kernel's width, ``skip_width``: v2's odd widths padded to a
-    multiple of 32 in float32 where the level's other widths take the
-    tensor cores (levels 1-4 here; level 0's Cm = 8 does not)."""
+@pytest.mark.parametrize("tiled", [None, {0: 8, 1: 3, 2: 3, 3: 3, 4: 1}],
+                         ids=["default", "all_tiled"])
+def test_fused_serving_decode_matches_jax(small, tiled, monkeypatch):
+    """Default routing (every level through the kernel's wrappers, u=None
+    at level 4, 0-1 tiled) and every level tiled (ragged tiles) == JAX's
+    module.  Each level gets its skip (v2: with the pixel channel) in one
+    buffer of the kernel's width, ``skip_width``, which its packed weights
+    take: v2's odd widths padded to a multiple of 32 in float32 where the
+    level's other widths take the tensor cores (levels 1-4 here; level
+    0's Cm = 8 does not)."""
     port, _, diffs, img_sq, want = small
     seen = {}
 
     def spy(wrapper):
-        def call(d, u, w1d, *rest, **kw):
-            seen[d.shape[1]] = (d.shape[-1], w1d.shape[2])
-            return wrapper(d, u, w1d, *rest, **kw)
+        def call(d, u, packed, **kw):
+            seen[d.shape[1]] = (d.shape[-1], packed.cd)
+            return wrapper(d, u, packed, **kw)
         return call
 
     for name in ("fused_decoder_level", "fused_decoder_level_tiled"):
@@ -153,13 +160,12 @@ def test_fused_serving_decode_matches_jax(small, fuse, tiled, monkeypatch):
                             spy(getattr(tfd, name)))
     counts = (tfd.fused_decoder_level.launches,
               tfd.fused_decoder_level_tiled.launches)
-    got = fused_serving_decode(port, diffs, img_sq, fuse_levels=fuse,
-                               tiled_rows=tiled)
+    got = fused_serving_decode(port, diffs, img_sq, tiled_rows=tiled)
     assert counts == (tfd.fused_decoder_level.launches,
                       tfd.fused_decoder_level_tiled.launches)  # CPU: plain
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
     want_widths = {}
-    for lvl in fuse:
+    for lvl in range(5):
         cd = diffs[lvl].shape[-1] + port.v2
         block = port.decoder[lvl]
         cu = block[0].in_channels - cd
@@ -171,6 +177,62 @@ def test_fused_serving_decode_matches_jax(small, fuse, tiled, monkeypatch):
         else:  # v1's skips are aligned; v2's level 0 (Cm = 8) takes the FMA
             assert wide == cd
     assert seen == want_widths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_decoder_packs_each_level_once(small, dtype):
+    """``fold_decoder`` keeps each level in the kernel's layout: the folded
+    weights (w1d's rows padded to ``skip_width``) cast to the decoder
+    dtype and laid out K-major (``_k_major``), split into tf32 hi over lo
+    (``split_weights``) where a float32 level takes the tensor cores
+    (levels 1-4 here; level 0's head stays unsplit), float32 biases."""
+    port = copy.deepcopy(small[0])
+    port.decoder_dtype = dtype
+    folded = fold_decoder(port)
+    assert len(folded) == 5
+    for lvl, p in enumerate(folded):
+        w1d, w1u, b1, w2, b2, fk = folded_decoder_weights(
+            port, lvl, skip_channels(port, lvl))
+        cd, cm = w1d.shape[2:]
+        cu, co = (0 if w1u is None else w1u.shape[2]), w2.shape[-1]
+        wide = tfd.skip_width(dtype, cd, cu, cm, co, fk)
+        w1d = torch.nn.functional.pad(w1d, (0, 0, 0, wide - cd))
+        w1t = tfd._k_major([w1d.reshape(-1, cm)] + (
+            [] if w1u is None else [w1u.reshape(-1, cm)]), dtype)
+        w2t = tfd._k_major([w2.reshape(-1, co)], dtype)
+        split = dtype == torch.float32 and lvl > 0
+        assert p.split == split and (p.cd, p.cu, p.final_kernel) == (
+            wide, cu, fk)
+        torch.testing.assert_close(p.w1t, split_weights(w1t) if split
+                                   else w1t, rtol=0, atol=0)
+        torch.testing.assert_close(p.w2t, split_weights(w2t)
+                                   if split and fk == 3 else w2t,
+                                   rtol=0, atol=0)
+        for got, want in ((p.b1, b1), (p.b2, b2)):
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_decode_equals_per_call_packing(small, dtype):
+    """``fused_serving_decode`` with the levels packed once gives the map of
+    the same decode through the wrappers with JAX-layout weights, packed
+    on every call: exactly in bf16, and in float32 within the 3xTF32
+    split's 2^-22 of each weight (the plain version here computes with
+    hi + lo)."""
+    port = copy.deepcopy(small[0])
+    port.decoder_dtype = dtype
+    _, _, diffs, img_sq, _ = small
+    got = fused_serving_decode(port, diffs, img_sq)
+    h = None
+    for lvl in range(4, -1, -1):
+        *ws, fk = folded_decoder_weights(port, lvl, skip_channels(port, lvl))
+        d = port.skip_input(diffs[lvl], img_sq, skip_channels(port, lvl))
+        y = tfd.fused_decoder_level(d, h, *ws, final_kernel=fk)
+        h = upsample_x2_align_corners(y)
+    want = finish_map(h, port.sigmoid, port.output_dtype)
+    tol = 1e-5 if dtype == torch.float32 else 0
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 def test_folded_decoder_weights_match_jax(small):

@@ -370,7 +370,10 @@ def _decoder_args(rng, n, h, w, cd, cu, cm, co, fk, device):
     (1, 6, 5, 8, 0, 8, 8, 3, 4),                 # u=None, tiled, ragged
     (1, 28, 28, 512, 1024, 512, 512, 3, None),   # level 2, batch 1
     (1, 56, 56, 256, 512, 256, 256, 3, 7),       # level 1, batch 1
-    (1, 7, 7, 2048, 0, 2048, 2048, 3, 3)])       # level 4: one patch
+    (1, 7, 7, 2048, 0, 2048, 2048, 3, 3),        # level 4: one patch
+    (4, 14, 14, 1024, 2048, 1024, 1024, 3, None),  # level 3: flat tiles
+    (16, 7, 7, 2048, 0, 2048, 2048, 3, None),    # level 4: flat, u=None
+    (3, 5, 7, 64, 64, 64, 64, 3, 4)])            # flat across images, ragged
 def test_decoder_kernel_matches_plain(cuda_device, dtype, n, h, w, cd, cu,
                                       cm, co, fk, row_tile):
     """CUDA kernel == plain version.  f32: FP order only (1e-4); bf16: a
@@ -378,7 +381,8 @@ def test_decoder_kernel_matches_plain(cuda_device, dtype, n, h, w, cd, cu,
     every width a multiple of 64 (after padding the skip diff) takes the
     tensor cores (wgmma), float32 with multiples of 32 too (3xTF32; Cd =
     257 and 65 padded to 288 and 96); other widths the FMA path.  An odd
-    count of patches leaves a block's second warpgroup without one."""
+    count of patches leaves a block's second warpgroup without one.  Flat
+    M tiles (TMA im2col boxes) cross rows and images and end ragged."""
     rng = np.random.default_rng(10)
     d, u, w1d, w1u, b1, w2, b2 = _decoder_args(rng, n, h, w, cd, cu, cm, co,
                                                fk, cuda_device)
@@ -402,10 +406,12 @@ def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
     """The library's plan at every level at batch 32 and 224 px, in both
     dtypes: output patches of at most 64 pixels inside the image, two
     launches (one for the tensor cores' fused 1x1 head), and on the tensor
-    cores at most 15% of the rows computed and not stored at the main-path
-    shapes (28, 56 and 112 px).  bf16 takes the bf16 wgmma route, float32
-    the 3xTF32 one (v2's Cd = 257 padded to 320 and 288).  A level as wide
-    as Cm = 16384 runs."""
+    cores at most 7% of the rows computed and not stored: 8x8 patches at
+    56 and 112 px, flat tiles at 28, 14 and 7 px (1.00 / 1.00 / 1.06x the
+    rows; patches there would take 1.14 / 1.31 / 1.31x).  bf16 takes the
+    bf16 wgmma route, float32 the 3xTF32 one (v2's Cd = 257 padded to 320
+    and 288).  A level as wide as Cm = 16384 runs."""
+    rows = {28: 1.0, 56: 1.0, 112: 1.0, 14: 1.0, 7: 1664 / 1568}
     for h, cd, cu, cm, co, fk in [
             (28, 512, 1024, 512, 512, 3), (56, 256, 512, 256, 256, 3),
             (112, 64, 256, 64, 1, 1), (14, 1024, 2048, 1024, 1024, 3),
@@ -427,8 +433,9 @@ def test_decoder_tiles_fit_at_main_path_shapes(cuda_device):
             assert plan.route == ("wgmma_bf16" if dtype == torch.bfloat16
                                   else "wgmma_tf32x3"), (h, cd, plan)
             assert plan.launches == (1 if fk == 1 else 2)
-            if h in (28, 56, 112):
-                assert plan.rows_ratio <= 1.15, (h, plan)
+            assert plan.rows_ratio == pytest.approx(rows[h]), (h, plan)
+            assert plan.tilings == (("flat",) * 2 if h in (28, 14, 7)
+                                    else ("8x8",) * plan.launches), plan
     rng = np.random.default_rng(11)
     d, _, w1d, _, b1, w2, b2 = _decoder_args(rng, 1, 8, 8, 64, 0, 16384, 64,
                                              3, cuda_device)
@@ -525,6 +532,48 @@ def test_float32_decoder_takes_tf32x3(cuda_device, h, cd, cu, cm, co, fk):
                            3).route == "wgmma_tf32x3"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,cd,cu", [(14, 1024, 2048), (7, 2048, 0),
+                                     (14, 1025, 2048), (7, 2049, 0)],
+                         ids=["level3", "level4", "v2_level3", "v2_level4"])
+def test_deep_levels_at_batch_32(cuda_device, dtype, h, cd, cu):
+    """Levels 3 and 4 of the CLU decoder at batch 32 and 224 px, v1 and v2
+    widths (v2's skip padded to 1056 / 2080 in float32, 1088 / 2112 in
+    bf16), with weights packed once as ``fold_decoder`` packs them: the
+    plan (flat tiles, two launches; float32 N tiles of 128, bf16 of 256;
+    rows 1.00 / 1.06x the pixels), and the kernel against the plain
+    version at the tolerances of the levels above them: float32 the
+    3xTF32 gates, against the float64 reference too; bf16 2e-2."""
+    rng = np.random.default_rng(14)
+    cm = 1024 if h == 14 else 2048
+    d, u, *ws = _decoder_args(rng, 32, h, h, cd, cu, cm, cm, 3, cuda_device)
+    d = d.to(dtype)
+    u = None if u is None else u.to(dtype)
+    packed = tfd.pack_level(*ws, 3, dtype)
+    assert packed.split == (dtype == torch.float32)
+    wide = tfd.skip_width(dtype, cd, cu, cm, cm, 3)
+    assert packed.cd == wide == cd + -cd % (32 if dtype == torch.float32
+                                            else 64)
+    dp = torch.nn.functional.pad(d, (0, wide - cd))
+    plan = tfd.kernel_plan(tfd.kernel_args(d, u, *ws, 3), 3)
+    assert plan.tilings == ("flat", "flat") and plan.launches == 2
+    assert plan.nts == ((128, 128) if dtype == torch.float32 else (256, 256))
+    assert plan.rows_ratio == pytest.approx(1.0 if h == 14 else 1664 / 1568)
+    before = tfd.fused_decoder_level.launches
+    got = tfd.fused_decoder_level(dp, u, packed)
+    assert tfd.fused_decoder_level.launches == before + 1
+    want = tfd.plain_decoder_level(d, u, *ws, 3)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        return
+    again = tfd.fused_decoder_level(dp, u, packed)
+    _tf32x3_close(got, want, f64_decoder(d, u, *ws, 3), again)
+    # The JAX-layout call, packing on the call, gives the same bits.
+    assert torch.equal(tfd.fused_decoder_level(d, u, *ws), got)
+
+
 def _serving_models(size):
     """A global model (resnet50_clip, stages_cnn, depth 3, live head) and
     a CluUnet on the same tower, seeded, float32, at ``size`` px."""
@@ -578,7 +627,8 @@ def _close(got, want):
 def test_score_service_matches_grouped_scorers(cuda_device, tmp_path):
     """ScoreService on the card (float32, TF32 off) against the grouped
     scorers on the same decoded images: scores and map means; one grouped
-    head launch a score batch, three decoder calls a maps batch."""
+    head launch a score batch, five decoder calls a maps batch (levels 2-4
+    through the whole-image wrapper, 0-1 through the tiled one)."""
     from srsem_torch.cli.serve import ScoreService
     from srsem_torch.eval.grouped import GroupedMapScorer, GroupedPairScorer
 
@@ -595,7 +645,7 @@ def test_score_service_matches_grouped_scorers(cuda_device, tmp_path):
     maps = svc.map_requests([dict(r, maps=True) for r in reqs])
     assert tfh.fused_grouped_score.launches == head0 + 1
     assert (tfd.fused_decoder_level.launches - dec0[0],
-            tfd.fused_decoder_level_tiled.launches - dec0[1]) == (1, 2)
+            tfd.fused_decoder_level_tiled.launches - dec0[1]) == (3, 2)
     svc.close()
     pre = svc._core.preprocess
     gt = np.stack([pre.decode_uint8(r["gt"]) for r in reqs])

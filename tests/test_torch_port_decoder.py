@@ -11,8 +11,11 @@ The card's kernel (csrc/fused_decoder.cu) cannot run here, so its indexing
 is emulated in torch: ``_a_tile`` is the box of rows a TMA load brings in
 for one (patch, tap, 64-channel chunk) k-step, zero outside the tensor, and
 ``_implicit_gemm`` sums those tiles against the K-major weights as the
-kernel's k-loop does; ``_two_pass`` is the kernel's two-launch structure
-(conv1 -> h1 rounded to the dtype -> conv2 over zero-padded h1).
+kernel's k-loop does; ``_im2col_tile`` is the im2col box of a flat M tile
+(64 pixels in order across rows and images, each read at its tap);
+``_two_pass`` is the kernel's two-launch structure (conv1 -> h1 rounded to
+the dtype -> conv2 over zero-padded h1).  ``PackedLevel``s (the weights in
+the kernel's layout, packed once) run the same plain version here.
 """
 
 import jax.numpy as jnp
@@ -199,6 +202,47 @@ def _implicit_gemm(inputs, wt, bh, bw, ks=3, mm=torch.matmul):
     return out[:, :h, :w]
 
 
+def _im2col_tile(x, q, tap, chunk, ks=3):
+    """The (64, 64) A tile of flat M tile ``q`` that the kernel's TMA
+    im2col box brings in for tap ``tap`` and channels 64 chunk .. 64 chunk
+    + 63: row i is output pixel 64 q + i of the (N*H*W) pixel order (its
+    image, row and column), read at (row + dy - ks // 2, column + dx - ks //
+    2) of its own image; zero outside the image, past the last image, and
+    for channels past C."""
+    n, h, w, c = x.shape
+    pad = ks // 2
+    dy, dx = divmod(tap, ks)
+    xp = F.pad(x, (0, 64 * (chunk + 1), pad, pad, pad, pad))
+    r = torch.arange(64 * q, 64 * q + 64)
+    img, rest = r // (h * w), r % (h * w)
+    inside = img < n
+    img = img.clamp(max=n - 1)
+    rows = xp[img, rest // w + dy, rest % w + dx, 64 * chunk:64 * chunk + 64]
+    return torch.where(inside[:, None], rows, 0.0)
+
+
+def _flat_gemm(inputs, wt, ks=3):
+    """``_implicit_gemm`` over flat M tiles: each 64-pixel tile of the
+    (N*H*W) order summed over k-steps of ``_im2col_tile``s."""
+    n, h, w, _ = inputs[0].shape
+    cout = wt.shape[0]
+    tiles = -(-n * h * w // 64)
+    out = torch.zeros(tiles * 64, cout)
+    for q in range(tiles):
+        k0 = 0
+        for x in inputs:
+            c = x.shape[-1]
+            for tap in range(ks * ks):
+                for chunk in range(-(-c // 64)):
+                    lo = k0 + tap * c + 64 * chunk
+                    width = min(64, c - 64 * chunk)
+                    a = _im2col_tile(x, q, tap, chunk, ks)[:, :width]
+                    out[64 * q:64 * q + 64] += (
+                        a.float() @ wt[:, lo:lo + width].float().t())
+            k0 += ks * ks * c
+    return out[:n * h * w].reshape(n, h, w, cout)
+
+
 def _nchw(t):
     return t.permute(0, 3, 1, 2).float()
 
@@ -233,6 +277,93 @@ def test_implicit_gemm_tiles_sum_to_conv(n, h, w, cd, cu, cout, bh, bw, ks):
                for x, k in zip(inputs, hwio)).permute(0, 2, 3, 1)
     got = _implicit_gemm(inputs, wt, bh, bw, ks)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_im2col_tile_steps_across_rows_and_images():
+    """A flat tile's im2col rows: the traversal steps to the next row and
+    the next image by itself, each pixel read at its tap and zero outside
+    its own image (the padding) and past the last image."""
+    x = torch.arange(1, 1 + 2 * 5 * 6 * 8, dtype=torch.float32).reshape(
+        2, 5, 6, 8)
+    centre = _im2col_tile(x, 0, tap=4, chunk=0)  # (dy, dx) = (0, 0)
+    torch.testing.assert_close(centre[:60, :8], x.reshape(60, 8))
+    assert not centre[60:].any() and not centre[:, 8:].any()
+    corner = _im2col_tile(x, 0, tap=0, chunk=0)  # (-1, -1)
+    assert not corner[:7].any() and not corner[30].any()  # row 0, image 1
+    torch.testing.assert_close(corner[7, :8], x[0, 0, 0])
+    torch.testing.assert_close(corner[37, :8], x[1, 0, 0])
+
+
+@pytest.mark.parametrize("n,h,w,cd,cu,cout", [
+    (2, 5, 7, 24, 80, 16),   # tiles across images, ragged last tile
+    (3, 7, 7, 72, 0, 8),     # level 4's shape: u=None, 147 pixels
+    (1, 14, 14, 16, 8, 4),   # level 3's shape: 196 pixels
+])
+def test_flat_im2col_tiles_sum_to_conv(n, h, w, cd, cu, cout):
+    """Summed over K, the im2col tiles of flat M tiles give F.conv2d of
+    the (d, u) pair with SAME padding, as the patch tiles do."""
+    rng = np.random.default_rng(8)
+    t = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    inputs = [t(n, h, w, cd)] + ([t(n, h, w, cu)] if cu else [])
+    hwio = [t(3, 3, x.shape[-1], cout) for x in inputs]
+    wt = tfd._k_major([k.reshape(-1, cout) for k in hwio], torch.float32)
+    want = sum(F.conv2d(_nchw(x), k.permute(3, 2, 0, 1), padding=1)
+               for x, k in zip(inputs, hwio)).permute(0, 2, 3, 1)
+    torch.testing.assert_close(_flat_gemm(inputs, wt), want, rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES + [(1, 6, 6, 65, 64, 64, 64, 3)])
+def test_packed_level_matches_jax_layouts(case, dtype):
+    """A ``PackedLevel`` (the kernel's layout: K-major, the skip padded
+    for the tensor cores, float32 split into tf32 hi over lo where the
+    widths take them) runs both wrappers' plain version to the JAX-layout
+    call's answer: exactly where nothing is split or padded, within the
+    split's 2^-22 of each weight where it is, and within bf16 ulps where
+    a padded bf16 skip sums its float32 products in another order (as
+    ``test_bf16_pads_odd_skip_exactly``); ``unpack_level`` gives the
+    packed weights back."""
+    n, h, w, cd, cu, cm, co, fk = case
+    d, u, *ws = map(_t, _inputs(9, *case))
+    d = d.to(dtype)
+    u = None if u is None else u.to(dtype)
+    p = tfd.pack_level(*ws, fk, dtype)
+    wide = tfd.skip_width(dtype, cd, cu, cm, co, fk)
+    assert p.widths == (wide, cu, cm, co) and p.final_kernel == fk
+    assert p.split == (dtype == torch.float32
+                       and tfd.tensor_core_widths(dtype, wide, cu, cm, co, fk))
+    w1d, w1u, b1, w2, b2 = tfd.unpack_level(p)
+    want_w = tfd.kernel_args(d, u, *ws, fk)[2:]
+    for got_t, want_t in zip((w1d, w1u, b1, w2, b2), want_w):
+        assert (got_t is None) == (want_t is None)
+        if got_t is not None:
+            torch.testing.assert_close(got_t.float(), want_t.float(),
+                                       rtol=2.0 ** -21 if p.split else 0,
+                                       atol=0)
+    dp = F.pad(d, (0, wide - cd))
+    want = tfd.fused_decoder_level(d, u, *ws, final_kernel=fk)
+    tol = 1e-5 if p.split else (1e-2 if wide != cd else 0)
+    for got in (tfd.fused_decoder_level(dp, u, p, final_kernel=fk),
+                tfd.fused_decoder_level_tiled(dp, u, p, row_tile=3,
+                                              final_kernel=fk)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_packed_level_rejects_what_it_was_not_packed_for():
+    d, u, *ws = map(_t, _inputs(4, 1, 4, 4, 8, 8, 8, 8, 3))
+    p = tfd.pack_level(*ws, 3, torch.float32)
+    with pytest.raises(ValueError, match="final_kernel"):
+        tfd.fused_decoder_level(d, u, p, final_kernel=1)
+    with pytest.raises(ValueError, match="channels"):
+        tfd.fused_decoder_level(d[..., :4].contiguous(), u, p)
+    with pytest.raises(ValueError, match="u shape"):
+        tfd.fused_decoder_level(d, None, p)
+    with pytest.raises(TypeError, match="packed"):
+        tfd.fused_decoder_level(d.bfloat16(), u.bfloat16(), p)
+    with pytest.raises(TypeError, match="PackedLevel"):
+        tfd.fused_decoder_level(d, u, *ws[:4])
 
 
 def _two_pass(d, u, w1d, w1u, b1, w2, b2, final_kernel, mm=None):
