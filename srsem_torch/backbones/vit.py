@@ -29,6 +29,11 @@ Casts follow the JAX package exactly:
 The positional table is always the 14x14 + 1 training grid and is
 interpolated to the input's patch grid on every call.
 
+Spans (srsem_torch/utils/profiling.py): ``srsem.vit.block`` (``block``)
+over each block and its residual add, and inside it
+``srsem.vit.attention`` over the attention core, from the scores'
+product to the heads' merge (the qkv and proj Linears stay outside it).
+
 ``forward(x, tap_offsets)`` adds an optional ``{"blocks.{l}.ls2": (N, 1 +
 patches, width)}`` offset to that block's branch before the residual add,
 as srsem/backbones/vit.py:135-139 does for Grad-CAM; an entry of None
@@ -46,6 +51,7 @@ from torch import nn
 
 from srsem_torch.backbones.resnet import tap_offset
 from srsem_torch.ops.image import interpolate_pos_embed
+from srsem_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -122,10 +128,11 @@ class ViTBlock(nn.Module):
         h = _layer_norm(x, self.norm1).to(self.dtype)
         qkv = _linear(h, self.attn.qkv).reshape(n, t, 3, self.heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (n,h,t,d)
-        attn = (q @ k.transpose(-1, -2)) / self.scale
-        # The float32 softmax upcasts its input itself: one pass fewer.
-        attn = torch.softmax(attn, dim=-1, dtype=torch.float32).to(self.dtype)
-        h = (attn @ v).transpose(1, 2).reshape(n, t, c)
+        with span("srsem.vit.attention"):
+            attn = (q @ k.transpose(-1, -2)) / self.scale
+            # The float32 softmax upcasts its input itself: one pass fewer.
+            attn = torch.softmax(attn, dim=-1, dtype=torch.float32).to(self.dtype)
+            h = (attn @ v).transpose(1, 2).reshape(n, t, c)
         # The sum promotes the compute-dtype branch to the stream's dtype
         # (JAX casts it first: the same values, one pass fewer).
         x = x + _linear(h, self.attn.proj)
@@ -187,11 +194,12 @@ class ClipViT(nn.Module):
             tokens = _layer_norm(tokens, self.norm_pre)
         taps: Dict[str, Tensor] = {}
         for l, block in enumerate(self.blocks):
-            x_attn, branch = block(tokens)
-            name = f"blocks.{l}.ls2"
-            off = tap_offset(tap_offsets, name, branch.shape, branch)
-            if off is not None:
-                branch = branch + off
-            taps[name] = branch
-            tokens = x_attn + branch
+            with span("srsem.vit.block", block=l):
+                x_attn, branch = block(tokens)
+                name = f"blocks.{l}.ls2"
+                off = tap_offset(tap_offsets, name, branch.shape, branch)
+                if off is not None:
+                    branch = branch + off
+                taps[name] = branch
+                tokens = x_attn + branch
         return _layer_norm(tokens, self.norm)[:, 0], taps

@@ -25,6 +25,10 @@ GLOBAL_CFG = GlobalModelConfig(backbone=BackboneConfig(
     kind="resnet50", image_size=64, compute_dtype="float32"), depth=3)
 MAP_CFG = LocalModelConfig(backbone=BackboneConfig(
     kind="resnet50_clip", image_size=32, compute_dtype="float32"))
+#: A narrow ViT with all 12 blocks (stages_vit taps blocks 2, 5, 8, 11).
+VIT_CFG = GlobalModelConfig(backbone=BackboneConfig(
+    kind="vit_clip", image_size=32, compute_dtype="float32", vit_width=32,
+    vit_heads=2), head="stages_vit", depth=3)
 
 
 @pytest.fixture(autouse=True)
@@ -267,3 +271,74 @@ def test_profile_flag_writes_spans(tmp_path):
     assert "launches.fused_global_score" in spans["counters"]
     trace = json.loads((prof / "trace.json").read_text())
     assert any(e.get("name") == "srsem.score" for e in trace["traceEvents"])
+
+
+def test_off_vit_spans_are_the_shared_no_op(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered while off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert span("srsem.vit.block", block=0) is span("srsem.a") is profiling._OFF
+    vit_spans("cpu", rounds=0)  # a ViT call with the tracer off
+    assert snapshot()["spans"] == []
+
+
+def vit_spans(device, rounds=1):
+    """The spans of one ``score_arrays`` call of two 32 px pairs through
+    the ViT regressor on ``device``, recorded with the tracer on; each
+    further round resets the tracer and records the call again (no
+    round: only the untraced call, and None)."""
+    model = make_global_model(VIT_CFG, torch.Generator().manual_seed(4))
+    scorer = PairScorer(VIT_CFG, model, batch_size=2, device=device)
+    rng = np.random.default_rng(5)
+    a, b = (rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+            for _ in range(2))
+    scorer.score_arrays(a, b)  # off: nothing recorded
+    spans = None
+    for _ in range(rounds):
+        profiling.reset()
+        profiling.enable()
+        scorer.score_arrays(a, b)
+        profiling.disable()
+        spans = snapshot()["spans"]
+    return spans
+
+
+def vit_blocks(spans):
+    """``(block span, its one attention span)`` of each block, in order."""
+    ids = by_id(spans)
+    (root,) = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "srsem.score"
+    blocks = [s for s in spans if s["name"] == "srsem.vit.block"]
+    assert [s["attrs"] for s in blocks] == [{"block": i}
+                                            for i in range(12)] * 2
+    out = []
+    for blk in blocks:
+        assert blk["call"] == root["id"]
+        assert ids[blk["parent"]]["name"] == "srsem.tower"
+        children = [s for s in spans if s["parent"] == blk["id"]]
+        assert names(children) == ["srsem.vit.attention"]
+        assert children[0]["attrs"] == {}
+        out.append((blk, children[0]))
+    return out
+
+
+def test_vit_records_each_block_and_its_attention():
+    spans = vit_spans("cpu")
+    pairs = vit_blocks(spans)
+    assert len(pairs) == 24
+    for blk, att in pairs:  # the attention core lies inside its block
+        assert blk["t0_ns"] <= att["t0_ns"] <= att["t1_ns"] <= blk["t1_ns"]
+    assert not any("device_ms" in s for s in spans)  # host spans only
+
+
+@pytest.mark.cuda
+def test_vit_spans_annotate_the_card_trace():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m cuda on the H100)")
+    assert len(vit_blocks(vit_spans("cuda", rounds=2))) == 24
+    # Under a running profiler the spans record and annotate its trace.
+    with torch.profiler.profile() as prof:
+        vit_spans("cuda", rounds=0)
+    got = [e.key for e in prof.key_averages()]
+    assert "srsem.vit.block" in got and "srsem.vit.attention" in got
