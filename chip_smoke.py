@@ -44,7 +44,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
              (shared head) 12 at depth 11, and stages_vit grouped at G =
              16, K = 4 and at G = 8, K = 8 (the instance streaming the
              most SR images), each line with the plan's vec flags and
-             steps.
+             steps.  The ViT attention kernel at the vit path's qkv
+             (64, 197, 2304) bf16 against its plain version (99.9% of the
+             elements equal, none both over a bf16 ulp off and farther
+             from the float64 attention than the plain path), timed beside
+             it, beside
+             ``F.scaled_dot_product_attention`` with the heads' merge (a
+             yardstick the port never calls) and its bytes bound.
 4. slice   — the full-width flagship scorer GlobalModelConfig(resnet50,
              224, bfloat16, stages_cnn, depth 3) with seeded random
              weights: PairScorer.score_paths over synthetic JPEG/PNG pairs
@@ -195,17 +201,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
              px, bf16 tower, float32 taps), seeded weights: the tower as a
              timm state dict through ``convert --kind clip_vit`` (bits
              equal after the round trip); score_paths with the counts reset
-             just before and read just after (one head launch a batch, no
-             bottleneck launch; NaN on exactly the corrupt row); float32
+             just before and read just after (one head launch a batch, 24
+             attention launches: 12 blocks of two passes; no bottleneck
+             launch; NaN on exactly the corrupt row); float32
              kernel path against the module (TF32 off, 1e-3); pairs/s at
              batch 64 and a profile (busy share; device ms for GEMMs,
-             attention, copies and casts, other elementwise, the head);
+             the attention kernel, copies and casts, other elementwise,
+             the head);
              GroupedPairScorer at G = 16, K = 4 (pairs/s, float32 against
              pairwise, 1e-4); ``score-groups --set head=wperlay_vit --set
              depth=11`` and ``score --backbone-checkpoint`` (subprocesses,
              one corrupt file each); a frozen and an enc_ft train step at
-             batch 5 (ms a step); the plain attention against
-             ``F.scaled_dot_product_attention`` on the same q, k, v.
+             batch 5 (ms a step).
 15. nr_train — ``train-nr-iqa`` at its defaults (224 px, batch 8,
              float32 tower) for one epoch over 32 images (three steps and
              a validation batch: four float32 tower passes of 8), the
@@ -393,6 +400,15 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulps(torch, got, want):
+    """|got - want| in units of the bf16 spacing at max(|got|, |want|)."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    diff = (got - want).abs()
+    return torch.where(diff == 0, torch.zeros_like(diff),
+                       diff / torch.ldexp(torch.ones_like(diff), e - 8))
 
 
 # Main-path shapes at 224 px, per path ("global": the global scorer at
@@ -820,6 +836,77 @@ def check_kernels(torch):
             *((ms, plain, lib, bms) if on_path else (0, 0, 0, 0)), by,
             int(on_path))
         del tg, ts
+
+    # -- ViT attention core (CUDA C++) ------------------------------------
+    # One bf16 ViT-B/16 pass's qkv output (197 tokens, 12 heads of 64) at
+    # each path's batch: the vit path's 64, 24 launches a scored batch (12
+    # blocks, the GT and the SR pass); the saliency path's SLIP image
+    # tower at DUAL_EMBED_BATCH, 12 launches an embedding batch.  Bytes
+    # bound it: the qkv output read once, the merged heads written once.
+    from srsem_torch.ops import fused_attention as fa
+
+    heads = VIT_TOKENS[1] // fa.HEAD_DIM
+
+    def check_attention(batch):
+        """The kernel at ``batch`` against its plain version (and float64),
+        and its times; returns add()'s err, ms, plain, lib, bms, by."""
+        qkv = randn(batch, VIT_TOKENS[0], 3 * VIT_TOKENS[1]).to(
+            torch.bfloat16)
+        attend = lambda: fa.fused_attention(qkv, heads, 8.0)  # noqa: E731
+        got, want = attend(), fa.plain_attention(qkv, heads, 8.0)
+        q, k, v = (qkv.reshape(batch, VIT_TOKENS[0], 3, heads, fa.HEAD_DIM)
+                   [:, :, i].transpose(1, 2) for i in range(3))
+        # The float32 sums run in another order than the plain path's:
+        # where a score's sum lands on the other side of a bf16 rounding
+        # boundary, its row moves by more than an ulp.  Held as the card
+        # test holds it: 99.9% of the elements equal, and no element both
+        # over an ulp off and farther from the float64 attention than the
+        # plain path's farthest.
+        with torch.no_grad():
+            qd, kd, vd = q.double(), k.double(), v.double()
+            exact = (torch.softmax(qd @ kd.transpose(-1, -2) / 8.0, dim=-1)
+                     @ vd).transpose(1, 2).reshape(got.shape)
+            del qd, kd, vd
+        equal = float((got == want).float().mean())
+        far = (got.double() - exact).abs()
+        limit = float((want.double() - exact).abs().max()) + 2.0 ** -9
+        ulps = bf16_ulps(torch, got, want)
+        off = int(((ulps > 1.0) & (far > limit)).sum())
+        far_max = float(far.max())
+        err = float((got.float() - want.float()).abs().max())
+        if equal < 0.999 or off or not torch.equal(attend(), got):
+            raise AssertionError(
+                f"attention kernel at batch {batch}: {equal} of the elements "
+                f"equal the plain version's, {off} past the plain path's "
+                "distance from float64 (or two launches differ)")
+        del exact, far, ulps
+        ms = cuda_ms(torch, attend, 50)
+        dev_ms = launch_ms(torch, attend, "fused_attention", 1)
+        plain = cuda_ms(torch, lambda: fa.plain_attention(qkv, heads, 8.0),
+                        10)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)
+                      .transpose(1, 2).reshape(got.shape), 10)
+        bms, by = bound(2 * (qkv.numel() + got.numel()),
+                        4 * batch * heads * VIT_TOKENS[0] ** 2 * fa.HEAD_DIM,
+                        BF16_TC_FLOPS)
+        line = dict(qkv=list(qkv.shape), heads=heads, dtype="bfloat16",
+                    equal_share=equal, max_abs_err=err,
+                    max_abs_err_vs_float64=far_max, plain_vs_float64=limit,
+                    tolerance="99.9% equal; the rest within an ulp or no "
+                    "farther from float64 than the plain path", ms=ms,
+                    launch_ms=dev_ms and dev_ms[0], plain_ms=plain,
+                    library_ms=lib, bound_ms=bms, bound_by=by)
+        return line, (err, ms, plain, lib, bms, by)
+
+    checked = {}
+    for path, batch, count in (("vit", BATCH, 24),
+                               ("saliency", DUAL_EMBED_BATCH, 12)):
+        if batch not in checked:
+            checked[batch] = check_attention(batch)
+        line, parts = checked[batch]
+        emit("kernel", name="fused_attention", path=path, on_main_path=True,
+             **line, launches_per_batch=count)
+        add("fused_attention", path, *parts, count)
 
     # -- bottleneck (CUDA C++) -------------------------------------------
     def weights(c, wd):
@@ -3713,16 +3800,21 @@ def vit_model(torch, np, cfg, seed: int = 0):
 VIT_GEMMS = ("aten::addmm", "aten::mm", "aten::cudnn_convolution",
              "aten::convolution", "aten::_convolution")
 VIT_ATTENTION = ("aten::bmm", "aten::_softmax", "aten::softmax")
+# Kernels launched through ctypes (no aten operation): group by name.
+VIT_KERNELS = {"fused_head": "head kernel",
+               "fused_attention": "attention kernel"}
 
 
 def profile_vit(torch, fn, reps: int = 3) -> dict:
     """torch.profiler over ``reps`` calls of ``fn``: the device's busy
     share of the host wall time (the union of the device events) and
     device ms a call by group: the GEMMs (the Linears and the patch conv),
-    attention (its batched matrix products and softmax), copies and casts
-    (``aten::copy_``: the host-to-device copy and the dtype casts), other
-    elementwise operations, and the head kernel (no aten operation: it is
-    launched through ctypes, so its time comes from its own events)."""
+    plain attention (its batched matrix products and softmax, where a block
+    takes the plain route), copies and casts (``aten::copy_``: the
+    host-to-device copy and the dtype casts), other elementwise
+    operations, and the attention and head kernels (no aten operation:
+    they are launched through ctypes, so their time comes from their own
+    events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3734,12 +3826,13 @@ def profile_vit(torch, fn, reps: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, head_us = [], 0.0
+    spans, kernel_us = [], dict.fromkeys(VIT_KERNELS.values(), 0.0)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
-            if "fused_head" in e.name:
-                head_us += e.time_range.end - e.time_range.start
+            for key, group in VIT_KERNELS.items():
+                if key in e.name:
+                    kernel_us[group] += e.time_range.end - e.time_range.start
     if not spans:
         return {"busy_share": None, "note": "the profiler saw no device "
                 "events: device time not measured"}
@@ -3749,8 +3842,9 @@ def profile_vit(torch, fn, reps: int = 3) -> dict:
             busy, last = busy + end - start, end
         elif end > last:
             busy, last = busy + end - last, end
-    groups = {"GEMMs": 0.0, "attention": 0.0, "copies and casts": 0.0,
-              "other elementwise": 0.0, "head kernel": head_us / reps / 1e3}
+    groups = {"GEMMs": 0.0, "plain attention": 0.0, "copies and casts": 0.0,
+              "other elementwise": 0.0,
+              **{g: us / reps / 1e3 for g, us in kernel_us.items()}}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -3758,7 +3852,7 @@ def profile_vit(torch, fn, reps: int = 3) -> dict:
         if not us or not e.key.startswith("aten::"):
             continue
         g = ("GEMMs" if e.key in VIT_GEMMS else
-             "attention" if e.key in VIT_ATTENTION else
+             "plain attention" if e.key in VIT_ATTENTION else
              "copies and casts" if e.key == "aten::copy_" else
              "other elementwise")
         groups[g] += us / reps / 1e3
@@ -3778,17 +3872,15 @@ def run_vit(torch, np, card: str):
     module; score_arrays pairs/s at batch 64 and a profile; the grouped
     scorer at G = 16, K = 4 (pairs/s, float32 against pairwise) and
     ``score-groups --set head=wperlay_vit --set depth=11``; one frozen and
-    one enc_ft train step at batch 5; the plain attention against
-    ``F.scaled_dot_product_attention`` (a yardstick the port never
-    calls).  Returns {kernel: launches in the score_paths run}."""
+    one enc_ft train step at batch 5.  Returns {kernel: launches in the
+    score_paths run}."""
     import dataclasses
     import shutil
-
-    import torch.nn.functional as F
 
     from srsem_torch.config import BackboneConfig, GlobalModelConfig
     from srsem_torch.eval.grouped import GroupedPairScorer
     from srsem_torch.eval.scorer import PairScorer
+    from srsem_torch.ops import fused_attention as fa
     from srsem_torch.ops import fused_bottleneck as fb
     from srsem_torch.ops import fused_head as fh
     from srsem_torch.train.loop import batch_to_device, build_training
@@ -3832,19 +3924,23 @@ def run_vit(torch, np, card: str):
 
         pairs = write_pairs(np, tmp, 8)
         fh.fused_global_score.launches = 0
+        fa.fused_attention.launches = 0
         zero_launches(fb)
         t0 = time.perf_counter()
         scores = scorer.score_paths(pairs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"fused_stage_score": fh.fused_global_score.launches}
+        launches = {"fused_stage_score": fh.fused_global_score.launches,
+                    "fused_attention": fa.fused_attention.launches}
         bottleneck = read_launches(torch, fb)
         batches = -(-len(pairs) // BATCH)
         nan = np.isnan(scores)
         if not (nan[-1] and not nan[:-1].any() and (scores[:-1] > 0).all()):
             raise AssertionError(f"vit score_paths: want NaN on exactly the "
                                  f"corrupt last row, got {scores.tolist()}")
-        if launches["fused_stage_score"] != batches or any(bottleneck.values()):
+        if launches["fused_stage_score"] != batches or \
+                launches["fused_attention"] != 24 * batches or \
+                any(bottleneck.values()):
             raise AssertionError(f"vit path launched {launches} and "
                                  f"{bottleneck} in {batches} batches")
         emit("vit", step="score_paths", pairs=len(pairs), seconds=seconds,
@@ -3989,26 +4085,6 @@ def run_vit(torch, np, card: str):
              losses=losses, card=card)
         del tmodel, steps
 
-    # Yardstick: the port's plain attention against one fused PyTorch call
-    # on the same q, k, v (bf16, a batch's 128 images, 12 heads).
-    g = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn(2 * BATCH, 12, VIT_TOKENS[0], 64, device=dev,
-                           generator=g, dtype=torch.bfloat16)
-               for _ in range(3))
-
-    def plain_attention():
-        s = (q @ k.transpose(-1, -2)) / 8.0
-        return torch.softmax(s.float(), dim=-1).to(q.dtype) @ v
-
-    err = float((plain_attention().float() - F.scaled_dot_product_attention(
-        q, k, v).float()).abs().max())
-    flops = 4 * q.shape[0] * 12 * VIT_TOKENS[0] ** 2 * 64
-    bms, by = bound(4 * q.numel() * 2, flops, BF16_TC_FLOPS)
-    emit("vit", step="attention_yardstick", shape=list(q.shape),
-         plain_ms=cuda_ms(torch, plain_attention, 10),
-         sdpa_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-             q, k, v), 10), bound_ms=bms, bound_by=by, max_abs_diff=err,
-         layers_per_pass=12, card=card)
     return launches
 
 
@@ -4506,10 +4582,11 @@ def run_explain(torch, np, card: str):
     (rank 5) over EXPLAIN_PAIRS pairs with the cosine target, Grad-CAM on
     ``stages.3.2.act`` of the module tower in bf16 and LPIPS, the counts
     reset just before and read just after (the explain path: 11 tower
-    passes at batch 1 a pair).  Rates and times: pairs/s of
+    passes at batch 1 a pair; no attention kernel).  Rates and times: pairs/s of
     ``compute_embedding_sim_metrics`` with and without Grad-CAM and tags/s
     (``steady_rate``), ms a CAM (the ResNet, and a ViT-B/16 on
-    ``blocks.11.ls2``, grid 14x14), ms a cell of a 4 x 4
+    ``blocks.11.ls2``, grid 14x14, whose frozen bf16 blocks take the
+    attention kernel: 12 launches a CAM, checked), ms a cell of a 4 x 4
     ``grad_cam_matrix``, ms an ADMM step and the steps of one l1 solve at
     c = 10,000, ms a rank search.  Where a pair with Grad-CAM spends its
     time: each part of ``compute_embedding_sim_metrics`` timed alone, and
@@ -4612,6 +4689,7 @@ def run_explain(torch, np, card: str):
 
         data = []
         zero_launches(fb)
+        kernel_wrappers()["fused_attention"].launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for hq, sr in pairs:
@@ -4634,8 +4712,11 @@ def run_explain(torch, np, card: str):
             np.isfinite([r["score"], r["ssim"], r["psnr"], r["lpips"],
                          r["gcam_saliency_ssim"], r["gcam_hqgcam_psnr"]])
             .all() and 0 <= r["hqgcam_overlap_gradcam"] <= 100)]
-        if launches != want or methods != per_pair * EXPLAIN_PAIRS or bad:
+        attention = kernel_wrappers()["fused_attention"].launches
+        if launches != want or methods != per_pair * EXPLAIN_PAIRS or bad \
+                or attention:
             raise AssertionError(f"explain drivers: launched {launches} "
+                                 f"and {attention} attention kernels "
                                  f"(want {want}), methods {methods}, "
                                  f"bad rows {bad[:1]}")
         emit("explain", step="drivers", pairs=EXPLAIN_PAIRS, rows=len(data),
@@ -4681,10 +4762,21 @@ def run_explain(torch, np, card: str):
         vit.reset_parameters(torch.Generator(device=dev).manual_seed(35))
         vit_target = cosine_similarity_target(
             rng.standard_normal(768).astype(np.float32))
+        # The frozen bf16 ViT's blocks all take the attention kernel under
+        # Grad-CAM (the tap follows block 11's attention): 12 launches a
+        # CAM, 11 CAMs (timed's warm-up and 10).
+        fa = kernel_wrappers()["fused_attention"]
+        fa.launches = 0
         vit_ms = timed(lambda: grad_cam(
             lambda x, o: vit(enc.normalize(x), tap_offsets=o), imgs[0],
             "blocks.11.ls2", vit_target, (IMAGE, IMAGE),
             (IMAGE // 16, IMAGE // 16)), 10)
+        vit_cam_launches = fa.launches
+        if vit_cam_launches != len(vit.blocks) * 11:
+            raise AssertionError(f"explain: the ViT-B/16 Grad-CAM launched "
+                                 f"the attention kernel {vit_cam_launches} "
+                                 f"times in 11 CAMs (want "
+                                 f"{len(vit.blocks) * 11})")
         embs = torch.cat([enc.encode_image(x) for x in imgs]).float()
         t0 = time.perf_counter()
         grid = grad_cam_matrix(cam_fn, imgs, embs, CAM_TAP,
@@ -4718,7 +4810,9 @@ def run_explain(torch, np, card: str):
              seconds_timed_no_gradcam=plain_rate[2], tags_per_s=tag_rate[0],
              tags_timed=len(every) * tag_rate[1],
              tags_seconds_timed=tag_rate[2], ms_cam_resnet_bf16=cam_ms,
-             ms_cam_vit_b16_bf16=vit_ms, ms_matrix_cell=cell_ms,
+             ms_cam_vit_b16_bf16=vit_ms,
+             vit_cam_attention_launches=vit_cam_launches,
+             ms_matrix_cell=cell_ms,
              admm_concepts=N_CONCEPTS, admm_l1=l1, admm_steps=steps,
              admm_nonzeros=int(torch.count_nonzero(w)),
              ms_admm_solve=solve_s * 1e3, ms_per_admm_step=solve_s / steps
@@ -4865,15 +4959,17 @@ DUAL_EMBED_BATCH, ALBEF_SIZE, ITM_CAPTIONS, ITM_TOKENS = 64, 384, 16, 30
 KERNEL_WRAPPERS = ("fused_stage_score", "fused_global_score",
                    "fused_grouped_score", "fused_bottleneck",
                    "fused_bottleneck_tiled", "fused_decoder_level",
-                   "fused_decoder_level_tiled")
+                   "fused_decoder_level_tiled", "fused_attention")
 
 
 def kernel_wrappers():
     """Every kernel wrapper with a launch count, by name."""
-    from srsem_torch.ops import fused_bottleneck, fused_decoder, fused_head
+    from srsem_torch.ops import (fused_attention, fused_bottleneck,
+                                 fused_decoder, fused_head)
 
     return {name: getattr(mod, name) for mod in (fused_head, fused_bottleneck,
-                                                 fused_decoder)
+                                                 fused_decoder,
+                                                 fused_attention)
             for name in KERNEL_WRAPPERS if hasattr(mod, name)}
 
 
@@ -4917,8 +5013,14 @@ def run_saliency(torch, np, card: str):
     EmbedderSuite of the SLIP encoder (Grad-CAM on blocks.11.ls2) against
     the SaliencyMaps tree the CLI wrote (the ``*_saliency_*`` keys).  The
     launch counts of every kernel wrapper are reset just before and read
-    just after: no kernel lies on this path (the JAX package runs it as
-    plain XLA), so every count must be 0.  Rates (``steady_rate``):
+    just after: the JAX package runs this path as plain XLA, so no kernel
+    but the ViT attention core's launches; SLIP's frozen bf16 tower at
+    T = 197 takes it in each of its 12 blocks a pass (Grad-CAM's passes
+    too: the tap follows block 11's attention), so its count must be 12
+    a SLIP tower pass (a forward pre-hook counts them; the first is the
+    batch of DUAL_EMBED_BATCH, 12 launches alone) and every other count 0.
+    ALBEF's float32 DeiT at 577 tokens takes the plain route.  Rates
+    (``steady_rate``):
     TranSalNet images/s at batch 1 with a profile of one image (busy share,
     top device kernels, the host's top operations), SLIP image embeddings/s
     at batch 64 and texts/s, ALBEF image embeddings/s at batch 64, ITM
@@ -4927,7 +5029,8 @@ def run_saliency(torch, np, card: str):
     value; SLIP (a float32 copy of its tower), ALBEF and the ITM
     probabilities of four captions on the card against the CPU within
     1e-3 of the largest.  The models are built and drawn on the card.
-    Returns the path's launch counts (all zero)."""
+    Returns the SLIP embedding batch's launches ({"fused_attention": 12},
+    the batch check_kernels times at DUAL_EMBED_BATCH)."""
     import os
 
     from PIL import Image
@@ -5021,6 +5124,11 @@ def run_saliency(torch, np, card: str):
     itm_caps = captions[:ITM_CAPTIONS]
 
     wrappers = kernel_wrappers()
+    attention = wrappers["fused_attention"]
+    blocks = len(slip.vit.blocks)
+    vit_passes = []
+    hook = slip.vit.register_forward_pre_hook(
+        lambda module, args: vit_passes.append(args[0].shape[0]))
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -5028,7 +5136,11 @@ def run_saliency(torch, np, card: str):
     res = cli_json(["saliency", "--images", str(hq_dir), "--out", str(out),
                     "--random-init"])
     lap("cli")
-    embs = {"slip_image": slip.encode_image(x_slip),
+    slip_image = slip.encode_image(x_slip)
+    # The SLIP embedding batch alone: its bf16 tower at T = 197 takes the
+    # attention kernel in every block.
+    batch_launches = {"fused_attention": attention.launches}
+    embs = {"slip_image": slip_image,
             "slip_text": slip.encode_text(captions),
             "albef_image": albef.encode_image(x_albef),
             "albef_text": albef.encode_text(captions)}
@@ -5044,6 +5156,7 @@ def run_saliency(torch, np, card: str):
         os.chdir(cwd)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    hook.remove()
     lap("path_after_cli")
 
     maps = {p.stem: np.load(p) for p in sorted(out.glob("*.npy"))}
@@ -5059,7 +5172,12 @@ def run_saliency(torch, np, card: str):
                  "hqgcam_overlap_saliency", "gradcam_vsoverlap_saliency",
                  "saliency_vsoverlap_gradcam", "gradcam_overlap_saliency"}
     shapes = {k: tuple(v.shape) for k, v in embs.items()}
-    if (any(launches.values()) or res["written"] != len(SALIENCY_SOURCES)
+    others = {k: v for k, v in launches.items() if k != "fused_attention"}
+    if (any(others.values())
+            or batch_launches["fused_attention"] != blocks
+            or vit_passes[:1] != [DUAL_EMBED_BATCH]
+            or launches["fused_attention"] != blocks * len(vit_passes)
+            or res["written"] != len(SALIENCY_SOURCES)
             or len(maps) != len(SALIENCY_SOURCES) or not shapes_ok
             or not in_range or meta != {"geometry": "pad",
                                         "channel_order": "bgr",
@@ -5074,10 +5192,14 @@ def run_saliency(torch, np, card: str):
             or p_match.shape != (ITM_CAPTIONS,)
             or not ((p_match >= 0) & (p_match <= 1)).all()):
         raise AssertionError(
-            f"saliency path: launched {launches}, CLI {res}, maps "
+            f"saliency path: launched {launches} ({batch_launches} in the "
+            f"SLIP batch) over SLIP tower passes of {vit_passes}, CLI {res}, "
+            f"maps "
             f"{ {k: m.shape for k, m in maps.items()} }, meta {meta}, "
             f"saliency keys {sal_keys}, embeddings {shapes}, ITM {p_match}")
-    emit("saliency", step="path", launches=launches, cli=res,
+    emit("saliency", step="path", launches=launches,
+         slip_batch_launches=batch_launches, slip_tower_passes=vit_passes,
+         cli=res,
          seconds=dict(lap.seconds), map_shapes={k: list(m.shape)
                                           for k, m in maps.items()},
          map_range=[float(min(m.min() for m in maps.values())),
@@ -5164,7 +5286,7 @@ def run_saliency(torch, np, card: str):
     emit("saliency", step="f32_card_vs_cpu", max_abs_err=errs, scale=scale,
          tolerance="1e-3 of the largest value",
          transalnet_map_std=float(cpu_map.std()), seconds=lap.seconds)
-    return launches
+    return batch_launches
 
 
 # Stack frame bytes of each head-kernel instance (dtype 0 f32, 1 bf16,
@@ -5637,9 +5759,9 @@ def main() -> int:
     # (the CLIP tower's stride-1 blocks are the ImageNet ones, batch 64).
     # The sweeps path's passes run the train path's tower shapes, timed
     # for it in check_kernels; the finetune path trains the tower as the
-    # module and runs no kernel (its run checks that), and neither does
-    # the saliency path (plain XLA in the JAX package; its run checks
-    # that every count stayed 0).
+    # module and runs no kernel (its run checks that).  The saliency path
+    # (plain XLA in the JAX package) launches only the ViT attention
+    # kernel, in SLIP's tower: check_kernels times its embedding batch.
     for name in BOTTLENECK:
         summary[(name, "wperlay")] = summary[(name, "global")]
     # The mesh path runs one global and one CLU scored batch and one train
@@ -5652,7 +5774,7 @@ def main() -> int:
                                           summary[(name, "train")])
     for name in ("fused_decoder_level", "fused_decoder_level_tiled"):
         summary[(name, "mesh")] = summary[(name, "clu")]
-    del runs["precision"], runs["finetune"], runs["saliency"]
+    del runs["precision"], runs["finetune"]
     for path, launches in runs.items():
         missing = [k for k, v in launches.items() if v <= 0]
         if missing:
@@ -5678,6 +5800,8 @@ def main() -> int:
         "fused_decoder_level_tiled": ("cuda",
                                       "srsem_torch/csrc/fused_decoder.cu",
                                       "srsem/ops/fused_decoder.py:243"),
+        "fused_attention": ("cuda", "srsem_torch/csrc/fused_attention.cu",
+                            "none: the JAX package leaves attention to XLA"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

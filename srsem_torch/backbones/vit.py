@@ -21,8 +21,13 @@ Casts follow the JAX package exactly:
   (ALBEF's DeiT towers) the stream stays in the compute dtype;
 * attention: the scores' matrix product and the division by
   ``sqrt(head_dim)`` in the compute dtype, the softmax in float32, cast
-  back.  Plain PyTorch matrix products, as the JAX package leaves
-  attention to XLA: no attention kernel;
+  back.  The JAX package leaves it to XLA; the port computes it, from the
+  qkv output to the heads merged, in one launch of its own kernel
+  (srsem_torch/ops/fused_attention.py) where ``attention_route`` sees
+  bf16 on CUDA, heads of 64, at most 256 tokens and no gradient needed
+  (ViT-B/16 and SLIP scoring at 224 px), with the same rounding points,
+  and in plain PyTorch elsewhere (float32 towers such as ALBEF's, longer
+  token rows, Grad-CAM and tower training);
 * GELU is exact; ``quick_gelu`` (OpenAI checkpoints) stays an option,
   which ``make_backbone`` never passes, as in JAX.
 
@@ -31,8 +36,9 @@ interpolated to the input's patch grid on every call.
 
 Spans (srsem_torch/utils/profiling.py): ``srsem.vit.block`` (``block``)
 over each block and its residual add, and inside it
-``srsem.vit.attention`` over the attention core, from the scores'
-product to the heads' merge (the qkv and proj Linears stay outside it).
+``srsem.vit.attention`` (``route``: ``kernel`` or ``plain``) over the
+attention core, from the scores' product to the heads' merge (the qkv and
+proj Linears stay outside it).
 
 ``forward(x, tap_offsets)`` adds an optional ``{"blocks.{l}.ls2": (N, 1 +
 patches, width)}`` offset to that block's branch before the residual add,
@@ -50,6 +56,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from srsem_torch.backbones.resnet import tap_offset
+from srsem_torch.ops.fused_attention import (
+    attention_route,
+    fused_attention,
+    plain_attention,
+)
 from srsem_torch.ops.image import interpolate_pos_embed
 from srsem_torch.utils.profiling import span
 
@@ -123,16 +134,12 @@ class ViTBlock(nn.Module):
         self.mlp = _Mlp(width)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
-        n, t, c = x.shape
-        hd = c // self.heads
         h = _layer_norm(x, self.norm1).to(self.dtype)
-        qkv = _linear(h, self.attn.qkv).reshape(n, t, 3, self.heads, hd)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (n,h,t,d)
-        with span("srsem.vit.attention"):
-            attn = (q @ k.transpose(-1, -2)) / self.scale
-            # The float32 softmax upcasts its input itself: one pass fewer.
-            attn = torch.softmax(attn, dim=-1, dtype=torch.float32).to(self.dtype)
-            h = (attn @ v).transpose(1, 2).reshape(n, t, c)
+        qkv = _linear(h, self.attn.qkv)
+        route = attention_route(qkv, self.heads)
+        with span("srsem.vit.attention", route=route):
+            core = fused_attention if route == "kernel" else plain_attention
+            h = core(qkv, self.heads, self.scale)
         # The sum promotes the compute-dtype branch to the stream's dtype
         # (JAX casts it first: the same values, one pass fewer).
         x = x + _linear(h, self.attn.proj)

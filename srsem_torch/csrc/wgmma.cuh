@@ -13,7 +13,7 @@
 //
 // The tensor-map encoders come from libcuda through the runtime's entry
 // point query, so a library that includes this header links no -lcuda.
-// Users: conv_wgmma.cuh.
+// Users: conv_wgmma.cuh, fused_attention.cu.
 
 #pragma once
 
@@ -169,10 +169,20 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       : "memory");
 }
 
+// Commit the stores issued so far; wait until every committed store has
+// read its box (a thread that stores several boxes waits once, before its
+// shared memory goes away).
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit_and_wait() {
-  asm volatile(
-      "cp.async.bulk.commit_group;\n"
-      "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  tma_store_commit();
+  tma_store_wait_read();
 }
 
 // ---- warpgroups ------------------------------------------------------------
@@ -310,6 +320,36 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= A . B for a 64 x 64 x 16 slice in bf16 with A from registers and
+// B MN-major: a[0..3] hold rows 16 * warp + lane / 4 (+8 for a[1], a[3])
+// by columns 2 * (lane % 4) + {0, 1} (+8 for a[2], a[3]) of the slice, two
+// bf16 a register, the lower column in the low half (mma.m16n8k16's A
+// fragment: the accumulator fragment of a 64 x 16 slice of d, rounded and
+// packed); B is 16 rows of k by 64 columns of n, one 128-byte swizzled line
+// a k (a tile as a TMA load of (k, n) rows writes it; the descriptor is
+// smem_desc's, read transposed).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 template <int N>

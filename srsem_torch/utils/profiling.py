@@ -156,6 +156,7 @@ def count(name: str, n: float = 1) -> None:
 
 
 def _launches() -> Dict[str, int]:
+    from srsem_torch.ops import fused_attention as fa
     from srsem_torch.ops import fused_bottleneck as fb
     from srsem_torch.ops import fused_decoder as fd
     from srsem_torch.ops import fused_head as fh
@@ -163,7 +164,7 @@ def _launches() -> Dict[str, int]:
     wrappers = (fb.fused_bottleneck, fb.fused_bottleneck_tiled,
                 fd.fused_decoder_level, fd.fused_decoder_level_tiled,
                 fh.fused_stage_score, fh.fused_global_score,
-                fh.fused_grouped_score)
+                fh.fused_grouped_score, fa.fused_attention)
     return {f"launches.{w.__name__}": w.launches for w in wrappers}
 
 
